@@ -1,8 +1,9 @@
 """paddle_tpu_torch.fluid — the user-facing API of the port.
 
 Mirrors ``paddle_tpu.fluid``: a Program IR built from Python layers, run
-by ``Executor(CUDAPlace(0))`` op by op on torch tensors.  Only the
-serving slice is ported (see ROADMAP.md's port queue).
+by ``Executor(CUDAPlace(0))`` op by op on torch tensors.  Ported so far:
+BERT-base serving and BERT-base pretraining with Adam (see ROADMAP.md's
+port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -21,6 +22,9 @@ from . import layers
 from . import initializer
 from .initializer import Constant, Uniform, Normal, TruncatedNormal, Xavier
 from .param_attr import ParamAttr
+from . import backward
+from .backward import append_backward, gradients
+from . import optimizer
 from . import convert
 from .convert import load_numpy_params
 from . import serving

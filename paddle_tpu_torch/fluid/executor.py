@@ -20,7 +20,7 @@ import torch
 
 from . import framework
 from .data_types import np_dtype, to_numpy, torch_dtype
-from .lowering import ExecState, run_block
+from .lowering import ExecState, plan_tape, run_block
 
 
 class Place:
@@ -197,6 +197,9 @@ class _DispatchPlan:
                                        if block.has_var(n) else None,
                                        device))
                      for n in feed_names]
+        # forward ops that record on the tape for their _grad op; empty
+        # for a program without grad ops (inference records nothing)
+        self.taped = plan_tape(block)
 
 
 class Executor:
@@ -257,8 +260,12 @@ class Executor:
         scope.step_counter += 1
         state = ExecState(program.blocks, step, program.random_seed,
                           self.device, is_test=program._is_test)
-        with torch.no_grad():
-            run_block(plan.block, env, state)
+        # only taped forward ops turn autograd on, inside run_block
+        try:
+            with torch.no_grad():
+                run_block(plan.block, env, state, plan.taped)
+        finally:
+            state.tape.clear()
         for n in plan.state_out:
             scope.set_var(n, env[n])
         missing = [n for n in plan.fetch_names if n not in env]

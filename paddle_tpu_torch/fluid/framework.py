@@ -34,6 +34,7 @@ class OpRole:
 
 
 OP_ROLE_KEY = "op_role"
+OP_ROLE_VAR_KEY = "op_role_var"
 
 
 class VariableType:
@@ -291,6 +292,17 @@ class Program:
         self._seed_counter += 1
         return self._seed_counter
 
+    # -- roles (used by backward and the optimizer) ------------------------
+    @contextlib.contextmanager
+    def _role_guard(self, role):
+        """Ops appended inside get ``role`` (OpRole.Backward for grad ops,
+        OpRole.Optimize for optimizer ops) as their ``op_role`` attr."""
+        prev_role, self._current_role = self._current_role, role
+        try:
+            yield
+        finally:
+            self._current_role = prev_role
+
     # -- cloning -----------------------------------------------------------
     def clone(self, for_test=False):
         """Deep-copy the program (reference Program.clone).
@@ -393,6 +405,10 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+def grad_var_name(name):
+    return name + "@GRAD"
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,20 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, **kwargs):
+        gb = self.main_program.global_block()
+        return gb.create_var(persistable=persistable, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """Also create + init the var in the startup program (optimizer
+        accumulators, the learning rate)."""
+        sb = self.startup_program.global_block()
+        if not sb.has_var_local(var.name):
+            sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                          persistable=True)
+            initializer(sb.vars[var.name], sb)
+        return var
+
     def append_op(self, *args, **kwargs):
         return self.block.append_op(*args, **kwargs)
 

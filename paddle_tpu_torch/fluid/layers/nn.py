@@ -59,8 +59,9 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
     """Embedding lookup (reference nn.py embedding → lookup_table op).
 
-    ``is_sparse`` selected SelectedRows grads in the reference; the port
-    runs inference only, so the flag is accepted and ignored.
+    ``is_sparse`` selected SelectedRows grads in the reference; the port's
+    (and the JAX package's) table gradient is dense, so the flag is
+    accepted and ignored.
     """
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, list(size), dtype)
@@ -124,6 +125,33 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
                             "dropout_implementation": dropout_implementation,
                             "__op_seed__":
                                 helper.main_program.next_op_seed()})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    softmax_out.shape = logits.shape
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    loss.shape = tuple(logits.shape[:-1]) + (1,)
+    helper.append_op("softmax_with_cross_entropy",
+                     inputs={"Logits": [logits], "Label": [label]},
+                     outputs={"Softmax": [softmax_out], "Loss": [loss]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index,
+                            "numeric_stable_mode": numeric_stable_mode})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (1,)
+    helper.append_op("mean", inputs={"X": [x]}, outputs={"Out": [out]})
     return out
 
 

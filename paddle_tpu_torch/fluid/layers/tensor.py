@@ -1,10 +1,12 @@
 """Tensor layers (reference: python/paddle/fluid/layers/tensor.py):
-``assign`` only, which BERT's causal composition path calls."""
+``assign``, which BERT's causal composition path calls, and
+``create_parameter``."""
 
 import numpy as np
 
 from ..layer_helper import LayerHelper
 from ..data_types import canonical_dtype
+from ..param_attr import ParamAttr
 
 
 def assign(input, output=None):
@@ -25,3 +27,15 @@ def assign(input, output=None):
     helper.append_op("assign", inputs={"X": [input]},
                      outputs={"Out": [output]})
     return output
+
+
+def create_parameter(shape, dtype, name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """Create a standalone trainable parameter (reference tensor.py
+    create_parameter)."""
+    helper = LayerHelper("create_parameter")
+    if attr is None:
+        attr = ParamAttr(name=name)
+    return helper.create_parameter(attr, list(shape), dtype,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer)

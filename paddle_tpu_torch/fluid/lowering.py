@@ -6,6 +6,19 @@ a name→tensor environment (the functional image of the reference's
 the port runs the same rules eagerly, op by op, on the executor's device;
 the kernels the TPU package wrote in Pallas are CUDA kernels here
 (``ops/attention_ops.py``).
+
+Gradients (counterpart ``generic_grad_lower``, paddle_tpu/fluid/
+lowering.py:332).  The JAX package replays a forward rule under
+``jax.vjp`` inside its ``_grad`` op and counts on XLA to merge the
+replay with the forward.  Eager torch would run every forward twice, so
+the port keeps a per-run **tape** instead: a forward op whose ``_grad``
+op is in the block runs under ``torch.enable_grad()`` on detached inputs
+(``requires_grad`` on the float inputs its grad op asks a gradient for)
+and leaves ``(leaves, outputs)`` on the tape under its output names; the
+``_grad`` op pops that entry and calls ``torch.autograd.grad``.  Each
+op's autograd graph is local to the op, the environment only ever holds
+detached tensors, and the executor clears the tape when ``run`` ends,
+also when it raises.
 """
 
 import torch
@@ -25,6 +38,9 @@ class ExecState:
         self.seed = seed        # program random seed
         self.device = device    # torch.device every op computes on
         self.is_test = is_test
+        # tape key -> [(leaves, outputs)] of taped forward ops whose
+        # _grad op has not run yet (tape_grad_lower pops them)
+        self.tape = {}
 
 
 class LowerCtx:
@@ -60,14 +76,15 @@ class LowerCtx:
         return self.op.attr(name, default)
 
     def generator(self):
-        """Explicit per-op ``torch.Generator`` on the run's device:
-        deterministic given (op ``seed`` attr) or, when that is 0,
-        (program seed, op seed, step).  The streams differ from JAX's
-        ``jax.random`` keys (paddle_tpu/fluid/lowering.py), so the two
-        packages' random draws never match; tests carry weights across
-        instead (convert.py)."""
+        """Explicit per-op ``torch.Generator`` on the run's device (Philox
+        on the card): deterministic given (op ``seed`` attr, also 0 when
+        ``fix_seed`` is set) or else (program seed, op seed, step).  The
+        streams differ from JAX's ``jax.random`` keys (paddle_tpu/fluid/
+        lowering.py), so the two packages' random draws never match;
+        tests carry weights across instead (convert.py) and compare
+        random ops by statistics."""
         seed = int(self.op.attr("seed", 0) or 0)
-        if not seed:
+        if not (seed or self.op.attr("fix_seed", False)):
             seed = ((int(self.state.seed) * 1000003 +
                      int(self.op.attr("__op_seed__", 0))) * 1000003 +
                     int(self.state.step)) % (2 ** 63)
@@ -76,21 +93,160 @@ class LowerCtx:
         return gen
 
 
-def run_block(block, env, state):
-    """Run every op of ``block`` through its lowering rule, in order."""
-    for op in block.ops:
-        dispatch(op, env, state, block)
+def run_block(block, env, state, taped=None):
+    """Run every op of ``block`` through its lowering rule, in order.
+    ``taped`` ({op index: input names}, from :func:`plan_tape`) names
+    the forward ops that record on the tape; None or empty runs no op
+    with autograd (inference)."""
+    taped = taped or {}
+    for i, op in enumerate(block.ops):
+        dispatch(op, env, state, block, taped.get(i))
 
 
-def dispatch(op, env, state, block):
+def dispatch(op, env, state, block, diff_names=None):
     if op.type in _STRUCTURAL_OPS:
         return
     ctx = LowerCtx(env, op, state, block)
     try:
-        get_op_def(op.type).lower(ctx, op)
+        if diff_names is not None:
+            _run_taped(ctx, op, diff_names)
+        elif op.type.endswith("_grad"):
+            tape_grad_lower(ctx, op)
+        else:
+            get_op_def(op.type).lower(ctx, op)
     except Exception as e:
         _enrich_op_error(e, op, env)
         raise
+
+
+# ---------------------------------------------------------------------------
+# The tape
+# ---------------------------------------------------------------------------
+
+def tape_key(outputs):
+    """Tape key of a forward op: its output slot map, as the grad op
+    carries it in ``__fwd_outputs__``."""
+    return tuple(sorted((slot, tuple(names))
+                        for slot, names in outputs.items()))
+
+
+def _grad_targets(op, fwd_def):
+    """(slot, idx, name) of the forward inputs the grad op ``op`` asks a
+    gradient for: a non-empty ``<slot>@GRAD`` output name and a slot the
+    op def does not declare non-differentiable (JAX lowering.py:350-366;
+    the float check happens at run time)."""
+    targets = []
+    for slot, names in op.attr("__fwd_inputs__").items():
+        if slot in fwd_def.nondiff_inputs:
+            continue
+        gnames = op.output(slot + "@GRAD")
+        for idx, name in enumerate(names):
+            if idx < len(gnames) and gnames[idx] and name:
+                targets.append((slot, idx, name))
+    return targets
+
+
+def plan_tape(block):
+    """{op index: input names to differentiate} for every forward op of
+    ``block`` whose ``_grad`` op is in the block; {} when there is none
+    (the executor then runs the block as inference)."""
+    wants = {}
+    for op in block.ops:
+        if not op.type.endswith("_grad") or \
+                op.attr("__fwd_outputs__") is None:
+            continue
+        fwd_def = get_op_def(op.type[:-len("_grad")])
+        names = wants.setdefault(tape_key(op.attr("__fwd_outputs__")), [])
+        for _, _, name in _grad_targets(op, fwd_def):
+            if name not in names:
+                names.append(name)
+    if not wants:
+        return {}
+    return {i: tuple(wants[tape_key(op.outputs)])
+            for i, op in enumerate(block.ops)
+            if not op.type.endswith("_grad") and
+            tape_key(op.outputs) in wants}
+
+
+def _run_taped(ctx, op, diff_names):
+    """Run a forward op with autograd on, on detached inputs, and leave
+    its (leaves, outputs) on the tape; the environment gets the outputs
+    detached."""
+    env = ctx.env
+    sub = {}
+    for names in op.inputs.values():
+        for n in names:
+            if n:
+                sub[n] = env[n]
+    leaves = {}
+    for n in diff_names:
+        if sub[n].is_floating_point():
+            leaves[n] = sub[n] = sub[n].detach().requires_grad_()
+    with torch.enable_grad():
+        get_op_def(op.type).lower(LowerCtx(sub, op, ctx.state, ctx.block),
+                                  op)
+    outs = {}
+    for names in op.outputs.values():
+        for n in names:
+            if n and n in sub:
+                outs[n] = sub[n]
+                env[n] = sub[n].detach()
+    ctx.state.tape.setdefault(tape_key(op.outputs), []).append(
+        (leaves, outs))
+
+
+def tape_grad_lower(ctx, op):
+    """The ``_grad`` op of any forward op: pop the forward's tape entry and
+    pull the output gradients in the environment back through its
+    autograd graph with ``torch.autograd.grad``.  Outputs with no
+    gradient in the environment contribute nothing (the JAX package
+    seeds them with zeros, lowering.py:386-399, which is the same sum);
+    an input that reaches no differentiated output gets zeros.  A name
+    that fills two differentiated slots gets its whole gradient in the
+    first and zeros in the others, so their ``sum`` counts it once, as
+    the JAX replay does."""
+    fwd_def = get_op_def(op.type[:-len("_grad")])
+    fwd_outputs = op.attr("__fwd_outputs__")
+    key = tape_key(fwd_outputs)
+    stack = ctx.state.tape.get(key)
+    if not stack:
+        raise RuntimeError(
+            "%s: its forward op left no tape entry (forward outputs %s); "
+            "a grad op runs only after its forward op in the same run"
+            % (op.type, fwd_outputs))
+    leaves, outs = stack.pop()
+    if not stack:
+        del ctx.state.tape[key]
+    env = ctx.env
+    ys, gys = [], []
+    for slot, names in fwd_outputs.items():
+        gnames = op.input(slot + "@GRAD")
+        for idx, name in enumerate(names):
+            gname = gnames[idx] if idx < len(gnames) else None
+            y = outs.get(name)
+            if not gname or gname not in env or y is None or \
+                    not y.requires_grad:
+                continue
+            g = env[gname].to(y.dtype)
+            if g.shape != y.shape:
+                # e.g. a (1,)-shaped loss grad seeding a 0-d output
+                g = g.reshape(y.shape)
+            ys.append(y)
+            gys.append(g)
+    xs = list(leaves.values())
+    grads = torch.autograd.grad(ys, xs, gys, allow_unused=True) \
+        if ys and xs else [None] * len(xs)
+    gmap = dict(zip(leaves, grads))
+    done = set()
+    for slot, idx, name in _grad_targets(op, fwd_def):
+        leaf = leaves.get(name)
+        if leaf is None:            # an integer input: no gradient
+            continue
+        g = gmap[name]
+        if g is None or name in done:
+            g = torch.zeros_like(leaf, requires_grad=False)
+        done.add(name)
+        env[op.output(slot + "@GRAD")[idx]] = g
 
 
 def _enrich_op_error(e, op, env):

@@ -5,3 +5,4 @@ from . import math_ops       # noqa: F401
 from . import tensor_ops     # noqa: F401
 from . import nn_ops         # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401

@@ -39,6 +39,21 @@ SIGNATURES = {
                  _i, _i, _i, _i, ctypes.c_float, _i, _p]),
         "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
+    "flash_attention_bwd": {
+        # (dtype, q, k, v, bias, bias strides b/h/q/k, heads, dout, lse,
+        #  delta, outputs..., BH, S_q, S_kv, D, scale, causal, stream)
+        #  -> cudaError_t; outputs: dq | dk, dv | dbias
+        "paddle_flash_attention_bwd_dq": (
+            _i, [_i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p, _p, _p,
+                 _p, _i, _i, _i, _i, ctypes.c_float, _i, _p]),
+        "paddle_flash_attention_bwd_dkv": (
+            _i, [_i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p, _p, _p,
+                 _p, _p, _i, _i, _i, _i, ctypes.c_float, _i, _p]),
+        "paddle_flash_attention_bwd_dbias": (
+            _i, [_i, _p, _p, _p, _p, _i64, _i64, _i64, _i64, _i, _p, _p, _p,
+                 _p, _i, _i, _i, _i, ctypes.c_float, _i, _p]),
+        "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
 }
 
 _lock = threading.Lock()

@@ -105,6 +105,28 @@ def _gelu(ctx, op):
                           approximate="tanh" if approx else "none"))
 
 
+@register_op("tanh")
+def _tanh(ctx, op):
+    ctx.set("Out", torch.tanh(ctx.i("X")))
+
+
+@register_op("sum")
+def _sum(ctx, op):
+    """Sum of the X list (gradient accumulation in backward.py), left to
+    right as math_ops.py:80."""
+    xs = [ctx.env[n] for n in op.input("X")]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.set("Out", out)
+
+
+@register_op("mean")
+def _mean(ctx, op):
+    # the reference mean_op emits a 1-element tensor, not a 0-d scalar
+    ctx.set("Out", torch.mean(ctx.i("X")).reshape((1,)))
+
+
 @register_op("softmax")
 def _softmax(ctx, op):
     ctx.set("Out", torch.softmax(ctx.i("X"), dim=ctx.attr("axis", -1)))

@@ -2,8 +2,9 @@
 
 Each op registers ``fn(ctx, op)`` that reads its inputs from the
 environment of torch tensors and writes its outputs back
-(``lowering.LowerCtx``).  The slice serves inference only, so there is no
-gradient machinery yet: ``<type>_grad`` ops are unknown here.
+(``lowering.LowerCtx``).  ``<type>_grad`` ops need no rule of their own:
+``lowering.tape_grad_lower`` differentiates the forward rule's own
+autograd graph, which the forward op recorded on the run's tape.
 """
 
 OP_DEFS = {}
@@ -15,9 +16,10 @@ class OpDef:
     def __init__(self, type, lower, nondiff_inputs=(), stop_gradient=False):
         self.type = type
         self.lower = lower
-        # input slots that never receive gradient (kept for the training
-        # slice, which adds the grad machinery that reads them)
+        # input slots that never receive gradient (integer labels, ids)
         self.nondiff_inputs = frozenset(nondiff_inputs)
+        # op produces no differentiable outputs at all (random fills,
+        # optimizer updates): backward.append_backward skips it
         self.stop_gradient = stop_gradient
 
 

@@ -1,6 +1,7 @@
-"""BERT encoder (counterpart paddle_tpu/models/bert.py): the configs and
-the encoder the port serves.  The pretraining heads and the training
-program are not ported yet.
+"""BERT-base (counterpart paddle_tpu/models/bert.py): the configs, the
+encoder the port serves, and the pretraining heads and program it
+trains (MLM + NSP losses, Adam), with the same ops and names as the JAX
+package.
 
 Reference shape: the Paddle LARK/ERNIE BERT program construction (the
 reference repo itself ships the transformer machinery it uses in
@@ -174,3 +175,53 @@ def bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg):
     for _ in range(cfg.num_layers):
         x = encoder_layer(x, attn_bias, cfg)
     return x
+
+
+def pretrain_heads(enc_out, mask_pos, cfg):
+    """MLM logits over masked positions + NSP logits over pooled [CLS].
+
+    ``mask_pos`` is int32 [B*max_pred, 1]: flat indices into the [B*S, H]
+    reshaped sequence output (the reference BERT uses the same flat-gather
+    trick to keep shapes static).
+    """
+    h = cfg.hidden_size
+    flat = fluid.layers.reshape(enc_out, [-1, h])
+    masked = fluid.layers.gather(flat, fluid.layers.reshape(mask_pos, [-1]))
+    masked = fluid.layers.fc(masked, h, act="gelu", param_attr=_param("mlm"))
+    masked = fluid.layers.layer_norm(masked)
+    # decode with the tied word embedding: [P, H] x [V, H]^T
+    word_emb = fluid.default_main_program().global_block().var("word_embedding")
+    mlm_logits = fluid.layers.matmul(masked, word_emb, transpose_y=True)
+
+    first_tok = fluid.layers.slice(enc_out, axes=[1], starts=[0], ends=[1])
+    pooled = fluid.layers.fc(fluid.layers.reshape(first_tok, [-1, h]),
+                             h, act="tanh", param_attr=_param("pool"))
+    nsp_logits = fluid.layers.fc(pooled, 2, param_attr=_param("nsp"))
+    return mlm_logits, nsp_logits
+
+
+def build_pretrain(cfg=None, lr=1e-4, max_pred_per_seq=20, optimizer=None):
+    """Full BERT pretraining program: encoder + MLM + NSP + Adam (or a
+    caller-supplied ``optimizer`` — e.g. RecomputeOptimizer/DGC wrappers;
+    it must expose ``minimize``)."""
+    cfg = cfg or base_config()
+    S = cfg.max_seq_len
+    src_ids = fluid.layers.data(name="src_ids", shape=[S, 1], dtype="int64")
+    pos_ids = fluid.layers.data(name="pos_ids", shape=[S, 1], dtype="int64")
+    sent_ids = fluid.layers.data(name="sent_ids", shape=[S, 1], dtype="int64")
+    input_mask = fluid.layers.data(name="input_mask", shape=[S, 1],
+                                   dtype="float32")
+    mask_pos = fluid.layers.data(name="mask_pos", shape=[1], dtype="int32")
+    mask_label = fluid.layers.data(name="mask_label", shape=[1], dtype="int64")
+    nsp_label = fluid.layers.data(name="nsp_label", shape=[1], dtype="int64")
+
+    enc_out = bert_encoder(src_ids, pos_ids, sent_ids, input_mask, cfg)
+    mlm_logits, nsp_logits = pretrain_heads(enc_out, mask_pos, cfg)
+
+    mlm_loss = fluid.layers.softmax_with_cross_entropy(mlm_logits, mask_label)
+    nsp_loss = fluid.layers.softmax_with_cross_entropy(nsp_logits, nsp_label)
+    loss = fluid.layers.mean(mlm_loss) + fluid.layers.mean(nsp_loss)
+    opt = optimizer or fluid.optimizer.AdamOptimizer(learning_rate=lr)
+    opt.minimize(loss)
+    return {"loss": loss, "mlm_logits": mlm_logits, "nsp_logits": nsp_logits,
+            "enc_out": enc_out, "optimizer": opt, "config": cfg}

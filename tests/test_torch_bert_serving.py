@@ -209,13 +209,21 @@ def test_default_place_is_the_card():
 
 
 def test_unported_routes_raise_naming_the_roadmap(pair):
-    """Train-mode dropout and the attention-dropout route are left for a
-    later slice: the training program raises, it does not compute
-    something else."""
+    """The training program (train-mode dropout) now runs on CPUPlace;
+    the routes still left for a later slice raise, naming ROADMAP.md,
+    instead of computing something else: loading a saved inference
+    model, and a fused_attention op stamped for sequence parallelism."""
     main = pair["pprogs"][0]
     exe = fluid.Executor(fluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        exe.run(main, feed=pair["feed"], fetch_list=[pair["penc"]],
-                scope=pair["pscope"])
+    got, = exe.run(main, feed=pair["feed"], fetch_list=[pair["penc"]],
+                   scope=pair["pscope"])
+    assert got.shape == pair["want"].shape and np.isfinite(got).all()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fluid.ServingExecutor.from_inference_model("model_dir")
+    sp = main.clone(for_test=True)
+    for op in sp.global_block().ops:
+        if op.type == "fused_attention":
+            op._set_attr("sp_axis", "sp")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        exe.run(sp, feed=pair["feed"], fetch_list=[pair["penc"]],
+                scope=pair["pscope"])
