@@ -9,8 +9,8 @@ non-zero exit (nothing is caught):
    versions; TF32 off for matmuls and convolutions.
 2. build: every CUDA kernel of the port, from paddle_tpu_torch/csrc/,
    with nvcc (one process per source, started together).
-3. bounds: the least time of the TPU kernels not yet ported (K1, K6) at
-   the shapes of their own paths, computed from their code.
+3. bounds: the least time of K1 and K6 at the shapes of their paths,
+   computed from their work (no device work).
 4. kernel: the flash-attention forward (K2) against its plain PyTorch
    version on the card — BERT-base shapes with a [B,1,S,S] padding bias
    in fp32 and bf16, causal with the LSE, a ragged cross case (S_q=77,
@@ -23,26 +23,49 @@ non-zero exit (nothing is caught):
    ragged cross 77 x 200 and D=128 — then their times at the training
    shape beside the plain versions, the SDPA backward and the bounds,
    and K2's with the LSE.
-6. slice: BERT-base (12 x 768, 12 heads, S=128, ~109M parameters, random
+6. kernel_conv: K1 (3x3 implicit-GEMM conv) against its plain version at
+   the four ResNet-50 3x3 stride-1 shapes, batch 256 in bf16 and batch 32
+   in fp32, with and without the BN+relu epilogue; then its time per
+   shape beside the plain version, cuDNN (F.conv2d, channels_last bf16;
+   never called by the port for these convs) and the bound.
+7. kernel_ln: K6 (row layer norm) against its plain version at
+   [4096, 768] fp32 and bf16 and a ragged [1000, 1000]; its time beside
+   the plain version, F.layer_norm and the bound.
+8. slice: BERT-base (12 x 768, 12 heads, S=128, ~109M parameters, random
    weights from a seed) built with the port's layers, cloned for test,
    started on CUDAPlace(0) and served through ServingExecutor(max_batch=8)
    — 24 requests of 1-8 rows with random true lengths — checked against
    the same rows run alone, against the matmul/softmax composition with
    the same weights, and against the port's CPU path on two rows; K2's
-   launch count must be 12 per dispatched batch, and no backward kernel
+   launch count must be 12 per dispatched batch, and no other kernel
    may launch.  Then a profile.
-7. train: BERT-base pretraining (build_pretrain: batch 32, 20 masked
+9. train: BERT-base pretraining (build_pretrain: batch 32, 20 masked
    positions, fp32, Adam lr 1e-4, hidden dropout 0.1, attention dropout
    0) through Executor, 2 warm-up and 8 timed steps on one synthetic
    batch: finite falling losses, 12 K2, 12 K3, 12 K4 and 0 K5 launches
    per step, ms per step, sequences/s, tokens/s, peak memory, one
    profiled step; then fused vs composition path and card vs the port's
    CPU path (batch 2) on the step-1 loss and named gradients.
-8. train_bias: an attention layer whose bias is a trainable [1,H,S,S]
+10. train_bias: an attention layer whose bias is a trainable [1,H,S,S]
    parameter — the path that launches K5 — against the composition path.
-9. train_attn_dropout: BERT with attention dropout 0.1 at 2 layers, the
+11. train_attn_dropout: BERT with attention dropout 0.1 at 2 layers, the
    composition route: finite losses, no flash kernel launched.
-10. kernels: one JSON line listing every ported kernel.
+12. resnet_train: bench.py's bench_resnet program built with the port —
+   ResNet-50 v1.5, 224 x 224, batch 256, pure bf16, Momentum 0.9 with
+   L2Decay 1e-4, lr 0.1, FLAGS_conv_pallas=1 — 2 warm-up and 8 timed
+   steps on one synthetic batch: finite falling losses, 13 K1 launches
+   per step and no other kernel, ms per step, images/s, peak memory.
+13. resnet_profile: one profiled ResNet-50 step: kernel time against
+   wall, device busy share, events, launch calls, top kernels.
+   resnet_check: step 1 from the startup weights, the K1 route against
+   the cuDNN route (flag off, bf16, batch 256) and the card against the
+   port's CPU path (fp32, batch 2), on the loss and chosen gradients,
+   each within the larger of its fixed bound and twice the spread of a
+   route that runs no K1 either.
+14. ln_path: a fused_layer_norm program forward and backward through
+   Executor: one K6 launch per run, and the gradients of the layer_norm
+   op's program.
+15. kernels: one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.
@@ -63,20 +86,26 @@ from paddle_tpu_torch.fluid.ops.attention_ops import (
     attention_delta, attention_reference, dbias_reference, dkv_reference,
     dq_reference, flash_attention, flash_attention_bwd_dbias,
     flash_attention_bwd_dkv, flash_attention_bwd_dq, recompute_p_dp)
-from paddle_tpu_torch.models import bert
+from paddle_tpu_torch.fluid.ops.conv_ops import (
+    conv3x3_bn_relu, conv3x3_bn_relu_reference)
+from paddle_tpu_torch.fluid.ops.norm_ops import (
+    layer_norm_reference, row_layer_norm)
+from paddle_tpu_torch.models import bert, resnet
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12      # tensor cores, dense (K1's bound)
+PEAK_BF16_FLOPS = 989e12      # tensor cores, dense (K1's bound in bf16)
 
 SEED = 1234
 # every kernel wrapper of the port, by the name the kernels line gives it
 KERNELS = {"flash_attention_fwd": flash_attention,
            "flash_attention_bwd_dq": flash_attention_bwd_dq,
            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-           "flash_attention_bwd_dbias": flash_attention_bwd_dbias}
+           "flash_attention_bwd_dbias": flash_attention_bwd_dbias,
+           "conv3x3_bn_relu": conv3x3_bn_relu,
+           "layer_norm": row_layer_norm}
 B, H, S, D = 8, 12, 128, 64             # BERT-base serving shape
 # Tolerances.  A query row whose every key is masked (a padding position:
 # BERT's mask adds -1e4 to all its scores) holds its scores at -1e4 + O(1),
@@ -103,12 +132,13 @@ def cuda_time_ms(fn, iters=50, warmup=20):
     bracket device work only, not Python's launch overhead.  The calls
     must also fit the device's queue of pending launches (about a
     thousand), or enqueueing blocks: while the host cannot get ahead,
-    the spin doubles and the count halves."""
+    the spin doubles and the count halves.  A call that waits for the
+    device inside never lets the host get ahead, and its timing fails."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     spin = 100_000_000                  # GPU cycles, ~50 ms at 2 GHz
-    while iters >= 5:
+    while iters >= 1:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         torch.cuda._sleep(spin)
@@ -123,8 +153,8 @@ def cuda_time_ms(fn, iters=50, warmup=20):
             return ev[1].elapsed_time(ev[2]) / iters
         spin *= 2
         iters //= 2
-    raise SystemExit("could not keep the host ahead of the device while "
-                     "timing %r" % (fn,))
+    raise SystemExit("could not keep the host ahead of the device "
+                     "while timing %r" % (fn,))
 
 
 def _check_no_host_sync(fn, spin=100_000_000):
@@ -577,49 +607,65 @@ def _masked_bounds(args, masked):
         dbias=ds_err)
 
 
-def _bound(nbytes, flops):
-    """The least time (ms) for fp32 work of ``flops`` moving ``nbytes``."""
+def _bound(nbytes, flops, peak_flops=PEAK_FP32_FLOPS):
+    """The least time (ms) for work of ``flops`` moving ``nbytes``, at
+    ``peak_flops`` (fp32 on the CUDA cores unless given)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 gflop=flops / 1e9, mbytes=nbytes / 1e6)
 
 
+# ResNet-50 v1.5's 3x3 stride-1 pad-1 convs (the ones K1 takes behind
+# FLAGS_conv_pallas): (H = W, C = O, convs per step) — the 3x3 conv of
+# each bottleneck block but the first of stages 2-4 (stride 2)
+RESNET_K1_SHAPES = ((56, 64, 3), (28, 128, 3), (14, 256, 5), (7, 512, 2))
+RN_BATCH = 256                # bench.py bench_resnet's batch
+RN_SIZE = 224
+LN_SHAPE = (BT * S, H * D)    # K6: BERT-base's training hidden state
+
+
+def k1_work(n, hw, c, o, esz):
+    """(bytes, flops) of one K1 launch: x read once, w read once, out
+    written once (scale/shift absent on the op path), 2·M·K·N flops."""
+    flops = 2.0 * n * hw * hw * 9 * c * o
+    nbytes = esz * (n * hw * hw * c + 9 * c * o + n * hw * hw * o)
+    return nbytes, flops
+
+
+def k1_bound(n, hw, c, esz=2):
+    """K1's least time at one shape: bf16 against the tensor cores' peak
+    (the work the card could do there), fp32 against the CUDA cores'."""
+    peak = PEAK_BF16_FLOPS if esz == 2 else PEAK_FP32_FLOPS
+    return _bound(*k1_work(n, hw, c, c, esz), peak)
+
+
+def k6_bound(M, Dm, esz=4):
+    """K6's least time: x read and y written once, scale and bias read
+    once; mean, centre, square, variance, scale and shift ~8 flops per
+    entry."""
+    return _bound(esz * 2 * M * Dm + 4 * 2 * Dm, 8.0 * M * Dm)
+
+
 def phase_bounds():
-    """Bounds of the TPU kernels not yet ported, at the shapes of their
-    own paths, from their code (no device work):
-    K1 (conv_pallas.py:80) runs, behind FLAGS_conv_pallas, on every 3x3
-    stride-1 pad-1 conv of ResNet-50 training (bench.py bench_resnet:
-    batch 256, 224 x 224, pure-bf16): the 3x3 conv of each bottleneck
-    block but the first of stages 2-4, 13 convs; forward only.
-    K6 (pallas_ops.py:726) backs fused_layer_norm, which no model emits;
-    its shape here is BERT-base's hidden state at the training batch,
-    x2d [32 * 128, 768] fp32, scale and bias [768]."""
-    rows = []
-    N, t_ops, t_bytes = 256, 0.0, 0.0
-    for hw, c, n in ((56, 64, 3), (28, 128, 3), (14, 256, 5), (7, 512, 2)):
-        flops = 2.0 * N * hw * hw * 9 * c * c
-        nbytes = 2 * (2 * N * hw * hw * c + 9 * c * c) + 4 * 2 * c
-        rows.append(dict(hw=hw, C=c, O=c, convs=n, gflop=flops / 1e9,
-                         mbytes=nbytes / 1e6,
-                         bound_ms=max(flops / PEAK_BF16_FLOPS,
-                                      nbytes / PEAK_BYTES_PER_S) * 1e3))
-        t_ops += n * flops / PEAK_BF16_FLOPS
-        t_bytes += n * nbytes / PEAK_BYTES_PER_S
-    emit(phase="bounds", kernel="K1 conv3x3 (not ported)", dtype="bfloat16",
-         batch=N, convs=rows, bound_ms_per_step=max(t_ops, t_bytes) * 1e3,
-         bound_by="operations" if t_ops >= t_bytes else "bytes")
-    M, Dm = BT * S, H * D
-    nbytes = 4 * (2 * M * Dm + 2 * Dm)
-    flops = 8.0 * M * Dm            # mean, centre, square, var, scale, shift
-    emit(phase="bounds", kernel="K6 layer_norm (not ported)",
-         dtype="float32", x2d=[M, Dm], gflop=flops / 1e9,
-         mbytes=nbytes / 1e6,
-         bound_ms=max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
-         * 1e3,
-         bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >=
-         flops / PEAK_FP32_FLOPS else "operations")
+    """Bounds of K1 and K6 at the shapes of their paths, from their work
+    (no device work).  K1 (conv_pallas.py:80) runs on the 13 3x3 stride-1
+    convs of ResNet-50 training (bench_resnet: batch 256, 224 x 224, pure
+    bf16), forward only; K6 (pallas_ops.py:726) backs fused_layer_norm,
+    at BERT-base's training hidden state x2d [32 * 128, 768] fp32."""
+    rows, step_ms = [], 0.0
+    for hw, c, n in RESNET_K1_SHAPES:
+        b = k1_bound(RN_BATCH, hw, c)
+        rows.append(dict(hw=hw, C=c, O=c, convs=n, **b))
+        step_ms += n * b["bound_ms"]
+    emit(phase="bounds", kernel="K1 conv3x3", dtype="bfloat16",
+         batch=RN_BATCH, convs=rows, bound_ms_per_step=step_ms,
+         bound_by=rows[0]["bound_by"])
+    k6 = k6_bound(*LN_SHAPE)
+    emit(phase="bounds", kernel="K6 layer_norm", dtype="float32",
+         x2d=list(LN_SHAPE), **k6)
+    return dict(k1_rows=rows, k1_step_ms=step_ms, k6=k6)
 
 
 def phase_kernel_bwd():
@@ -673,7 +719,7 @@ def phase_kernel_bwd():
             want["dbias"] = dbias_reference(*args)
         torch.cuda.synchronize()
         launched = {n: c - before[n] for n, c in _launches().items()
-                    if n != "flash_attention_fwd"}
+                    if n.startswith("flash_attention_bwd")}
         finite = all(bool(torch.isfinite(g.float()).all())
                      for g in got.values())
         # each wrapper must have launched its kernel once (K5 with a bias)
@@ -1060,6 +1106,481 @@ def phase_train_attn_dropout(batch=8, steps=2):
                          "flash kernel launched: %s %s" % (losses, launches))
 
 
+# ---------------------------------------------------------------------------
+# K1 (3x3 conv) and K6 (row layer norm); ResNet-50 training
+# ---------------------------------------------------------------------------
+
+K1_FP32_BATCH = 32
+K1_FP32_TOL = 1e-4            # |kernel - plain| / max|plain|, fp32
+K1_BF16_TOL = 2e-2            # ... bf16 (the same float32 sum, one rounding)
+K6_FP32_TOL = 1e-5            # K6, fp32
+K6_BF16_TOL = 1e-2            # K6, bf16
+# ResNet-50 checks, from the startup weights.  Each bound is the larger
+# of a fixed tolerance and twice how far a route that runs no K1 either
+# lies from the reference.  In pure bf16 at batch 256 rounding alone
+# moves most gradients by as much as their size: the card's two library
+# routes (cuDNN, and unfold x matmul) give gradients at cosine ~0.5,
+# apart by ~100% of the largest entry of most conv and batch-norm
+# gradients, and by ~10% of the classifier's.  So the bf16 comparison
+# holds the loss and the gradients RN_GRADS only.  The sharp comparison
+# is float32 at batch 2: there the loss and the classifier's weight
+# gradient agree within 1e-6 and 1e-4 between routes, and all 161
+# gradients together are held in relative L2 norm (~2% between routes).
+RN_LOSS_RTOL = 1e-2           # step-1 loss, K1 route vs cuDNN route (bf16)
+RN_GRAD_TOL = 5e-2            # RN_GRADS, same comparison
+RN_CPU_LOSS_RTOL = 1e-4       # step-1 loss, card vs CPU path (fp32, b2)
+RN_CPU_GRAD_TOL = 1e-3        # RN_GRADS and all gradients in L2, same
+LN_PATH_TOL = 1e-5            # fused_layer_norm vs layer_norm op grads
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| over two tensors or arrays, in float32."""
+    a = torch.as_tensor(a).float()
+    b = torch.as_tensor(b).float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_kernel_conv(bounds):
+    """K1 against conv3x3_bn_relu_reference on the card at the four
+    ResNet-50 shapes (bf16 at batch 256, fp32 at batch 32), with and
+    without the epilogue, one launch asserted per case; then K1's time
+    per shape in bf16 at batch 256 without epilogue (the op path's call)
+    beside the plain version, cuDNN and the bound."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    errs = []
+    for hw, c, _ in RESNET_K1_SHAPES:
+        for dt, n in ((torch.bfloat16, RN_BATCH),
+                      (torch.float32, K1_FP32_BATCH)):
+            x = torch.randn(n, hw, hw, c, device=dev, generator=gen).to(dt)
+            w = (torch.randn(3, 3, c, c, device=dev, generator=gen) *
+                 (2.0 / (9 * c)) ** 0.5).to(dt)
+            sc = torch.rand(c, device=dev, generator=gen) + 0.5
+            sh = torch.randn(c, device=dev, generator=gen)
+            for epi in (False, True):
+                args = (x, w, sc, sh) if epi else (x, w, None, None)
+                before = conv3x3_bn_relu.launches
+                got = conv3x3_bn_relu(*args, relu=epi)
+                torch.cuda.synchronize()
+                launched = conv3x3_bn_relu.launches - before
+                want = conv3x3_bn_relu_reference(*args, relu=epi)
+                err = _rel(got, want)
+                tol = K1_FP32_TOL if dt == torch.float32 else K1_BF16_TOL
+                finite = bool(torch.isfinite(got.float()).all())
+                ok = launched == 1 and err <= tol and finite and \
+                    got.dtype == dt
+                emit(phase="kernel_conv_check", shape=[n, hw, hw, c, c],
+                     dtype=str(dt), epilogue=epi, launched=launched,
+                     max_err_rel=err,
+                     tolerance="max|diff| <= %g max|plain|" % tol,
+                     finite=finite, ok=ok)
+                if not ok:
+                    raise SystemExit("K1 disagrees with its plain version "
+                                     "at %s %s epilogue=%s"
+                                     % ([n, hw, hw, c], dt, epi))
+                if dt == torch.bfloat16 and not epi:
+                    errs.append(err * want.float().abs().max().item())
+                del got, want
+    times, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    for (hw, c, count), b in zip(RESNET_K1_SHAPES, bounds["k1_rows"]):
+        x = torch.randn(RN_BATCH, hw, hw, c, device=dev,
+                        generator=gen).to(torch.bfloat16)
+        w = (torch.randn(3, 3, c, c, device=dev, generator=gen) * 0.05).to(
+            torch.bfloat16)
+        if hw == 56:
+            _check_no_host_sync(lambda: conv3x3_bn_relu(x, w, relu=False))
+        # cuDNN on the same data: NCHW views of NHWC storage (channels_last)
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        # the plain version's F.unfold launches one im2col kernel per
+        # image, 262 launches a call at batch 256: three calls fill the
+        # launch queue, so it is timed two at a time
+        t = dict(ms=cuda_time_ms(lambda: conv3x3_bn_relu(x, w, relu=False)),
+                 plain_ms=cuda_time_ms(lambda: conv3x3_bn_relu_reference(
+                     x, w, relu=False), iters=2, warmup=2),
+                 library_ms=cuda_time_ms(lambda: torch.nn.functional.conv2d(
+                     xl, wl, padding=1)))
+        row = dict(shape=[RN_BATCH, hw, hw, c, c], convs_per_step=count,
+                   bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   tflops=b["gflop"] / t["ms"], **t)
+        row["roofline_share"] = b["bound_ms"] / t["ms"]
+        emit(phase="kernel_conv_time", dtype="bfloat16", **row)
+        times.append(row)
+        for k in step:
+            step[k] += count * t[k]
+        del x, w, xl, wl
+    emit(phase="kernel_conv_step", per="ResNet-50 step, 13 launches",
+         bound_ms=bounds["k1_step_ms"], **step)
+    return dict(max_abs_err=max(errs), per="ResNet-50 step (13 launches "
+                "at batch 256, bf16); per shape in kernel_conv_time",
+                bound_ms=bounds["k1_step_ms"],
+                bound_by=bounds["k1_rows"][0]["bound_by"], **step)
+
+
+def phase_kernel_ln(bounds):
+    """K6 against layer_norm_reference at [4096, 768] in fp32 and bf16 and
+    a ragged [1000, 1000]; its time at [4096, 768] fp32 beside the plain
+    version, F.layer_norm and the bound."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    errs = {}
+    for name, (M, Dm), dt in (("bert_hidden_fp32", LN_SHAPE, torch.float32),
+                              ("bert_hidden_bf16", LN_SHAPE, torch.bfloat16),
+                              ("ragged_1000_fp32", (1000, 1000),
+                               torch.float32)):
+        x = (torch.randn(M, Dm, device=dev, generator=gen) * 3 + 1).to(dt)
+        sc = torch.rand(Dm, device=dev, generator=gen) + 0.5
+        bi = torch.randn(Dm, device=dev, generator=gen)
+        before = row_layer_norm.launches
+        got = row_layer_norm(x, sc, bi, 1e-5)
+        torch.cuda.synchronize()
+        launched = row_layer_norm.launches - before
+        err = _rel(got, layer_norm_reference(x, sc, bi, 1e-5))
+        tol = K6_FP32_TOL if dt == torch.float32 else K6_BF16_TOL
+        ok = launched == 1 and err <= tol and got.dtype == dt
+        emit(phase="kernel_ln_check", case=name, shape=[M, Dm],
+             dtype=str(dt), launched=launched, max_err_rel=err,
+             tolerance="max|diff| <= %g max|plain|" % tol, ok=ok)
+        if not ok:
+            raise SystemExit("K6 disagrees with its plain version in %s"
+                             % name)
+        errs[name] = err * got.float().abs().max().item()
+    M, Dm = LN_SHAPE
+    x = torch.randn(M, Dm, device=dev, generator=gen)
+    sc = torch.rand(Dm, device=dev, generator=gen) + 0.5
+    bi = torch.randn(Dm, device=dev, generator=gen)
+    _check_no_host_sync(lambda: row_layer_norm(x, sc, bi, 1e-5))
+    t = dict(ms=cuda_time_ms(lambda: row_layer_norm(x, sc, bi, 1e-5)),
+             plain_ms=cuda_time_ms(lambda: layer_norm_reference(x, sc, bi,
+                                                                1e-5)),
+             library_ms=cuda_time_ms(lambda: torch.nn.functional.layer_norm(
+                 x, (Dm,), sc, bi, 1e-5)))
+    b = bounds["k6"]
+    emit(phase="kernel_ln_time", shape=[M, Dm], dtype="float32",
+         roofline_share=b["bound_ms"] / t["ms"], **b, **t)
+    return dict(max_abs_err=errs["bert_hidden_fp32"], bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], **t)
+
+
+def _resnet_program(pure_bf16=True):
+    """bench.py bench_resnet's program in the port: ResNet-50 v1.5 at
+    224 x 224, 1000 classes, Momentum 0.9 + L2Decay 1e-4, lr 0.1, and
+    (``pure_bf16``) pure-bf16 AMP; the random weights come from the
+    startup program's seed."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data(name="img", shape=[3, RN_SIZE, RN_SIZE],
+                                dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        logits = resnet.resnet(img, class_dim=1000, depth=50)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        opt = fluid.optimizer.MomentumOptimizer(
+            learning_rate=0.1, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(1e-4))
+        if pure_bf16:
+            opt = fluid.contrib.mixed_precision.decorate(
+                opt, use_pure_bf16=True)
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def _resnet_feed(batch, seed):
+    rng = np.random.RandomState(seed)
+    return {"img": rng.normal(0, 1, (batch, 3, RN_SIZE, RN_SIZE))
+            .astype(np.float32),
+            "label": rng.randint(0, 1000, (batch, 1)).astype(np.int64)}
+
+
+def _state_copy(main, scope, device="cuda"):
+    """A scope holding a copy, on ``device``, of every persistable of
+    ``main`` in ``scope``."""
+    out = fluid.Scope()
+    for v in main.list_vars():
+        if v.persistable:
+            out.set_var(v.name, scope.find_var(v.name).to(device, copy=True))
+    return out
+
+
+# the classifier's weight and bias, and the last batch norm's bias
+RN_GRADS = ("fc_0.w_0", "fc_0.b_0", "batch_norm_52.b_0")
+# a K1 conv's weight and the batch norm's scale after it: reported in
+# bf16, not held (rounding dominates them there)
+RN_ROUNDING = ("conv2d_2.w_0", "batch_norm_2.w_0")
+
+
+def _resnet_grads(exe, main, loss, state, feed, names=RN_GRADS):
+    """The loss and the gradients of ``names`` of one step of ``main`` on
+    a copy of ``state``."""
+    scope = _state_copy(main, state, exe.device)
+    out = exe.run(main, feed=feed, fetch_list=[loss] + [
+        main._grad_name_map[n] for n in names], scope=scope)
+    return float(out[0].reshape(-1)[0]), dict(zip(names, out[1:]))
+
+
+def _l2_rel(a, b):
+    """||a - b|| / ||b|| over every gradient of two {name: grad} dicts."""
+    num = sum(float(((torch.as_tensor(a[n]).double() -
+                      torch.as_tensor(b[n]).double()) ** 2).sum())
+              for n in b)
+    den = sum(float((torch.as_tensor(b[n]).double() ** 2).sum()) for n in b)
+    return math.sqrt(num / den)
+
+
+def _route_check(got, want, other, loss_rtol, grad_tol, whole=False):
+    """``got``, a route through K1, against ``want`` ((loss, {name:
+    grad}) each): the loss, each of RN_GRADS and (``whole``) every
+    gradient together in L2, each bound the larger of the fixed one and
+    twice how far ``other``, a route that runs no K1 either, lies from
+    ``want``."""
+    def dist(a):
+        d = {"loss": abs(a[0] - want[0]) / abs(want[0])}
+        d.update((n, _rel(a[1][n], want[1][n])) for n in RN_GRADS)
+        if whole:
+            d["all_grads_l2"] = _l2_rel(a[1], want[1])
+        return d
+    err, spread = dist(got), dist(other)
+    bound = {k: max(loss_rtol if k == "loss" else grad_tol, 2 * v)
+             for k, v in spread.items()}
+    return dict(err=err, spread=spread, bound=bound,
+                ok=all(err[k] <= bound[k] for k in err))
+
+
+def phase_resnet_train():
+    """bench_resnet through the port's Executor on the card (see the
+    module docstring, phase 12)."""
+    from paddle_tpu_torch.fluid import flags
+    flags.set_flag("conv_pallas", True)
+    main, startup, loss = _resnet_program()
+    ops = [op.type for op in main.global_block().ops]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.global_block().all_parameters()
+    emit(phase="resnet_startup", seconds=time.perf_counter() - t0,
+         parameters=int(sum(scope.find_var(p.name).numel() for p in params)),
+         parameter_tensors=len(params), ops=len(ops),
+         grad_ops=sum(t.endswith("_grad") for t in ops),
+         conv2d=ops.count("conv2d"), batch_norm=ops.count("batch_norm"),
+         momentum=ops.count("momentum"), batch=RN_BATCH, image=RN_SIZE,
+         amp="pure bf16", conv_pallas=True)
+    init = _state_copy(main, scope)         # the startup weights
+    feed = {k: torch.from_numpy(v).to("cuda")
+            for k, v in _resnet_feed(RN_BATCH, SEED).items()}
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    losses, warm, timed = [], 2, 8
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(exe.run(main, feed=feed, fetch_list=[loss],
+                              scope=scope, return_numpy=False)[0])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    launches = _launches()
+    losses = [float(x.float().item()) for x in losses]
+    steps = warm + timed
+    emit(phase="resnet_train", steps=steps, losses=losses,
+         ms_per_step=step_ms, images_per_s=RN_BATCH / step_ms * 1e3,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+         launches=launches,
+         launches_per_step={n: c / steps for n, c in launches.items()})
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "last_loss_below_first": losses[-1] < losses[0],
+        "k1_13_per_step": launches["conv3x3_bn_relu"] == 13 * steps,
+        "no_other_kernel": not any(c for n, c in launches.items()
+                                   if n != "conv3x3_bn_relu"),
+    }
+    phase_resnet_profile(exe, main, loss, scope, feed)
+    checks.update(phase_resnet_check(exe, main, loss, init, feed))
+    if not all(checks.values()):
+        raise SystemExit("resnet_train checks failed: %s"
+                         % [k for k, ok in checks.items() if not ok])
+    return dict(launches=launches, ms_per_step=step_ms)
+
+
+def phase_resnet_check(exe, main, loss, init, feed):
+    """Step 1 from the startup weights ``init``: the K1 route against the
+    cuDNN route (flag off) in bf16 at batch 256, with the unfold x matmul
+    route as the spread; then the card against the port's CPU path, fp32
+    with the flag on, at batch 2, with the card's cuDNN route as the
+    spread.  Returns the checks by name."""
+    from paddle_tpu_torch.fluid import flags
+
+    def route(prog, ls, state, fd, pallas, im2col="off", **kw):
+        flags.set_flag("conv_pallas", pallas)
+        flags.set_flag("conv_im2col", im2col)
+        try:
+            return _resnet_grads(exe, prog, ls, state, fd, **kw)
+        finally:
+            flags.set_flag("conv_pallas", False)
+            flags.set_flag("conv_im2col", "off")
+
+    names = RN_GRADS + RN_ROUNDING
+    card = route(main, loss, init, feed, True, names=names)
+    cudnn = route(main, loss, init, feed, False, names=names)
+    im2col = route(main, loss, init, feed, False, "all", names=names)
+    bf16 = _route_check(card, cudnn, im2col, RN_LOSS_RTOL, RN_GRAD_TOL)
+    bf16["not_held"] = {n: dict(err=_rel(card[1][n], cudnn[1][n]),
+                                spread=_rel(im2col[1][n], cudnn[1][n]))
+                        for n in RN_ROUNDING}
+    fmain, _, floss = _resnet_program(pure_bf16=False)
+    names = [p.name for p in fmain.global_block().all_parameters()]
+    two = {k: v[:2] for k, v in _resnet_feed(RN_BATCH, SEED).items()}
+    before = conv3x3_bn_relu.launches
+    card2 = route(fmain, floss, init, two, True, names=names)
+    k1_card2 = conv3x3_bn_relu.launches - before
+    t2 = time.perf_counter()
+    flags.set_flag("conv_pallas", True)
+    try:
+        cpu2 = _resnet_grads(fluid.Executor(fluid.CPUPlace()), fmain, floss,
+                             init, two, names)
+    finally:
+        flags.set_flag("conv_pallas", False)
+    cpu_s = time.perf_counter() - t2
+    cudnn2 = route(fmain, floss, init, two, False, names=names)
+    fp32 = _route_check(card2, cpu2, cudnn2, RN_CPU_LOSS_RTOL,
+                        RN_CPU_GRAD_TOL, whole=True)
+    checks = {"k1_route_matches_cudnn_route": bf16["ok"],
+              "card_fp32_ran_k1": k1_card2 == 13,
+              "card_matches_cpu_path": fp32["ok"]}
+    emit(phase="resnet_check",
+         tolerance="each: max(fixed, 2 x the spread of a route without K1 "
+         "from the same reference); fixed: K1 vs cuDNN route (bf16, batch "
+         "%d; spread: unfold x matmul route) loss rel %g, grads "
+         "max|diff|/max|grad| %g; card vs CPU (fp32, batch 2; spread: the "
+         "card's cuDNN route) %g, %g, all gradients in relative L2 %g"
+         % (RN_BATCH, RN_LOSS_RTOL, RN_GRAD_TOL, RN_CPU_LOSS_RTOL,
+            RN_CPU_GRAD_TOL, RN_CPU_GRAD_TOL),
+         grads=list(RN_GRADS), loss_k1_route=card[0],
+         loss_cudnn_route=cudnn[0], loss_im2col_route=im2col[0],
+         k1_vs_cudnn=bf16, loss_card_b2=card2[0], loss_cpu_b2=cpu2[0],
+         loss_cudnn_b2=cudnn2[0], cpu_seconds=cpu_s, card_vs_cpu=fp32,
+         checks=checks)
+    return checks
+
+
+def _kernel_kinds(prof):
+    """Device ms of one profiled step by kind of kernel, from the kernel
+    names: K1; the library's convolutions and GEMMs (cuDNN / cuBLAS /
+    CUTLASS names); reductions; everything else (elementwise, copies)."""
+    kinds = dict(k1=0.0, library_conv_gemm=0.0, reduce=0.0, other=0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        if "conv3x3" in name:
+            kind = "k1"
+        elif any(w in name for w in ("xmma", "cudnn", "cutlass", "gemm",
+                                     "implicit", "conv", "dgrad",
+                                     "wgrad")):
+            kind = "library_conv_gemm"
+        elif "reduce" in name:
+            kind = "reduce"
+        else:
+            kind = "other"
+        kinds[kind] += e.self_device_time_total / 1e3
+    return kinds
+
+
+def phase_resnet_profile(exe, main, loss, scope, feed):
+    """One profiled ResNet-50 step: kernel time against wall, the device
+    timeline's busy share, device events, launch calls, top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    dev_ms, top = _device_ms(prof, 1)
+    busy_ms, _, events = _timeline(prof)
+    launch = [e for e in prof.key_averages()
+              if e.key.startswith("cudaLaunchKernel")]
+    emit(phase="resnet_profile", wall_ms=wall_ms, kernel_ms=dev_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_events=events, launch_calls=sum(e.count for e in launch),
+         kernel_ms_by_kind=_kernel_kinds(prof), top_kernels=top)
+
+
+def _ln_program(fused):
+    """x [32, 128, 768] -> layer norm over the last axis (fused_layer_norm
+    appended by hand, or the layer_norm layer) with trainable scale and
+    bias -> mean(fc(y, 1)); backward only."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    shape = [BT, S, H * D]
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape, append_batch_size=False)
+        x.stop_gradient = False
+        if fused:
+            blk = main.global_block()
+            sc = fluid.layers.create_parameter(
+                [H * D], "float32", name="ln_scale",
+                default_initializer=fluid.initializer.Constant(1.0))
+            bi = fluid.layers.create_parameter(
+                [H * D], "float32", name="ln_bias",
+                default_initializer=fluid.initializer.Constant(0.0))
+            y = blk.create_var(name="ln_y", shape=shape, dtype="float32")
+            outs = {n: [blk.create_var(name="ln_" + n.lower(),
+                                       dtype="float32")]
+                    for n in ("Mean", "Variance")}
+            blk.append_op("fused_layer_norm",
+                          inputs={"X": [x], "Scale": [sc], "Bias": [bi]},
+                          outputs=dict(Y=[y], **outs),
+                          attrs={"begin_norm_axis": 2, "epsilon": 1e-5})
+        else:
+            y = fluid.layers.layer_norm(
+                x, begin_norm_axis=2, param_attr="ln_scale",
+                bias_attr="ln_bias")
+        loss = fluid.layers.mean(fluid.layers.fc(y, 1, num_flatten_dims=2))
+        fluid.append_backward(loss)
+    return main, startup, loss
+
+
+def phase_ln_path():
+    """The fused_layer_norm path through Executor on the card: one K6
+    launch per run, and the gradients of x, scale and bias equal to the
+    layer_norm op's program from the same weights."""
+    fused, startup, floss = _ln_program(True)
+    plain, _, ploss = _ln_program(False)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    feed = {"x": (rng.randn(BT, S, H * D) * 3 + 1).astype(np.float32)}
+    names = ["x", "ln_scale", "ln_bias"]
+    _reset_launches()
+    got = exe.run(fused, feed=feed, fetch_list=[floss] + [
+        fused._grad_name_map[n] for n in names], scope=scope)
+    launches = _launches()
+    want = exe.run(plain, feed=feed, fetch_list=[ploss] + [
+        plain._grad_name_map[n] for n in names], scope=scope)
+    errs = {n: _rel(a, b) for n, a, b in zip(["loss"] + names, got, want)}
+    checks = {
+        "k6_once": launches["layer_norm"] == 1,
+        "no_other_kernel": not any(c for n, c in launches.items()
+                                   if n != "layer_norm"),
+        "grads_match_layer_norm_op": max(errs.values()) <= LN_PATH_TOL,
+    }
+    emit(phase="ln_path", x=[BT, S, H * D], launches=launches,
+         errors_rel=errs, tolerance="max|diff|/max|ref| %g" % LN_PATH_TOL,
+         checks=checks)
+    if not all(checks.values()):
+        raise SystemExit("ln_path checks failed: %s"
+                         % [k for k, ok in checks.items() if not ok])
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -1067,33 +1588,45 @@ def main():
         return 2
     smi = phase_device()
     phase_build()
-    phase_bounds()
+    bounds = phase_bounds()
     k2 = phase_kernel()
     bwd = phase_kernel_bwd()
+    k1 = phase_kernel_conv(bounds)
+    k6 = phase_kernel_ln(bounds)
     by_path = {"serve": phase_slice()}
     by_path["train"] = phase_train()["launches"]
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
-    src = "paddle_tpu_torch/csrc/flash_attention_%s.cu"
+    by_path["resnet_train"] = phase_resnet_train()["launches"]
+    by_path["ln_path"] = phase_ln_path()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],
-                   flash_attention_bwd_dbias=bwd["dbias"])
+                   flash_attention_bwd_dbias=bwd["dbias"],
+                   conv3x3_bn_relu=k1, layer_norm=k6)
+    csrc = "paddle_tpu_torch/csrc/"
     rows = []
-    for name, line in (("flash_attention_fwd", 44),
-                       ("flash_attention_bwd_dq", 115),
-                       ("flash_attention_bwd_dkv", 152),
-                       ("flash_attention_bwd_dbias", 196)):
+    for name, source, replaces in (
+            ("flash_attention_fwd", "flash_attention_fwd.cu",
+             "pallas_ops.py:44"),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "pallas_ops.py:115"),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "pallas_ops.py:152"),
+            ("flash_attention_bwd_dbias", "flash_attention_bwd.cu",
+             "pallas_ops.py:196"),
+            ("conv3x3_bn_relu", "conv3x3_bn_relu.cu", "conv_pallas.py:33"),
+            ("layer_norm", "layer_norm.cu", "pallas_ops.py:706")):
         t = timings[name]
         paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         rows.append(dict(
-            name=name, route="cuda",
-            source=src % ("fwd" if name.endswith("fwd") else "bwd"),
-            replaces="paddle_tpu/fluid/ops/pallas_ops.py:%d" % line,
+            name=name, route="cuda", source=csrc + source,
+            replaces="paddle_tpu/fluid/ops/" + replaces,
             launches=sum(paths.values()), launches_by_path=paths,
             max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            **({"per": t["per"]} if "per" in t else {})))
     emit(kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

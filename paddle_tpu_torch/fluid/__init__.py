@@ -2,8 +2,9 @@
 
 Mirrors ``paddle_tpu.fluid``: a Program IR built from Python layers, run
 by ``Executor(CUDAPlace(0))`` op by op on torch tensors.  Ported so far:
-BERT-base serving and BERT-base pretraining with Adam (see ROADMAP.md's
-port queue).
+BERT-base serving, BERT-base pretraining with Adam, and ResNet-50
+training with Momentum, L2Decay and pure-bf16 AMP (see ROADMAP.md's port
+queue).
 """
 
 # op registrations must load before anything runs programs
@@ -24,7 +25,10 @@ from .initializer import Constant, Uniform, Normal, TruncatedNormal, Xavier
 from .param_attr import ParamAttr
 from . import backward
 from .backward import append_backward, gradients
+from . import regularizer
 from . import optimizer
+from .optimizer import SGDOptimizer, MomentumOptimizer, AdamOptimizer
+from . import contrib
 from . import convert
 from .convert import load_numpy_params
 from . import serving

@@ -6,11 +6,13 @@ from the same state is to carry it across: read ``{name: ndarray}`` out
 of any source and write it here as torch tensors on the target place.
 
 This is the documented way to move **every persistable** of a JAX
-(``paddle_tpu``) scope into the port: parameters, and for a training
-program also the optimizer's state (Adam's ``moment1``/``moment2``,
+(``paddle_tpu``) scope into the port: parameters (conv filters, fc
+weights and biases, BN scale and bias), BN running mean and variance,
+and for a training program also the optimizer's state (Momentum's
+``velocity``; Adam's ``moment1``/``moment2``,
 ``beta1_pow_acc``/``beta2_pow_acc``) and the global ``learning_rate``.
-The port's ``AdamOptimizer`` names them as the JAX package does, so the
-same program built in both packages reads the same names::
+The port's layers and optimizers name them as the JAX package does, so
+the same program built in both packages reads the same names::
 
     names = [v.name for v in jax_main.list_vars() if v.persistable]
     arrays = {n: np.asarray(jax_scope.find_var(n)) for n in names}

@@ -20,7 +20,7 @@ import torch
 
 from . import framework
 from .data_types import np_dtype, to_numpy, torch_dtype
-from .lowering import ExecState, plan_tape, run_block
+from .lowering import ExecState, plan_release, plan_tape, run_block
 
 
 class Place:
@@ -200,6 +200,11 @@ class _DispatchPlan:
         # forward ops that record on the tape for their _grad op; empty
         # for a program without grad ops (inference records nothing)
         self.taped = plan_tape(block)
+        # temporaries leave the environment after their last op, so a
+        # step holds only what is still to be read (and what the tape
+        # saved), not every activation and gradient until run() ends
+        self.release = plan_release(
+            block, set(self.state_out) | set(self.fetch_names))
 
 
 class Executor:
@@ -258,12 +263,16 @@ class Executor:
             env[n] = coerce(feed[n])
         step = scope.step_counter
         scope.step_counter += 1
+        # AMP: contrib.mixed_precision.decorate tags the program, as the
+        # JAX executor reads it (paddle_tpu/fluid/executor.py:1972-1988)
         state = ExecState(program.blocks, step, program.random_seed,
-                          self.device, is_test=program._is_test)
+                          self.device, is_test=program._is_test,
+                          amp_dtype=program._amp_dtype,
+                          amp_keep=program._amp_keep)
         # only taped forward ops turn autograd on, inside run_block
         try:
             with torch.no_grad():
-                run_block(plan.block, env, state, plan.taped)
+                run_block(plan.block, env, state, plan.taped, plan.release)
         finally:
             state.tape.clear()
         for n in plan.state_out:

@@ -10,6 +10,13 @@ overridden in-process with :func:`set_flag`.
 - ``FLAGS_serving_buckets`` / ``FLAGS_serving_max_wait_ms`` /
   ``FLAGS_serving_max_queue``: the serving bucket ladder, latency budget
   and backpressure cap (``serving.py``).
+- ``FLAGS_conv_pallas`` / ``FLAGS_conv_layout`` / ``FLAGS_conv_im2col``:
+  the ``conv2d`` routes (``ops/nn_ops.py``): the 3x3 implicit-GEMM kernel
+  K1, channels-last (``NHWC`` is ``torch.channels_last``), or unfold x
+  matmul.  The names keep the JAX package's, ``pallas`` included, so one
+  environment drives both packages the same way.
+- ``FLAGS_amp_keep_activations``: under AMP, conv/matmul outputs stay in
+  the AMP dtype even without ``use_pure_bf16`` (``lowering.amp_operands``).
 """
 
 import os
@@ -28,6 +35,13 @@ _DEFS = {
     "serving_max_queue": 256,        # serving backpressure: queued-not-
                                      # yet-dispatched request cap; submit
                                      # beyond it rejects (counted)
+    "conv_layout": "NCHW",           # NCHW | NHWC (channels_last)
+    "conv_pallas": False,            # 3x3/s1 convs through K1 (fwd; bwd
+                                     # stays the library conv) —
+                                     # ops/conv_ops.py
+    "conv_im2col": "off",            # off | all | 3x3: conv2d as unfold x
+                                     # matmul (contraction over C*kh*kw)
+    "amp_keep_activations": False,   # AMP: keep conv/matmul outputs bf16
 }
 
 _cache = {}
@@ -40,6 +54,8 @@ def get_flag(name):
     raw = os.environ.get("FLAGS_" + name)
     if raw is None:
         val = default
+    elif isinstance(default, bool):
+        val = raw.lower() in ("1", "true", "yes")
     elif isinstance(default, float):
         val = float(raw)
     elif isinstance(default, int):

@@ -261,6 +261,10 @@ class Program:
         self._current_role = OpRole.Forward
         self._is_test = False
         self._seed_counter = 0
+        # AMP tags set by contrib.mixed_precision.decorate: the compute
+        # dtype of conv/matmul, and whether their outputs stay in it
+        self._amp_dtype = None
+        self._amp_keep = False
 
     # -- structure ---------------------------------------------------------
     def global_block(self):
@@ -282,7 +286,8 @@ class Program:
             return fp
         h = hashlib.sha1()
         h.update(repr(tuple(b._sig() for b in self.blocks)).encode())
-        h.update(repr((self.random_seed, self._is_test)).encode())
+        h.update(repr((self.random_seed, self._is_test, self._amp_dtype,
+                       self._amp_keep)).encode())
         fp = h.hexdigest()
         self._fingerprint_cache = (self._version, fp)
         return fp
@@ -344,6 +349,8 @@ class Program:
                 nop.outputs = {k: list(v) for k, v in op.outputs.items()}
                 nb.ops.append(nop)
         p._is_test = for_test
+        p._amp_dtype = self._amp_dtype
+        p._amp_keep = self._amp_keep
         p.current_block_idx = 0
         p._bump_version()
         return p

@@ -81,6 +81,12 @@ class LayerHelper:
         gb = self.main_program.global_block()
         return gb.create_var(persistable=persistable, **kwargs)
 
+    def create_or_get_global_variable(self, name, **kwargs):
+        gb = self.main_program.global_block()
+        if gb.has_var_local(name):
+            return gb.vars[name]
+        return gb.create_var(name=name, **kwargs)
+
     def set_variable_initializer(self, var, initializer):
         """Also create + init the var in the startup program (optimizer
         accumulators, the learning rate)."""

@@ -9,7 +9,17 @@ Variable.  Shapes are build-time metadata (batch dim may be -1).
 import numpy as np
 
 from ..layer_helper import LayerHelper
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _conv_out(size, k, p, s, d=1):
+    if size is None or size < 0:
+        return -1
+    return (size + 2 * p - (d * (k - 1) + 1)) // s + 1
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -79,6 +89,152 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                             "is_distributed": is_distributed,
                             "padding_idx": padding_idx})
     return out
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None):
+    """2-D convolution, NCHW (reference nn.py conv2d; JAX nn.py:96).  The
+    filter is OIHW with the default init ``Normal(0, sqrt(2 / fan_in))``;
+    ``groups == C == num_filters > 1`` emits ``depthwise_conv2d``."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    fsize = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    groups = groups or 1
+    filter_shape = [num_filters, num_channels // groups] + list(fsize)
+    fan_in = (num_channels // groups) * fsize[0] * fsize[1]
+    default_init = NormalInitializer(0.0, float(np.sqrt(2.0 / fan_in)))
+    w = helper.create_parameter(helper.param_attr, filter_shape, input.dtype,
+                                default_initializer=default_init)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (input.shape[0], num_filters,
+                 _conv_out(input.shape[2], fsize[0], padding[0], stride[0],
+                           dilation[0]),
+                 _conv_out(input.shape[3], fsize[1], padding[1], stride[1],
+                           dilation[1]))
+    op_type = "depthwise_conv2d" if (groups == num_channels and
+                                     num_channels == num_filters and
+                                     groups > 1) else "conv2d"
+    helper.append_op(op_type, inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": list(stride), "paddings": list(padding),
+                            "dilations": list(dilation), "groups": groups})
+    pre_act = out
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters],
+                                    input.dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype)
+        pre_act.shape = out.shape
+        helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [pre_act]}, attrs={"axis": 1})
+    return helper.append_activation(pre_act, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    """Max or average pooling, NCHW (JAX nn.py:193)."""
+    helper = LayerHelper("pool2d", name=name)
+    ksize = _pair(pool_size)
+    stride = _pair(pool_stride)
+    padding = _pair(pool_padding)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if global_pooling:
+        out.shape = (input.shape[0], input.shape[1], 1, 1)
+    else:
+        def _posz(size, k, p, s):
+            if size is None or size < 0:
+                return -1
+            if ceil_mode:
+                return -(-(size + 2 * p - k) // s) + 1
+            return (size + 2 * p - k) // s + 1
+        out.shape = (input.shape[0], input.shape[1],
+                     _posz(input.shape[2], ksize[0], padding[0], stride[0]),
+                     _posz(input.shape[3], ksize[1], padding[1], stride[1]))
+    helper.append_op("pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"pooling_type": pool_type, "ksize": list(ksize),
+                            "strides": list(stride),
+                            "paddings": list(padding),
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=False,
+               use_global_stats=False):
+    """Batch normalization (JAX nn.py:214): float32 scale (1) and bias
+    (0) parameters, float32 running mean (0) and variance (1) that the op
+    updates in place (``MeanOut``/``VarianceOut`` name the same
+    variables)."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(
+        helper.param_attr, [channels], "float32",
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [channels], "float32",
+                                   is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        moving_mean_name or helper.name + ".mean",
+        shape=(channels,), dtype="float32", persistable=True,
+        stop_gradient=True)
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_or_get_global_variable(
+        moving_variance_name or helper.name + ".variance",
+        shape=(channels,), dtype="float32", persistable=True,
+        stop_gradient=True)
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    saved_mean = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        "float32", stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        "batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out, act)
+
+
+def relu(x, name=None):
+    """Elementwise relu (operators/activation_op.cc; JAX layers/ops.py)."""
+    helper = LayerHelper("relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("relu", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def topk(input, k, name=None):
+    """(values, int64 indices) of the k largest entries of the last axis
+    (JAX nn.py:692)."""
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    if input.shape is not None:
+        values.shape = tuple(input.shape[:-1]) + (k,)
+        indices.shape = values.shape
+    helper.append_op("top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    return values, indices
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -23,6 +23,8 @@ also when it raises.
 
 import torch
 
+from . import flags
+from .data_types import torch_dtype
 from .registry import get_op_def
 
 # Op types consumed by the executor itself rather than lowered.
@@ -32,15 +34,41 @@ _STRUCTURAL_OPS = frozenset(["feed", "fetch"])
 class ExecState:
     """Per-run execution state threaded through lowerings."""
 
-    def __init__(self, blocks, step, seed, device, is_test=False):
+    def __init__(self, blocks, step, seed, device, is_test=False,
+                 amp_dtype=None, amp_keep=False):
         self.blocks = blocks    # program blocks
         self.step = step        # host int, increments per run
         self.seed = seed        # program random seed
         self.device = device    # torch.device every op computes on
         self.is_test = is_test
+        # AMP (contrib.mixed_precision.decorate): the compute dtype of the
+        # conv/matmul rules, and whether their outputs stay in it
+        self.amp_dtype = amp_dtype
+        self.amp_keep = amp_keep
         # tape key -> [(leaves, outputs)] of taped forward ops whose
         # _grad op has not run yet (tape_grad_lower pops them)
         self.tape = {}
+
+
+def amp_operands(state, *vals):
+    """AMP helper of the conv/matmul rules (paddle_tpu/fluid/lowering.py:127,
+    the same decisions): with an AMP dtype on the program, float32
+    operands are cast to it, and the rule gets back the dtype to produce
+    its output in — None keeps the AMP dtype (pure bf16, or
+    ``FLAGS_amp_keep_activations``), float32 otherwise.  Operands of
+    another dtype, or already all in the AMP dtype, are left alone (None).
+    Returns ``vals + (acc_dtype,)``."""
+    dt = state.amp_dtype
+    if not dt:
+        return vals + (None,)
+    cdt = torch_dtype(dt)
+    if any(v.dtype not in (torch.float32, cdt) for v in vals) or \
+            all(v.dtype == cdt for v in vals):
+        return vals + (None,)
+    cast = tuple(v.to(cdt) for v in vals)
+    if state.amp_keep or flags.get_flag("amp_keep_activations"):
+        return cast + (None,)
+    return cast + (torch.float32,)
 
 
 class LowerCtx:
@@ -93,14 +121,40 @@ class LowerCtx:
         return gen
 
 
-def run_block(block, env, state, taped=None):
+def run_block(block, env, state, taped=None, release=None):
     """Run every op of ``block`` through its lowering rule, in order.
     ``taped`` ({op index: input names}, from :func:`plan_tape`) names
     the forward ops that record on the tape; None or empty runs no op
-    with autograd (inference)."""
+    with autograd (inference).  ``release`` ({op index: names}, from
+    :func:`plan_release`) drops temporaries from ``env`` after the last
+    op that names them."""
     taped = taped or {}
+    release = release or {}
     for i, op in enumerate(block.ops):
         dispatch(op, env, state, block, taped.get(i))
+        for n in release.get(i, ()):
+            env.pop(n, None)
+
+
+def plan_release(block, keep):
+    """{op index: names} of the variables whose last mention (as an input
+    or an output) is that op, except those in ``keep`` (fetches, state
+    written back to the scope).  Dropping them from the environment there
+    frees a temporary as soon as nothing can read it again; a tensor that
+    a taped op saved for its grad op stays alive through the tape until
+    that grad op has run."""
+    last = {}
+    for i, op in enumerate(block.ops):
+        for slots in (op.inputs, op.outputs):
+            for names in slots.values():
+                for n in names:
+                    if n:
+                        last[n] = i
+    out = {}
+    for n, i in last.items():
+        if n not in keep:
+            out.setdefault(i, []).append(n)
+    return out
 
 
 def dispatch(op, env, state, block, diff_names=None):

@@ -5,4 +5,6 @@ from . import math_ops       # noqa: F401
 from . import tensor_ops     # noqa: F401
 from . import nn_ops         # noqa: F401
 from . import attention_ops  # noqa: F401
+from . import conv_ops       # noqa: F401
+from . import norm_ops       # noqa: F401
 from . import optimizer_ops  # noqa: F401

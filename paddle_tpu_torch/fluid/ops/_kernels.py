@@ -54,6 +54,19 @@ SIGNATURES = {
                  _p, _i, _i, _i, _i, ctypes.c_float, _i, _p]),
         "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
+    "conv3x3_bn_relu": {
+        # (dtype, x, w, scale, shift, out, N, H, W, C, O, relu, stream)
+        #  -> cudaError_t
+        "paddle_conv3x3_bn_relu": (
+            _i, [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p]),
+        "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
+    "layer_norm": {
+        # (dtype, x, scale, bias, y, M, D, eps, stream) -> cudaError_t
+        "paddle_layer_norm": (
+            _i, [_i, _p, _p, _p, _p, _i, _i, ctypes.c_float, _p]),
+        "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
+    },
 }
 
 _lock = threading.Lock()

@@ -9,6 +9,7 @@ import torch.nn.functional as F
 
 from ..registry import register_op
 from ..flags import matmul_precision
+from ..lowering import amp_operands
 
 # ---------------------------------------------------------------------------
 # Paddle elementwise broadcast: Y aligns to X starting at `axis`
@@ -63,7 +64,13 @@ def _fp32_precision(a):
         torch.set_float32_matmul_precision(prev)
 
 
-def _matmul_p(a, b):
+def _matmul_p(a, b, acc=None):
+    """``a @ b``; with ``acc`` (AMP, outputs not kept in the AMP dtype)
+    the product of the AMP-rounded operands summed and returned in
+    ``acc``, which is what the JAX rules' ``preferred_element_type``
+    asks for (math_ops.py:96)."""
+    if acc is not None:
+        a, b = a.to(acc), b.to(acc)
     with _fp32_precision(a):
         return torch.matmul(a, b)
 
@@ -79,7 +86,8 @@ def _mul(ctx, op):
     x2 = x.reshape((int(np.prod(xs[:xnc])) if xnc else 1, -1))
     y2 = y.reshape((int(np.prod(ys[:ynd])) if ynd else 1, -1)) \
         if y.dim() != 2 or ynd != 1 else y
-    out = _matmul_p(x2, y2)
+    x2, y2, acc = amp_operands(ctx.state, x2, y2)
+    out = _matmul_p(x2, y2, acc)
     ctx.set("Out", out.reshape(xs[:xnc] + ys[ynd:]))
 
 
@@ -91,7 +99,8 @@ def _matmul(ctx, op):
         x = x.transpose(-1, -2)
     if ctx.attr("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = _matmul_p(x, y)
+    x, y, acc = amp_operands(ctx.state, x, y)
+    out = _matmul_p(x, y, acc)
     alpha = ctx.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha
@@ -105,9 +114,14 @@ def _gelu(ctx, op):
                           approximate="tanh" if approx else "none"))
 
 
-@register_op("tanh")
-def _tanh(ctx, op):
-    ctx.set("Out", torch.tanh(ctx.i("X")))
+# activations of JAX's table (math_ops.py:172) that the ported models use
+for _name, _fn in [
+    ("tanh", torch.tanh),
+    ("relu", torch.relu),
+    ("sign", torch.sign),
+]:
+    register_op(_name)(
+        lambda ctx, op, _fn=_fn: ctx.set("Out", _fn(ctx.i("X"))))
 
 
 @register_op("sum")

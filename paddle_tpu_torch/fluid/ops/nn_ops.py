@@ -1,10 +1,173 @@
-"""NN op lowerings of the slice: layer_norm, dropout and
-softmax_with_cross_entropy (counterpart ``paddle_tpu/fluid/ops/
-nn_ops.py``), in plain torch."""
+"""NN op lowerings of the slice (counterpart ``paddle_tpu/fluid/ops/
+nn_ops.py``): conv2d / depthwise_conv2d, pool2d, batch_norm, layer_norm,
+dropout, softmax_with_cross_entropy and accuracy.
 
+Every conv route but K1's stays a library convolution (``F.conv2d``,
+cuDNN on the card), as the JAX package leaves its convs to XLA; K1 is
+``ops/conv_ops.py``.  ``batch_norm`` and ``pool2d`` are written out as
+the JAX rules compute them, not as ``F.batch_norm``/``F.avg_pool2d``,
+whose statistics, running update and border counts differ."""
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import flags
+from ..lowering import amp_operands
 from ..registry import register_op
+from .conv_ops import Conv3x3Function, k1_applies
+from .math_ops import _matmul_p
+
+
+def _im2col_applies(mode, w, groups):
+    if groups != 1 or mode in ("off", "", "0"):
+        return False
+    if mode == "all":
+        return True
+    return mode == "3x3" and w.shape[2] == 3 and w.shape[3] == 3
+
+
+def _conv2d_im2col(x, w, strides, pads, dilations):
+    """conv2d as extracted patches times one matrix (nn_ops.py:66): the
+    patches ``[N·Ho·Wo, C·kh·kw]`` in channel-major order, as
+    ``conv_general_dilated_patches`` and ``F.unfold`` both give them."""
+    N = x.shape[0]
+    O, _, kh, kw = w.shape
+    Ho = (x.shape[2] + 2 * pads[0] - dilations[0] * (kh - 1) - 1) \
+        // strides[0] + 1
+    Wo = (x.shape[3] + 2 * pads[1] - dilations[1] * (kw - 1) - 1) \
+        // strides[1] + 1
+    cols = F.unfold(x, (kh, kw), dilation=dilations, padding=pads,
+                    stride=strides)                       # [N, C*kh*kw, L]
+    out = _matmul_p(cols.transpose(1, 2), w.reshape(O, -1).t())
+    return out.reshape(N, Ho, Wo, O).permute(0, 3, 1, 2)
+
+
+@register_op("conv2d")
+def _conv2d(ctx, op):
+    """nn_ops.py:88, route by route: K1 (``FLAGS_conv_pallas`` and the
+    same gate), unfold x matmul (``FLAGS_conv_im2col``), channels-last
+    (``FLAGS_conv_layout=NHWC``), else the NCHW library conv.  The filter
+    is cast to the input's dtype before AMP; under AMP without pure bf16
+    the output returns to float32 after the bf16 conv."""
+    x = ctx.i("Input")          # NCHW
+    w = ctx.i("Filter")         # OIHW (out, in/groups, kh, kw)
+    strides = tuple(ctx.attr("strides", [1, 1]))
+    pads = tuple(ctx.attr("paddings", [0, 0]))[:2]
+    dilations = tuple(ctx.attr("dilations", [1, 1]))
+    groups = ctx.attr("groups", 1) or 1
+    x, w, acc = amp_operands(ctx.state, x, w.to(x.dtype))
+    if flags.get_flag("conv_pallas") and k1_applies(
+            tuple(x.shape), x.element_size(), tuple(w.shape), strides, pads,
+            dilations, groups):
+        out = Conv3x3Function.apply(x, w)
+    elif _im2col_applies(flags.get_flag("conv_im2col"), w, groups):
+        out = _conv2d_im2col(x, w, strides, pads, dilations)
+    elif flags.get_flag("conv_layout") == "NHWC":
+        cl = torch.channels_last
+        out = F.conv2d(x.contiguous(memory_format=cl),
+                       w.contiguous(memory_format=cl), None, strides, pads,
+                       dilations, groups)
+    else:
+        out = F.conv2d(x, w, None, strides, pads, dilations, groups)
+    if acc is not None:
+        out = out.to(acc)
+    ctx.set("Output", out)
+
+
+# groups == in_channels (the reference has a dedicated kernel; here the
+# same rule covers it)
+register_op("depthwise_conv2d")(_conv2d)
+
+
+@register_op("pool2d")
+def _pool2d(ctx, op):
+    """nn_ops.py:193.  ``ceil_mode`` pads the high border so the last
+    window fits; max pads with -inf, average with 0 and divides by the
+    window size, or with ``exclusive`` and any padding by the count of
+    in-image entries — JAX's ``ssum / counts``, which at the extra
+    ceil-mode border differs from ``F.avg_pool2d(count_include_pad=
+    False)``.  A non-exclusive average divides by a float32 constant, so
+    a bf16 input gives a float32 output, as in JAX."""
+    x = ctx.i("X")              # NCHW
+    ptype = ctx.attr("pooling_type", "max")
+    ksize = tuple(ctx.attr("ksize", [2, 2]))
+    strides = tuple(ctx.attr("strides", [1, 1]))
+    pads = tuple(ctx.attr("paddings", [0, 0]))
+    if ctx.attr("global_pooling", False):
+        ksize = (x.shape[2], x.shape[3])
+        strides = (1, 1)
+        pads = (0, 0)
+    if ctx.attr("ceil_mode", False):
+        extra_h = -(x.shape[2] + 2 * pads[0] - ksize[0]) % strides[0]
+        extra_w = -(x.shape[3] + 2 * pads[1] - ksize[1]) % strides[1]
+    else:
+        extra_h = extra_w = 0
+    border = (pads[1], pads[1] + extra_w, pads[0], pads[0] + extra_h)
+    if ptype == "max":
+        low = -float("inf") if x.is_floating_point() else \
+            torch.iinfo(x.dtype).min
+        out = F.max_pool2d(F.pad(x, border, value=low), ksize, strides)
+        ctx.set("Out", out)
+        return
+    ssum = F.avg_pool2d(F.pad(x, border), ksize, strides,
+                        divisor_override=1)
+    if ctx.attr("exclusive", True) and any(border):
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        counts = F.avg_pool2d(F.pad(ones, border), ksize, strides,
+                              divisor_override=1)
+        out = ssum / counts
+    else:
+        out = ssum.to(torch.promote_types(ssum.dtype, torch.float32)) / \
+            float(np.prod(ksize))
+    ctx.set("Out", out)
+
+
+@register_op("batch_norm", nondiff_inputs=("Mean", "Variance"))
+def _batch_norm(ctx, op):
+    """nn_ops.py:232, the same formula: single-pass float32 statistics
+    ``E[x²] − E[x]²`` clamped at 0; the running update
+    ``running·m + batch·(1 − m)`` with the biased batch variance;
+    ``SavedVariance = 1/sqrt(var + eps)``; ``y = x·a + b`` with
+    ``a = scale·inv`` and ``b = bias − mean·a``, cast to x's dtype.  The
+    gradient flows through the batch statistics.  MeanOut/VarianceOut
+    name the Mean/Variance variables (the in-place update)."""
+    x = ctx.i("X")
+    scale = ctx.i("Scale")
+    bias = ctx.i("Bias")
+    mean = ctx.i("Mean")
+    var = ctx.i("Variance")
+    eps = ctx.attr("epsilon", 1e-5)
+    momentum = ctx.attr("momentum", 0.9)
+    is_test = ctx.attr("is_test", False) or ctx.state.is_test
+    use_global = ctx.attr("use_global_stats", False) or is_test
+    if ctx.attr("data_layout", "NCHW") == "NCHW" and x.dim() == 4:
+        axes = (0, 2, 3)
+        bshape = (1, -1, 1, 1)
+    else:
+        axes = tuple(range(x.dim() - 1))
+        bshape = (1,) * (x.dim() - 1) + (-1,)
+    xm = x.float()
+    if use_global:
+        use_mean, use_var = mean.float(), var.float()
+        ctx.set("MeanOut", mean)
+        ctx.set("VarianceOut", var)
+    else:
+        use_mean = xm.mean(axes)
+        use_var = torch.clamp_min(
+            torch.square(xm).mean(axes) - torch.square(use_mean), 0.0)
+        ctx.set("MeanOut", (mean.float() * momentum + use_mean.detach() *
+                            (1 - momentum)).to(mean.dtype))
+        ctx.set("VarianceOut", (var.float() * momentum + use_var.detach() *
+                                (1 - momentum)).to(var.dtype))
+    inv = torch.rsqrt(use_var + eps)
+    a = scale.float() * inv
+    b = bias.float() - use_mean * a
+    y = xm * a.reshape(bshape) + b.reshape(bshape)
+    ctx.set("Y", y.to(x.dtype))
+    ctx.set("SavedMean", use_mean)
+    ctx.set("SavedVariance", inv)
 
 
 @register_op("layer_norm")
@@ -85,3 +248,21 @@ def _softmax_with_cross_entropy(ctx, op):
             loss = loss.masked_fill((lab == ignore_index).unsqueeze(-1),
                                     0.0)
     ctx.set("Loss", loss.to(logits.dtype))
+
+
+@register_op("accuracy", stop_gradient=True)
+def _accuracy(ctx, op):
+    """nn_ops.py:414: a row is correct when any of its top-k indices
+    equals its label; Accuracy (float32, 0-d), Correct and Total
+    (int32 [1])."""
+    indices = ctx.i("Indices")
+    label = ctx.i("Label")
+    if label.dim() == 1:
+        label = label[:, None]
+    correct = (indices == label.to(indices.dtype)).any(-1)
+    num_correct = correct.float().sum()
+    rows = correct.shape[0]
+    ctx.set("Accuracy", (num_correct / rows).reshape(()))
+    ctx.set("Correct", num_correct.to(torch.int32).reshape((1,)))
+    ctx.set("Total", torch.full((1,), rows, dtype=torch.int32,
+                                device=indices.device))

@@ -1,5 +1,5 @@
 """Optimizer op lowerings (counterpart ``paddle_tpu/fluid/ops/
-optimizer_ops.py``): ``adam`` only.
+optimizer_ops.py``): ``sgd``, ``momentum`` and ``adam``.
 
 Each op reads Param/Grad/state and writes its ``*Out`` slots under the
 same names; the executor writes them back to the scope.  The update is
@@ -13,6 +13,34 @@ import numpy as np
 import torch
 
 from ..registry import register_op
+
+
+@register_op("sgd", stop_gradient=True)
+def _sgd(ctx, op):
+    """optimizer_ops.py:16: ``p − lr·g``."""
+    p = ctx.i("Param")
+    lr = ctx.i("LearningRate").reshape(()).to(p.dtype)
+    ctx.set("ParamOut", p - lr * ctx.i("Grad").to(p.dtype))
+
+
+@register_op("momentum", stop_gradient=True)
+def _momentum(ctx, op):
+    """optimizer_ops.py:24, the same arithmetic in the same order:
+    ``v = mu·v + g``; ``p − lr·v``, or with Nesterov
+    ``p − (g + mu·v)·lr``.  ``mu`` is rounded to the parameter's dtype
+    first, as JAX's ``jnp.asarray(mu, p.dtype)``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = ctx.i("LearningRate").reshape(()).to(p.dtype)
+    # a 0-d host tensor acts as a scalar on any device (no copy)
+    mu = torch.tensor(ctx.attr("mu"), dtype=p.dtype)
+    v_new = mu * ctx.i("Velocity") + g
+    if ctx.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.set("ParamOut", p_new)
+    ctx.set("VelocityOut", v_new)
 
 
 @register_op("adam", stop_gradient=True)

@@ -139,3 +139,12 @@ def _truncated_gaussian_random(ctx, op):
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
         t.mul_(std).add_(mean)
     _random_fill(ctx, draw)
+
+
+@register_op("top_k", stop_gradient=True)
+def _top_k(ctx, op):
+    """tensor_ops.py:309: the k largest entries of the last axis, sorted
+    descending, and their int64 indices."""
+    vals, idxs = torch.topk(ctx.i("X"), ctx.attr("k", 1), dim=-1)
+    ctx.set("Out", vals)
+    ctx.set("Indices", idxs)

@@ -1,18 +1,21 @@
 """Optimizers (counterpart ``paddle_tpu/fluid/optimizer.py``; reference
-``python/paddle/fluid/optimizer.py:50``): the ``Optimizer`` base and
-``AdamOptimizer``.
+``python/paddle/fluid/optimizer.py:50``): the ``Optimizer`` base,
+``SGDOptimizer``, ``MomentumOptimizer`` and ``AdamOptimizer``.
 
-``minimize`` = ``append_backward`` + one optimizer op per parameter +
+``minimize`` = ``append_backward`` + the regularization ops
+(``regularizer.py``) + one optimizer op per parameter +
 ``_finish_update``.  The global learning-rate variable and the
-accumulators (``moment1``, ``moment2``, ``beta1_pow_acc``,
+accumulators (``velocity``, ``moment1``, ``moment2``, ``beta1_pow_acc``,
 ``beta2_pow_acc``) get the JAX package's names, so
 ``convert.load_numpy_params`` carries every persistable of a JAX scope
-across.  Regularizers, gradient clipping and the other optimizers are
-not ported yet (ROADMAP.md, port queue 1); asking for them raises.
+across.  Gradient clipping, learning-rate schedules and the other
+optimizers are not ported yet (ROADMAP.md, port queue 1); asking for them
+raises.
 """
 
 from .framework import OpRole, default_main_program
 from .backward import append_backward
+from .regularizer import append_regularization_ops
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from . import unique_name
@@ -26,8 +29,7 @@ def _not_ported(what):
 
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None):
-        if regularization is not None:
-            raise _not_ported("regularization")
+        self.regularization = regularization
         if not isinstance(learning_rate, (int, float)):
             raise _not_ported("a learning-rate schedule or variable")
         self._name = name
@@ -89,8 +91,10 @@ class Optimizer:
         for p, _ in params_grads:
             if getattr(p, "gradient_clip_attr", None) is not None:
                 raise _not_ported("gradient clipping")
-            if getattr(p, "regularizer", None) is not None:
-                raise _not_ported("a parameter regularizer")
+        program = default_main_program()
+        with program._role_guard(OpRole.Optimize):
+            params_grads = append_regularization_ops(params_grads,
+                                                     self.regularization)
         return self._create_optimization_pass(params_grads)
 
     def _create_optimization_pass(self, params_grads):
@@ -125,6 +129,45 @@ class Optimizer:
 
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
+
+
+class SGDOptimizer(Optimizer):
+    """operators/optimizers/sgd_op (reference optimizer.py:609)."""
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [param], "Grad": [grad],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param]})
+
+
+class MomentumOptimizer(Optimizer):
+    """operators/optimizers/momentum_op (reference optimizer.py:679;
+    JAX optimizer.py:304)."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        velocity = self._get_accumulator("velocity", param)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [param], "Grad": [grad],
+                    "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):
@@ -177,3 +220,8 @@ class AdamOptimizer(Optimizer):
                             outputs={"Out": [b2p]},
                             attrs={"scale": self._beta2})
 
+
+# reference-compatible aliases
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adam = AdamOptimizer

@@ -1,3 +1,4 @@
 """paddle_tpu_torch.models — model program builders ported so far."""
 
 from . import bert  # noqa: F401
+from . import resnet  # noqa: F401

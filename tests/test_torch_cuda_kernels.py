@@ -11,7 +11,12 @@ Tolerances: float32 ``rtol/atol 1e-4``; bfloat16 ``rtol/atol 2e-2``,
 the forward against the float32 plain version of the bf16-rounded
 inputs, the backward (K3, K4, K5) against plain versions that round at
 the same points in bf16.  Bias masks are random (not whole padded rows),
-so no row is fully masked.
+so no row is fully masked.  K1 (3x3 conv): float32 within 1e-4 of the
+largest output, bf16 within 2e-2 of it (the plain version rounds the
+float32 sum once, as the kernel does).  K6 (row layer norm): float32
+within 1e-5 of the largest output, bf16 within 1e-2.  The last test
+plants faults in K1's output and shows that chip_smoke.py's ResNet-50
+route check fails on each (it imports chip_smoke.py from the repo root).
 """
 
 import numpy as np
@@ -19,6 +24,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.fluid.ops import attention_ops as port_attn
+from paddle_tpu_torch.fluid.ops import conv_ops as port_conv
+from paddle_tpu_torch.fluid.ops import norm_ops as port_norm
 
 
 def _inputs(BH, S_q, S_kv, D, bias, seed):
@@ -157,3 +164,175 @@ def test_flash_attention_function_grads_match_autograd_of_plain(bias_grad):
     for a, w in zip(got, want):
         assert a.shape == w.shape
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
+
+
+# (N, H, W, C, O, epilogue, dtype) of the K1 cases: C != O, W not a
+# multiple of any tile width, a multi-image tile, one wider than a tile
+# (W > 256), C not a multiple of the 16-channel chunk
+K1_CASES = {
+    "c64_o96_w30_fp32": (3, 17, 30, 64, 96, True, torch.float32),
+    "c48_o16_7x7_bf16": (9, 7, 7, 48, 16, False, torch.bfloat16),
+    "c20_o70_5x9_fp32": (4, 5, 9, 20, 70, True, torch.float32),
+    "wide_w300_bf16": (1, 3, 300, 16, 64, True, torch.bfloat16),
+    "1x1_image_fp32": (37, 1, 1, 32, 8, False, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_conv3x3_kernel_matches_plain_version(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    N, H, W, C, O, epilogue, dt = K1_CASES[case]
+    rng = np.random.RandomState(N * H + W)
+    dev = torch.device("cuda", 0)
+    x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(dev,
+                                                                      dt)
+    w = torch.from_numpy((rng.randn(3, 3, C, O) * 0.1).astype(
+        np.float32)).to(dev, dt)
+    sc = sh = None
+    if epilogue:
+        sc = torch.from_numpy((rng.rand(O) + 0.5).astype(np.float32)).to(dev)
+        sh = torch.from_numpy(rng.randn(O).astype(np.float32)).to(dev)
+    before = port_conv.conv3x3_bn_relu.launches
+    got = port_conv.conv3x3_bn_relu(x, w, sc, sh, relu=epilogue)
+    torch.cuda.synchronize()
+    assert port_conv.conv3x3_bn_relu.launches == before + 1
+    want = port_conv.conv3x3_bn_relu_reference(x, w, sc, sh, relu=epilogue)
+    assert got.dtype == dt and got.shape == want.shape
+    bound = (1e-4 if dt == torch.float32 else 2e-2) * \
+        want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_conv3x3_function_on_the_card_matches_the_library_conv():
+    """Conv3x3Function (K1 forward, library backward) against F.conv2d and
+    its autograd, float32 NCHW, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(12)
+    dev = torch.device("cuda", 0)
+    x = torch.from_numpy(rng.randn(4, 24, 13, 11).astype(np.float32)).to(
+        dev).requires_grad_()
+    w = torch.from_numpy((rng.randn(40, 24, 3, 3) * 0.1).astype(
+        np.float32)).to(dev).requires_grad_()
+    g = torch.from_numpy(rng.randn(4, 40, 13, 11).astype(np.float32)).to(dev)
+    out = port_conv.Conv3x3Function.apply(x, w)
+    ref = torch.nn.functional.conv2d(x, w, padding=1)
+    got = torch.autograd.grad(out, (x, w), g)
+    want = torch.autograd.grad(ref, (x, w), g)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,dt", [(1, 768, torch.float32),
+                                    (333, 1000, torch.float32),
+                                    (77, 3, torch.bfloat16),
+                                    (9, 4097, torch.bfloat16)],
+                         ids=["m1_fp32", "ragged_fp32", "d3_bf16",
+                              "d4097_bf16"])
+def test_layer_norm_kernel_matches_plain_version(M, D, dt):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.RandomState(M + D)
+    dev = torch.device("cuda", 0)
+    x = torch.from_numpy((rng.randn(M, D) * 3 + 1).astype(np.float32)).to(
+        dev, dt)
+    sc = torch.from_numpy((rng.rand(D) + 0.5).astype(np.float32)).to(dev)
+    bi = torch.from_numpy(rng.randn(D).astype(np.float32)).to(dev)
+    before = port_norm.row_layer_norm.launches
+    got = port_norm.row_layer_norm(x, sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    assert port_norm.row_layer_norm.launches == before + 1
+    want = port_norm.layer_norm_reference(x, sc, bi, 1e-5)
+    assert got.dtype == dt and got.shape == want.shape
+    bound = (1e-5 if dt == torch.float32 else 1e-2) * \
+        want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= bound
+
+
+def _halo_shift(real, x, w, *rest):
+    """Every output one column off, as a wrong halo offset gives."""
+    return torch.roll(real(x, w, *rest), 1, dims=2)
+
+
+def _border_column_zero(real, x, w, *rest):
+    """The last output column lost, as a wrong padding predicate gives."""
+    out = real(x, w, *rest)
+    out[:, :, -1, :] = 0
+    return out
+
+
+def _taps_transposed_at_7x7(real, x, w, *rest):
+    """dy and dx swapped at stage 4's shape only (7 x 7, C = 512)."""
+    return real(x, w.transpose(0, 1) if x.shape[1] == 7 else w, *rest)
+
+
+def _one_percent_noise(real, x, w, *rest):
+    """Each output off by ~1% of itself, as a low-precision sum gives."""
+    out = real(x, w, *rest)
+    gen = torch.Generator(device=out.device).manual_seed(0)
+    noise = torch.randn(out.shape, generator=gen, device=out.device)
+    return (out.float() * (1 + 0.01 * noise)).to(out.dtype)
+
+
+def _channel_scaled(real, x, w, *rest):
+    """Output channel 0 doubled, as a wrong epilogue scale gives."""
+    out = real(x, w, *rest)
+    out[..., 0] *= 2
+    return out
+
+
+K1_FAULTS = {f.__name__.lstrip("_"): f for f in (
+    _halo_shift, _border_column_zero, _taps_transposed_at_7x7,
+    _one_percent_noise, _channel_scaled)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["none"] + sorted(K1_FAULTS))
+def test_resnet_check_catches_a_fault_planted_in_k1(fault, monkeypatch):
+    """chip_smoke.py's resnet_check (ResNet-50 step 1 from the startup
+    weights: the K1 route against the cuDNN route in bf16 at batch 256,
+    and the card against the CPU path in fp32 at batch 2) passes with K1
+    as it is, and fails when a fault is planted in K1's output on the
+    card (the CPU path's plain version stays as it is).  A constant added
+    to one output channel is not among the faults: the batch norm after
+    every K1 conv removes it in the forward and the backward alike, so no
+    result of this path can show it; kernel_conv holds K1's output
+    itself.  Run with ``-s`` to see the check's numbers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    if fault != "none":
+        real = port_conv.conv3x3_bn_relu
+
+        def planted(x, w, scale=None, shift=None, relu=True):
+            if not x.is_cuda:           # the CPU path's plain version
+                return real(x, w, scale, shift, relu)
+            return K1_FAULTS[fault](real, x, w, scale, shift, relu)
+        # the kernel wrapper counts its launches on the module's name
+        planted.launches = real.launches
+        monkeypatch.setattr(port_conv, "conv3x3_bn_relu", planted)
+    fluid = chip_smoke.fluid
+    main, startup, loss = chip_smoke._resnet_program()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).cuda() for k, v in chip_smoke.
+            _resnet_feed(chip_smoke.RN_BATCH, chip_smoke.SEED).items()}
+    checks = chip_smoke.phase_resnet_check(exe, main, loss, scope, feed)
+    compared = (checks["k1_route_matches_cudnn_route"] and
+                checks["card_matches_cpu_path"])
+    assert compared == (fault == "none"), checks
+    if fault == "none":
+        assert all(checks.values()), checks

@@ -250,8 +250,8 @@ def test_a_variable_in_two_slots_gets_its_gradient_once():
 
 
 def test_unported_optimizer_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fluid.optimizer.AdamOptimizer(regularization=object())
+    """Regularizers are ported (regularizer.py); learning-rate schedules,
+    per-parameter learning rates and gradient clipping still raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fluid.optimizer.AdamOptimizer(learning_rate=lambda: 0.1)
     main, startup = fluid.Program(), fluid.Program()
@@ -261,3 +261,12 @@ def test_unported_optimizer_options_raise_naming_the_roadmap():
             x, 2, param_attr=fluid.ParamAttr(learning_rate=0.5)))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             fluid.optimizer.AdamOptimizer().minimize(loss)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [8])
+        loss = fluid.layers.mean(fluid.layers.fc(
+            x, 2, param_attr=fluid.ParamAttr(gradient_clip=object())))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fluid.optimizer.AdamOptimizer(
+                regularization=fluid.regularizer.L2Decay(1e-4)).minimize(
+                    loss)
