@@ -23,11 +23,15 @@ non-zero exit (nothing is caught):
    ragged cross 77 x 200 and D=128 — then their times at the training
    shape beside the plain versions, the SDPA backward and the bounds,
    and K2's with the LSE.
-6. kernel_conv: K1 (3x3 implicit-GEMM conv) against its plain version at
-   the four ResNet-50 3x3 stride-1 shapes, batch 256 in bf16 and batch 32
-   in fp32, with and without the BN+relu epilogue; then its time per
-   shape beside the plain version, cuDNN (F.conv2d, channels_last bf16;
-   never called by the port for these convs) and the bound.
+6. kernel_conv: ptxas's report for K1's wgmma kernel (registers,
+   spills: none allowed); K1 (3x3 implicit-GEMM conv) against its plain
+   version at the four ResNet-50 3x3 stride-1 shapes, batch 256 in bf16
+   and batch 32 in fp32, with and without the BN+relu epilogue, each
+   launching the variant its plan names (wgmma in bf16, fp32 in fp32);
+   then its time per shape beside the plain version, cuDNN (F.conv2d,
+   channels_last bf16; never called by the port for these convs), the
+   bound, and the NCHW -> NHWC copy the wrapper makes of an input that
+   is not channels_last.
 7. kernel_ln: K6 (row layer norm) against its plain version at
    [4096, 768] fp32 and bf16 and a ragged [1000, 1000]; its time beside
    the plain version, F.layer_norm and the bound.
@@ -54,9 +58,12 @@ non-zero exit (nothing is caught):
    ResNet-50 v1.5, 224 x 224, batch 256, pure bf16, Momentum 0.9 with
    L2Decay 1e-4, lr 0.1, FLAGS_conv_pallas=1 — 2 warm-up and 8 timed
    steps on one synthetic batch: finite falling losses, 13 K1 launches
-   per step and no other kernel, ms per step, images/s, peak memory.
+   per step, all of the wgmma variant, and no other kernel; how many of
+   the 13 copy their input to NHWC first; ms per step, images/s, peak
+   memory.
 13. resnet_profile: one profiled ResNet-50 step: kernel time against
-   wall, device busy share, events, launch calls, top kernels.
+   wall, device busy share, events, launch calls, top kernels, kernel
+   time by kind (K1's share must not be 0).
    resnet_check: step 1 from the startup weights, the K1 route against
    the cuDNN route (flag off, bf16, batch 256) and the card against the
    port's CPU path (fp32, batch 2), on the loss and chosen gradients,
@@ -87,7 +94,7 @@ from paddle_tpu_torch.fluid.ops.attention_ops import (
     dq_reference, flash_attention, flash_attention_bwd_dbias,
     flash_attention_bwd_dkv, flash_attention_bwd_dq, recompute_p_dp)
 from paddle_tpu_torch.fluid.ops.conv_ops import (
-    conv3x3_bn_relu, conv3x3_bn_relu_reference)
+    K1_VARIANTS, conv3x3_bn_relu, conv3x3_bn_relu_reference, k1_plan)
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
 from paddle_tpu_torch.models import bert, resnet
@@ -871,6 +878,8 @@ def _head(feed, n):
 def _reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
+    conv3x3_bn_relu.launches_by_variant = dict.fromkeys(K1_VARIANTS, 0)
+    conv3x3_bn_relu.input_copies = 0
 
 
 def _launches():
@@ -1140,12 +1149,39 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _ptxas_report(source, kernel):
+    """ptxas's lines (registers, barriers, stack, spills) for each
+    instantiation of ``kernel`` in the build log of ``source``."""
+    report, name = {}, None
+    for ln in _kernels.build_log(source).splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if kernel in ln else None
+            if name is not None:
+                report[name] = []
+        elif name is not None and ("registers" in ln or "spill" in ln):
+            report[name].append(ln.replace("ptxas info    :", "").strip())
+    return report
+
+
 def phase_kernel_conv(bounds):
     """K1 against conv3x3_bn_relu_reference on the card at the four
     ResNet-50 shapes (bf16 at batch 256, fp32 at batch 32), with and
-    without the epilogue, one launch asserted per case; then K1's time
-    per shape in bf16 at batch 256 without epilogue (the op path's call)
-    beside the plain version, cuDNN and the bound."""
+    without the epilogue, one launch of the planned variant asserted per
+    case (wgmma in bf16, fp32 in fp32); ptxas's report for the wgmma
+    kernel, which must not spill; then K1's time per shape in bf16 at
+    batch 256 without epilogue (the op path's call) beside the plain
+    version, cuDNN, the bound, and the NCHW -> NHWC copy the wrapper
+    makes when its input is not channels_last."""
+    ptxas = _ptxas_report("conv3x3_bn_relu", "conv3x3_wgmma_kernel")
+    spills = {n: [ln for ln in lines if "spill" in ln and
+                  not ln.startswith("0 bytes stack frame, 0 bytes spill "
+                                    "stores, 0 bytes spill loads")]
+              for n, lines in ptxas.items()}
+    emit(phase="kernel_conv_ptxas", kernel="conv3x3_wgmma_kernel",
+         report=ptxas, ok=bool(ptxas) and not any(spills.values()))
+    if not ptxas or any(spills.values()):
+        raise SystemExit("the wgmma K1 kernel is missing from the build log "
+                         "or spills: %s" % spills)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     errs = []
@@ -1157,42 +1193,56 @@ def phase_kernel_conv(bounds):
                  (2.0 / (9 * c)) ** 0.5).to(dt)
             sc = torch.rand(c, device=dev, generator=gen) + 0.5
             sh = torch.randn(c, device=dev, generator=gen)
+            plan = k1_plan(n, hw, hw, c, c, dt)
+            want_variant = "wgmma" if dt == torch.bfloat16 else "fp32"
             for epi in (False, True):
                 args = (x, w, sc, sh) if epi else (x, w, None, None)
                 before = conv3x3_bn_relu.launches
+                by_variant = dict(conv3x3_bn_relu.launches_by_variant)
                 got = conv3x3_bn_relu(*args, relu=epi)
                 torch.cuda.synchronize()
                 launched = conv3x3_bn_relu.launches - before
+                variants = {k: v - by_variant[k] for k, v in
+                            conv3x3_bn_relu.launches_by_variant.items()
+                            if v != by_variant[k]}
                 want = conv3x3_bn_relu_reference(*args, relu=epi)
                 err = _rel(got, want)
                 tol = K1_FP32_TOL if dt == torch.float32 else K1_BF16_TOL
                 finite = bool(torch.isfinite(got.float()).all())
-                ok = launched == 1 and err <= tol and finite and \
-                    got.dtype == dt
+                ok = launched == 1 and variants == {want_variant: 1} and \
+                    plan["variant"] == want_variant and err <= tol and \
+                    finite and got.dtype == dt
                 emit(phase="kernel_conv_check", shape=[n, hw, hw, c, c],
                      dtype=str(dt), epilogue=epi, launched=launched,
-                     max_err_rel=err,
+                     variant=variants, plan=plan, max_err_rel=err,
                      tolerance="max|diff| <= %g max|plain|" % tol,
                      finite=finite, ok=ok)
                 if not ok:
                     raise SystemExit("K1 disagrees with its plain version "
-                                     "at %s %s epilogue=%s"
-                                     % ([n, hw, hw, c], dt, epi))
+                                     "or took another variant at %s %s "
+                                     "epilogue=%s" % ([n, hw, hw, c], dt, epi))
                 if dt == torch.bfloat16 and not epi:
                     errs.append(err * want.float().abs().max().item())
                 del got, want
-    times, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    times, step = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                           input_copy_ms=0.0)
     for (hw, c, count), b in zip(RESNET_K1_SHAPES, bounds["k1_rows"]):
         x = torch.randn(RN_BATCH, hw, hw, c, device=dev,
                         generator=gen).to(torch.bfloat16)
-        w = (torch.randn(3, 3, c, c, device=dev, generator=gen) * 0.05).to(
+        # the weights in the kernel's K-major [O, 3, 3, C] storage, passed
+        # as their HWIO view: the wrapper makes no copy, so the time is
+        # the kernel's (the op path's OIHW weights take one small copy)
+        wk = (torch.randn(c, 3, 3, c, device=dev, generator=gen) * 0.05).to(
             torch.bfloat16)
+        w = wk.permute(1, 2, 3, 0)
         if hw == 56:
             _check_no_host_sync(lambda: conv3x3_bn_relu(x, w, relu=False))
         # cuDNN on the same data: NCHW views of NHWC storage (channels_last)
         xl = x.permute(0, 3, 1, 2)
         wl = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
+        # the copy conv3x3_bn_relu makes of an NCHW-contiguous input
+        xn = xl.contiguous()
         # the plain version's F.unfold launches one im2col kernel per
         # image, 262 launches a call at batch 256: three calls fill the
         # launch queue, so it is timed two at a time
@@ -1200,8 +1250,12 @@ def phase_kernel_conv(bounds):
                  plain_ms=cuda_time_ms(lambda: conv3x3_bn_relu_reference(
                      x, w, relu=False), iters=2, warmup=2),
                  library_ms=cuda_time_ms(lambda: torch.nn.functional.conv2d(
-                     xl, wl, padding=1)))
+                     xl, wl, padding=1)),
+                 input_copy_ms=cuda_time_ms(
+                     lambda: xn.permute(0, 2, 3, 1).contiguous()))
         row = dict(shape=[RN_BATCH, hw, hw, c, c], convs_per_step=count,
+                   variant=k1_plan(RN_BATCH, hw, hw, c, c,
+                                   torch.bfloat16)["variant"],
                    bound_ms=b["bound_ms"], bound_by=b["bound_by"],
                    tflops=b["gflop"] / t["ms"], **t)
         row["roofline_share"] = b["bound_ms"] / t["ms"]
@@ -1209,13 +1263,14 @@ def phase_kernel_conv(bounds):
         times.append(row)
         for k in step:
             step[k] += count * t[k]
-        del x, w, xl, wl
+        del x, w, wk, xl, wl, xn
     emit(phase="kernel_conv_step", per="ResNet-50 step, 13 launches",
          bound_ms=bounds["k1_step_ms"], **step)
     return dict(max_abs_err=max(errs), per="ResNet-50 step (13 launches "
                 "at batch 256, bf16); per shape in kernel_conv_time",
                 bound_ms=bounds["k1_step_ms"],
-                bound_by=bounds["k1_rows"][0]["bound_by"], **step)
+                bound_by=bounds["k1_rows"][0]["bound_by"],
+                **{k: step[k] for k in ("ms", "plain_ms", "library_ms")})
 
 
 def phase_kernel_ln(bounds):
@@ -1384,26 +1439,33 @@ def phase_resnet_train():
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / timed * 1e3
     launches = _launches()
+    k1_variants = dict(conv3x3_bn_relu.launches_by_variant)
+    k1_copies = conv3x3_bn_relu.input_copies
     losses = [float(x.float().item()) for x in losses]
     steps = warm + timed
     emit(phase="resnet_train", steps=steps, losses=losses,
          ms_per_step=step_ms, images_per_s=RN_BATCH / step_ms * 1e3,
          peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
          launches=launches,
-         launches_per_step={n: c / steps for n, c in launches.items()})
+         launches_per_step={n: c / steps for n, c in launches.items()},
+         k1_launches_by_variant=k1_variants,
+         k1_input_copies_per_step=k1_copies / steps)
     checks = {
         "losses_finite": bool(np.isfinite(losses).all()),
         "last_loss_below_first": losses[-1] < losses[0],
         "k1_13_per_step": launches["conv3x3_bn_relu"] == 13 * steps,
+        "k1_all_wgmma": k1_variants["wgmma"] == 13 * steps,
         "no_other_kernel": not any(c for n, c in launches.items()
                                    if n != "conv3x3_bn_relu"),
     }
-    phase_resnet_profile(exe, main, loss, scope, feed)
+    checks["profile_has_k1"] = phase_resnet_profile(exe, main, loss, scope,
+                                                    feed)["k1"] > 0
     checks.update(phase_resnet_check(exe, main, loss, init, feed))
     if not all(checks.values()):
         raise SystemExit("resnet_train checks failed: %s"
                          % [k for k, ok in checks.items() if not ok])
-    return dict(launches=launches, ms_per_step=step_ms)
+    return dict(launches=launches, ms_per_step=step_ms,
+                k1_launches_by_variant=k1_variants)
 
 
 def phase_resnet_check(exe, main, loss, init, feed):
@@ -1506,10 +1568,12 @@ def phase_resnet_profile(exe, main, loss, scope, feed):
     busy_ms, _, events = _timeline(prof)
     launch = [e for e in prof.key_averages()
               if e.key.startswith("cudaLaunchKernel")]
+    kinds = _kernel_kinds(prof)
     emit(phase="resnet_profile", wall_ms=wall_ms, kernel_ms=dev_ms,
          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
          device_events=events, launch_calls=sum(e.count for e in launch),
-         kernel_ms_by_kind=_kernel_kinds(prof), top_kernels=top)
+         kernel_ms_by_kind=kinds, top_kernels=top)
+    return kinds
 
 
 def _ln_program(fused):
@@ -1597,7 +1661,8 @@ def main():
     by_path["train"] = phase_train()["launches"]
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
-    by_path["resnet_train"] = phase_resnet_train()["launches"]
+    resnet = phase_resnet_train()
+    by_path["resnet_train"] = resnet["launches"]
     by_path["ln_path"] = phase_ln_path()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
@@ -1627,6 +1692,9 @@ def main():
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             **({"per": t["per"]} if "per" in t else {})))
+        if name == "conv3x3_bn_relu":
+            rows[-1]["variants_resnet_train"] = resnet[
+                "k1_launches_by_variant"]
     emit(kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,10 +55,12 @@ SIGNATURES = {
         "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "conv3x3_bn_relu": {
-        # (dtype, x, w, scale, shift, out, N, H, W, C, O, relu, stream)
-        #  -> cudaError_t
+        # (variant, x, w, scale, shift, out, N, H, W, C, O, relu, flat,
+        #  NB, RH, TW, BN, halo stages, weight stages, smem bytes, grid x,
+        #  grid y, stream) -> cudaError_t; the plan is conv_ops.k1_plan's
         "paddle_conv3x3_bn_relu": (
-            _i, [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p]),
+            _i, [_i, _p, _p, _p, _p, _p] + [_i] * 16 + [_p]),
+        "paddle_conv3x3_error_detail": (ctypes.c_char_p, []),
         "paddle_cuda_error_string": (ctypes.c_char_p, [_i]),
     },
     "layer_norm": {

@@ -13,7 +13,8 @@ inputs, the backward (K3, K4, K5) against plain versions that round at
 the same points in bf16.  Bias masks are random (not whole padded rows),
 so no row is fully masked.  K1 (3x3 conv): float32 within 1e-4 of the
 largest output, bf16 within 2e-2 of it (the plain version rounds the
-float32 sum once, as the kernel does).  K6 (row layer norm): float32
+float32 sum once, as the kernel does); each K1 case also asserts which
+variant (``conv_ops.k1_plan``) launched.  K6 (row layer norm): float32
 within 1e-5 of the largest output, bf16 within 1e-2.  The last test
 plants faults in K1's output and shows that chip_smoke.py's ResNet-50
 route check fails on each (it imports chip_smoke.py from the repo root).
@@ -166,15 +167,35 @@ def test_flash_attention_function_grads_match_autograd_of_plain(bias_grad):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
 
 
-# (N, H, W, C, O, epilogue, dtype) of the K1 cases: C != O, W not a
-# multiple of any tile width, a multi-image tile, one wider than a tile
-# (W > 256), C not a multiple of the 16-channel chunk
+# (N, H, W, C, O, epilogue, dtype, variant) of the K1 cases: C != O, W
+# not a multiple of any tile width, a multi-image tile, one wider than a
+# tile (W > 256), C not a multiple of the 16-channel chunk; at the wgmma
+# variant's edges: C = 64 (a single 64-channel chunk), C = O = 72 (a
+# ragged chunk and a ragged 128-channel BN block), 7 x 7 with several
+# images to a (flat) tile and N*H*W not a multiple of the tile, W = 300
+# with C = 64 (rectangular column tiles), 37 images of 1 x 1 in one
+# rectangular tile; and the bfloat16 calls that stay on mma_sync: C = 20
+# (TMA needs 16-byte strides) and an x that does not start on a 16-byte
+# boundary
 K1_CASES = {
-    "c64_o96_w30_fp32": (3, 17, 30, 64, 96, True, torch.float32),
-    "c48_o16_7x7_bf16": (9, 7, 7, 48, 16, False, torch.bfloat16),
-    "c20_o70_5x9_fp32": (4, 5, 9, 20, 70, True, torch.float32),
-    "wide_w300_bf16": (1, 3, 300, 16, 64, True, torch.bfloat16),
-    "1x1_image_fp32": (37, 1, 1, 32, 8, False, torch.float32),
+    "c64_o96_w30_fp32": (3, 17, 30, 64, 96, True, torch.float32, "fp32"),
+    "c48_o16_7x7_bf16": (9, 7, 7, 48, 16, False, torch.bfloat16, "wgmma"),
+    "c20_o70_5x9_fp32": (4, 5, 9, 20, 70, True, torch.float32, "fp32"),
+    "wide_w300_bf16": (1, 3, 300, 16, 64, True, torch.bfloat16, "wgmma"),
+    "1x1_image_fp32": (37, 1, 1, 32, 8, False, torch.float32, "fp32"),
+    "c64_single_chunk_bf16": (2, 9, 20, 64, 64, True, torch.bfloat16,
+                              "wgmma"),
+    "c72_o72_ragged_bf16": (2, 11, 13, 72, 72, True, torch.bfloat16,
+                            "wgmma"),
+    "7x7_two_images_ragged_bf16": (5, 7, 7, 128, 64, True, torch.bfloat16,
+                                   "wgmma"),
+    "w300_c64_bf16": (2, 3, 300, 64, 64, True, torch.bfloat16, "wgmma"),
+    "1x1_images_bf16": (37, 1, 1, 32, 8, False, torch.bfloat16, "wgmma"),
+    "c20_o24_bf16": (3, 6, 10, 20, 24, True, torch.bfloat16, "mma_sync"),
+    "c20_o24_w300_bf16": (1, 3, 300, 20, 24, True, torch.bfloat16,
+                          "mma_sync"),
+    "misaligned_x_bf16": (2, 5, 8, 64, 64, True, torch.bfloat16,
+                          "mma_sync"),
 }
 
 
@@ -183,21 +204,33 @@ K1_CASES = {
 def test_conv3x3_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    N, H, W, C, O, epilogue, dt = K1_CASES[case]
+    N, H, W, C, O, epilogue, dt, variant = K1_CASES[case]
     rng = np.random.RandomState(N * H + W)
     dev = torch.device("cuda", 0)
     x = torch.from_numpy(rng.randn(N, H, W, C).astype(np.float32)).to(dev,
                                                                       dt)
+    if case.startswith("misaligned"):
+        # the same values one element past a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=dt, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(N, H, W, C)
+        assert x.data_ptr() % 16 != 0
     w = torch.from_numpy((rng.randn(3, 3, C, O) * 0.1).astype(
         np.float32)).to(dev, dt)
     sc = sh = None
     if epilogue:
         sc = torch.from_numpy((rng.rand(O) + 0.5).astype(np.float32)).to(dev)
         sh = torch.from_numpy(rng.randn(O).astype(np.float32)).to(dev)
+    assert port_conv.k1_plan(N, H, W, C, O, dt, aligned=x.data_ptr() % 16
+                             == 0)["variant"] == variant
     before = port_conv.conv3x3_bn_relu.launches
+    by_variant = dict(port_conv.conv3x3_bn_relu.launches_by_variant)
     got = port_conv.conv3x3_bn_relu(x, w, sc, sh, relu=epilogue)
     torch.cuda.synchronize()
     assert port_conv.conv3x3_bn_relu.launches == before + 1
+    assert {k: v - by_variant[k] for k, v in
+            port_conv.conv3x3_bn_relu.launches_by_variant.items()
+            if v != by_variant[k]} == {variant: 1}
     want = port_conv.conv3x3_bn_relu_reference(x, w, sc, sh, relu=epilogue)
     assert got.dtype == dt and got.shape == want.shape
     bound = (1e-4 if dt == torch.float32 else 2e-2) * \
@@ -322,6 +355,8 @@ def test_resnet_check_catches_a_fault_planted_in_k1(fault, monkeypatch):
             return K1_FAULTS[fault](real, x, w, scale, shift, relu)
         # the kernel wrapper counts its launches on the module's name
         planted.launches = real.launches
+        planted.launches_by_variant = real.launches_by_variant
+        planted.input_copies = real.input_copies
         monkeypatch.setattr(port_conv, "conv3x3_bn_relu", planted)
     fluid = chip_smoke.fluid
     main, startup, loss = chip_smoke._resnet_program()
