@@ -8,10 +8,11 @@ non-zero exit (nothing is caught):
 1. device: card name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and convolutions.
 2. build: every CUDA kernel of the port, from paddle_tpu_torch/csrc/,
-   and K2 with a fault planted in its p v step, with nvcc (one process
-   per library, started together); K2's and K4's tensor-core kernels must
-   show 0 spills in ptxas's report and HMMA in cuobjdump's SASS at every
-   instantiation (fp32/bf16 x D 64/128).
+   K2 with a fault planted in its p v step and the backward with faults
+   planted in K3's ds k and K5's store, with nvcc (one process per
+   library, started together); the tensor-core kernels K2, K3/K5 and K4
+   must show 0 spills in ptxas's report and HMMA in cuobjdump's SASS at
+   every instantiation (fp32/bf16 x D 64/128, and x dQ/dBias for K3/K5).
 3. bounds: the least time of K1 and K6 at the shapes of their paths,
    computed from their work (no device work).
 4. kernel: the flash-attention forward (K2) against its plain PyTorch
@@ -27,10 +28,12 @@ non-zero exit (nothing is caught):
 5. kernel_bwd: the backward kernels K3 (dQ), K4 (dK/dV) and K5 (dBias)
    against their plain versions — the BERT-base training shape (BH=384,
    S=128, D=64, [32,1,128,128] padding bias) in fp32 and bf16, causal,
-   ragged cross 77 x 200, D=128 and phase 4's edge cases — then their
-   times at the training shape beside the plain versions, the SDPA
-   backward (and the names of the kernels it runs) and the bounds, and
-   K2's with the LSE.
+   ragged cross 77 x 200, D=128 and phase 4's edge cases; the backward
+   with planted faults must fail the same check on dq and dbias in fp32
+   and bf16, and two launches of K3 (and of K5) give the same bits —
+   then their times at the training shape beside the plain versions, the
+   SDPA backward (and the names of the kernels it runs) and the bounds,
+   and K2's with the LSE.
 6. kernel_conv: ptxas's report for K1's wgmma kernel (registers,
    spills: none allowed); K1 (3x3 implicit-GEMM conv) against its plain
    version at the four ResNet-50 3x3 stride-1 shapes, batch 256 in bf16
@@ -119,10 +122,16 @@ PEAK_TF32_FLOPS = 495e12      # tensor cores, dense; split TF32 (three
 # the K2 variant with a wrong pairing of p's columns and V's rows, which
 # phase_kernel's check must fail
 PLANTED_FAULT = ("flash_attention_fwd", ("PADDLE_ATTN_PLANTED_FAULT",))
+# the backward variant whose K3 pairs K's rows 2t and 2t + 1 with the wrong
+# columns of ds in ds k, and whose K5 swaps the two columns of each pair it
+# writes: phase_kernel_bwd's check must fail both
+BWD_PLANTED_FAULT = ("flash_attention_bwd", ("PADDLE_ATTN_BWD_PLANTED_FAULT",))
 # the tensor-core kernels of the attention sources, held to no spills and
-# to HMMA instructions in their machine code
-MMA_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel"),
-               ("flash_attention_bwd", "dkv_kernel"))
+# to HMMA instructions in their machine code, with their instantiations
+# (fp32/bf16 x D 64/128; q_rows_kernel also x dQ (K3) / dBias (K5))
+MMA_KERNELS = (("flash_attention_fwd", "flash_fwd_kernel", 4),
+               ("flash_attention_bwd", "dkv_kernel", 4),
+               ("flash_attention_bwd", "q_rows_kernel", 8))
 
 SEED = 1234
 # every kernel wrapper of the port, by the name the kernels line gives it
@@ -245,12 +254,12 @@ def _sass_counts(source, kernel):
 
 
 def phase_build():
-    """Every source and the planted-fault variant of K2, one nvcc each,
-    all at once; then K2's and K4's tensor-core kernels are held to 0
-    spills (ptxas) and to HMMA instructions (cuobjdump) at every
-    instantiation."""
+    """Every source and the planted-fault variants of K2 and of the
+    backward, one nvcc each, all at once; then the tensor-core attention
+    kernels (K2, K3/K5, K4) are held to 0 spills (ptxas) and to HMMA
+    instructions (cuobjdump) at every instantiation."""
     t0 = time.perf_counter()
-    times = _kernels.build_all(variants=[PLANTED_FAULT])
+    times = _kernels.build_all(variants=[PLANTED_FAULT, BWD_PLANTED_FAULT])
     wall = time.perf_counter() - t0
     ptxas = {}
     for src in _kernels.sources():
@@ -260,7 +269,7 @@ def phase_build():
     emit(phase="build", seconds=round(wall, 3), compiled=times,
          ptxas=ptxas)
     bad = []
-    for source, kernel in MMA_KERNELS:
+    for source, kernel, want in MMA_KERNELS:
         report = _ptxas_report(source, kernel)
         sass = _sass_counts(source, kernel)
         spill_free = {n: any(" 0 bytes spill stores, 0 bytes spill loads"
@@ -269,10 +278,10 @@ def phase_build():
         emit(phase="build_mma", source=source, kernel=kernel,
              instantiations=len(report), ptxas=report, sass=sass,
              spill_free=spill_free)
-        if len(report) != 4 or len(sass) != 4:
+        if len(report) != want or len(sass) != want:
             bad.append("%s: %d instantiations in ptxas's report, %d in "
-                       "the SASS (want 4: fp32/bf16 x D 64/128)"
-                       % (kernel, len(report), len(sass)))
+                       "the SASS (want %d)"
+                       % (kernel, len(report), len(sass), want))
         bad += ["%s spills" % n for n, ok in spill_free.items() if not ok]
         bad += ["%s has no HMMA" % n for n, c in sass.items()
                 if not c["HMMA"]]
@@ -793,9 +802,107 @@ def phase_bounds():
     return dict(k1_rows=rows, k1_step_ms=step_ms, k6=k6)
 
 
+def _bwd_check(name, t, dt, causal, zero_do):
+    """K3, K4 and K5 (with a bias) against dq_reference, dkv_reference
+    and dbias_reference in one case: (ok, report); each output's entry
+    in report["errors"] carries its own ``ok``."""
+    args, masked = _bwd_args(t, dt, causal, zero_do)
+    before = _launches()
+    got = dict(dq=flash_attention_bwd_dq(*args))
+    got["dk"], got["dv"] = flash_attention_bwd_dkv(*args)
+    want = dict(dq=dq_reference(*args))
+    want["dk"], want["dv"] = dkv_reference(*args)
+    if args[3] is not None:
+        got["dbias"] = flash_attention_bwd_dbias(*args)
+        want["dbias"] = dbias_reference(*args)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launches().items()
+                if n.startswith("flash_attention_bwd")}
+    finite = all(bool(torch.isfinite(g.float()).all())
+                 for g in got.values())
+    # each wrapper must have launched its kernel once (K5 with a bias)
+    rep, ok = {}, finite and launched == {
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+        "flash_attention_bwd_dbias": int(args[3] is not None)}
+    if dt == torch.float32:
+        bounds = _masked_bounds(args, masked)
+        for n in got:
+            diff = (got[n].float() - want[n].float()).abs()
+            excess = (diff - BWD_FP32_ATOL - bounds[n]).max().item()
+            if n in ("dq", "dbias"):
+                rows = diff.amax(-1)
+                real = rows[~masked]
+                rep[n] = dict(
+                    max_abs_err=real.max().item() if real.numel() else 0.0,
+                    masked_rows_max_abs_err=rows[masked].max().item()
+                    if masked.any() else 0.0)
+            else:
+                rep[n] = dict(max_abs_err=diff.max().item(),
+                              masked_rows_bound_max=bounds[n].max().item())
+            rep[n]["ok"] = excess <= 0
+        tol = ("atol %g; fully masked rows and their share of dk/dv add "
+               "%g x |p| propagated" % (BWD_FP32_ATOL, MASKED_P_REL))
+    else:
+        for n in got:
+            rep[n] = dict(
+                max_abs_err=(got[n].float() - want[n].float()).abs().max()
+                .item(),
+                ok=bool(torch.allclose(got[n].float(), want[n].float(),
+                                       atol=BF16_TOL, rtol=BF16_TOL)))
+        tol = ("atol/rtol %g vs the plain version in bf16 (same rounding "
+               "points)" % BF16_TOL)
+    ok = ok and all(r["ok"] for r in rep.values())
+    return ok, dict(
+        case=name, dtype=str(dt), shape=list(args[0].shape),
+        kv=args[1].shape[1], causal=causal,
+        bias=None if args[3] is None else list(args[3].shape),
+        dO_zero_on_masked_rows=zero_do, masked_rows=int(masked.sum()),
+        launched=launched, errors=rep, tolerance=tol, finite=finite, ok=ok)
+
+
+def _bwd_planted_fault_check(cases):
+    """The backward built with BWD_PLANTED_FAULT must fail _bwd_check on
+    dq and on dbias in every one of ``cases`` (each with a bias)."""
+    real = _kernels.load
+    name, defines = BWD_PLANTED_FAULT
+    _kernels.load = lambda n, d=(): real(n, defines if n == name else d)
+    try:
+        caught = {}
+        for c in cases:
+            errors = _bwd_check(*c)[1]["errors"]
+            caught[c[0]] = {n: not errors[n]["ok"] for n in ("dq", "dbias")}
+    finally:
+        _kernels.load = real
+    ok = all(all(c.values()) for c in caught.values())
+    emit(phase="kernel_bwd_planted_fault", fault="ds k: K's rows 2t and "
+         "2t+1 swapped; dbias: the columns of each stored pair swapped "
+         "(%s)" % defines[0], caught=caught, ok=ok)
+    if not ok:
+        raise SystemExit("the backward check passed a kernel with a fault "
+                         "planted in ds k or in the dbias store: %s"
+                         % caught)
+
+
+def _bwd_repeat_check(t):
+    """Two launches of K3, and two of K5, on the same inputs (the BERT
+    training case in fp32) give the same bits."""
+    args, _ = _bwd_args(t, torch.float32, False, True)
+    same = {}
+    for name, fn in (("dq", flash_attention_bwd_dq),
+                     ("dbias", flash_attention_bwd_dbias)):
+        first, second = fn(*args), fn(*args)
+        same[name] = bool(torch.equal(first, second))
+    emit(phase="kernel_bwd_repeat", case="bert_train_fp32",
+         bit_identical=same, ok=all(same.values()))
+    if not all(same.values()):
+        raise SystemExit("K3/K5 gave other bits on a second launch: %s"
+                         % same)
+
+
 def phase_kernel_bwd():
-    """K3, K4 and K5 against their plain versions on the card, then their
-    times at the BERT-base training shape (and K2's, with the LSE)."""
+    """K3, K4 and K5 against their plain versions on the card (and the
+    planted faults and repeat launches of K3 and K5), then their times at
+    the BERT-base training shape (and K2's, with the LSE)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
 
@@ -850,64 +957,18 @@ def phase_kernel_bwd():
                ("dkv", flash_attention_bwd_dkv),
                ("dbias", flash_attention_bwd_dbias))
     errs = {}
-    for name, t, dt, causal, zero_do in cases:
-        args, masked = _bwd_args(t, dt, causal, zero_do)
-        before = _launches()
-        got = dict(dq=flash_attention_bwd_dq(*args))
-        got["dk"], got["dv"] = flash_attention_bwd_dkv(*args)
-        want = dict(dq=dq_reference(*args))
-        want["dk"], want["dv"] = dkv_reference(*args)
-        if args[3] is not None:
-            got["dbias"] = flash_attention_bwd_dbias(*args)
-            want["dbias"] = dbias_reference(*args)
-        torch.cuda.synchronize()
-        launched = {n: c - before[n] for n, c in _launches().items()
-                    if n.startswith("flash_attention_bwd")}
-        finite = all(bool(torch.isfinite(g.float()).all())
-                     for g in got.values())
-        # each wrapper must have launched its kernel once (K5 with a bias)
-        rep, ok = {}, finite and launched == {
-            "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
-            "flash_attention_bwd_dbias": int(args[3] is not None)}
-        if dt == torch.float32:
-            bounds = _masked_bounds(args, masked)
-            for n in got:
-                diff = (got[n].float() - want[n].float()).abs()
-                excess = (diff - BWD_FP32_ATOL - bounds[n]).max().item()
-                if n in ("dq", "dbias"):
-                    rows = diff.amax(-1)
-                    real = rows[~masked]
-                    rep[n] = dict(
-                        max_abs_err=real.max().item() if real.numel()
-                        else 0.0,
-                        masked_rows_max_abs_err=rows[masked].max().item()
-                        if masked.any() else 0.0)
-                else:
-                    rep[n] = dict(max_abs_err=diff.max().item(),
-                                  masked_rows_bound_max=bounds[n].max()
-                                  .item())
-                ok = ok and excess <= 0
-            tol = ("atol %g; fully masked rows and their share of dk/dv "
-                   "add %g x |p| propagated" % (BWD_FP32_ATOL, MASKED_P_REL))
-        else:
-            for n in got:
-                close = torch.allclose(got[n].float(), want[n].float(),
-                                       atol=BF16_TOL, rtol=BF16_TOL)
-                rep[n] = dict(max_abs_err=(got[n].float() - want[n].float())
-                              .abs().max().item())
-                ok = ok and close
-            tol = ("atol/rtol %g vs the plain version in bf16 (same "
-                   "rounding points)" % BF16_TOL)
-        emit(phase="kernel_bwd_check", case=name, dtype=str(dt),
-             shape=list(args[0].shape), kv=args[1].shape[1], causal=causal,
-             bias=None if args[3] is None else list(args[3].shape),
-             dO_zero_on_masked_rows=zero_do, masked_rows=int(masked.sum()),
-             launched=launched, errors=rep, tolerance=tol, finite=finite,
-             ok=ok)
+    for case in cases:
+        ok, rep = _bwd_check(*case)
+        emit(phase="kernel_bwd_check", **rep)
         if not ok:
             raise SystemExit("flash-attention backward kernels disagree "
-                             "with their plain versions in case %s" % name)
-        errs[name] = rep
+                             "with their plain versions in case %s"
+                             % case[0])
+        errs[case[0]] = rep["errors"]
+    _bwd_planted_fault_check([c for c in cases
+                              if c[0] in ("bert_train_fp32",
+                                          "bert_train_bf16")])
+    _bwd_repeat_check(train)
 
     # times at the training shape (fp32, [32,1,128,128] padding mask)
     args, _ = _bwd_args(train, torch.float32, False, True)

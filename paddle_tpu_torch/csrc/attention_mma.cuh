@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the flash-attention kernels for Hopper
 // (sm_90a): mma.sync fragments, the split-TF32 product, cp.async tile
-// loads.  Used by K2 (flash_attention_fwd.cu) and K4 (dkv_kernel in
-// flash_attention_bwd.cu).
+// loads.  Used by K2 (flash_attention_fwd.cu), and by K3/K5
+// (q_rows_kernel) and K4 (dkv_kernel) in flash_attention_bwd.cu.
 //
 // Every product is one warp's mma.sync on a 16-row tile:
 //   * float32: m16n8k8 TF32 with a split-TF32 product.  Each operand x is
@@ -19,9 +19,9 @@
 // A TF32 A fragment holds A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; a
 // bf16 one A[g][2t..2t+1], A[g+8][2t..2t+1], A[g][2t+8..], A[g+8][2t+8..].
 //
-// The second product of attention (p v in K2, p^T dO and ds^T q in K4)
-// takes the first product's accumulator as its A operand without moving
-// data between lanes (a_from_c):
+// The second product of attention (p v in K2, ds k in K3, p^T dO and
+// ds^T q in K4) takes the first product's accumulator as its A operand
+// without moving data between lanes (a_from_c):
 //   * bf16: the accumulators of n-tiles 2j and 2j+1 are A's k-step j as
 //     they stand (the FlashAttention-2 layout);
 //   * TF32: n-tile j is k-step j with its summed index permuted: A's
@@ -52,11 +52,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
-}
-
-// x rounded to T and back (the TPU kernels' astype(q.dtype) before a dot)
-template <typename T> __device__ __forceinline__ float round_t(float x) {
-  return to_f(from_f<T>(x));
 }
 
 // the mma's depth (k per instruction) and the padded row stride of a
@@ -250,7 +245,7 @@ __device__ __forceinline__ void load_bt(FragB<bf16>& b, const bf16* s, int ldm, 
 }
 
 // B[k][n] = s[k0 + k][n0 + n]: the k index runs down the rows of s (V in
-// p v; dO and Q in p^T dO and ds^T q), with A from a_from_c.  TF32 reads
+// p v; K in ds k; dO and Q in p^T dO and ds^T q), with A from a_from_c.  TF32 reads
 // the k-step's rows 2t and 2t + 1 (the permuted order); bf16 transposes
 // two 8 x 8 tiles with ldmatrix.  row_xor is 0; 1 pairs each row with its
 // neighbour's column of A, a fault planted on purpose by a check.
@@ -306,12 +301,14 @@ __device__ __forceinline__ void load_bt(FragB<float>& b, const SplitTile& s, int
 }
 
 __device__ __forceinline__ void load_b(FragB<float>& b, const SplitTile& s, int ldm, int k0,
-                                       int n0, int lane) {
-  const int o = (k0 + 2 * (lane & 3)) * ldm + n0 + (lane >> 2);
-  b.big[0] = __float_as_uint(s.big[o]);
-  b.big[1] = __float_as_uint(s.big[o + ldm]);
-  b.small[0] = __float_as_uint(s.small[o]);
-  b.small[1] = __float_as_uint(s.small[o + ldm]);
+                                       int n0, int lane, int row_xor = 0) {
+  const int r = 2 * (lane & 3);
+  const int o0 = (k0 + (r ^ row_xor)) * ldm + n0 + (lane >> 2);
+  const int o1 = (k0 + ((r + 1) ^ row_xor)) * ldm + n0 + (lane >> 2);
+  b.big[0] = __float_as_uint(s.big[o0]);
+  b.big[1] = __float_as_uint(s.big[o1]);
+  b.small[0] = __float_as_uint(s.small[o0]);
+  b.small[1] = __float_as_uint(s.small[o1]);
 }
 
 // A of k-step j of the second product from the first product's

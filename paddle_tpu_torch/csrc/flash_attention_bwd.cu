@@ -15,40 +15,52 @@
 // parallel backward can hand in a global LSE.
 //
 // The same functions, not the same blocks.  On the TPU each pallas_call
-// walks a sequential grid and keeps whole [S, D] operands in VMEM.  Here:
-//   * K3 and K5: one thread block per (bh, 64 query rows), a loop over
-//     64-row K/V tiles inside it.  Each of the 4 warps owns 16 query rows
-//     (K2's layout), so a row's values never leave its warp.
+// walks a sequential grid and keeps whole [S, D] operands in VMEM.  Here
+// all three run on the tensor cores, mma.sync with split TF32 in fp32 and
+// bf16 mma in bf16 (attention_mma.cuh):
+//   * K3 and K5: one thread block per (bh, 64 query rows), each of the 4
+//     warps owning 16 of them (K2's layout); a loop over 32-row K/V tiles,
+//     double-buffered by cp.async together with the tile's [64 q, 32 keys]
+//     bias.  Q and dO come in once; lse and delta of a thread's two rows
+//     stay in registers, so no global load is left in the loop.  s = q k^T
+//     and dp = dO v^T land in the mma accumulators, ds = p (dp - delta) is
+//     formed there, and K3 takes ds * scale as the A operand of dq += ds k
+//     in place (a_from_c); K5 writes ds out as dbias.
 //   * K4: one thread block per (bh, 64 K/V rows), a loop over 32-row Q/dO
-//     tiles on the tensor cores: mma.sync
-//     with split TF32 in fp32, bf16 mma in bf16 (attention_mma.cuh).  The
-//     block owns its dK/dV rows outright: no atomics, and the result is
-//     the same bits from run to run.
+//     tiles; s^T = k q^T and dp^T = v dO^T, then dv += p^T dO and dk +=
+//     ds^T q with the accumulators as A operands.
+//   * Every block owns its output rows outright: no atomics, and a result
+//     is the same bits from run to run.
+//   * In fp32 each K/V (K3, K5) or Q/dO (K4, at D = 64) tile that all 4
+//     warps read as a B operand is split into its TF32 halves once, in
+//     shared memory; what a warp reads alone is split as it is loaded.
 //   * Under causal, tiles that lie wholly above the diagonal are skipped
 //     (pallas_ops.py:144-148, :186-189, :223-227); K5 writes zeros there.
 //   * Ragged edges are masked in the kernel, so every S_q and S_kv is
 //     taken (the TPU kernels need multiples of the block and JAX falls
 //     back to the composition for the rest, :234).
 //   * The bias is read through strides, as K2 reads it: BERT's
-//     [B, 1, S, S] mask is never expanded to [B*H, S, S].  K4 stages each
-//     [32 q, 64 keys] bias tile in shared memory by cp.async, with its
-//     Q/dO tile and the tile's lse and delta.
+//     [B, 1, S, S] mask is never expanded to [B*H, S, S].  Each bias tile
+//     comes in by cp.async with its K/V (K3, K5) or Q/dO (K4) tile.
 //
 // What bounds it on an H100 SXM.  At the BERT-base training shape
 // (BH = 384, S = 128, D = 64, fp32) K3 does 3 products of 2*S*S*D per
 // head (s, dp, ds k) = 2.42 GFLOP, K4 4 (s, dp, p^T do, ds^T q) = 3.22
-// GFLOP and K5 2 = 1.61 GFLOP.  K3 and K5 run on the CUDA cores at 67
-// TFLOP/s fp32 (0.036 and 0.024 ms); K4 on the tensor cores in split TF32
-// at 495 / 3 TFLOP/s (0.020 ms).  They move 38-78 MB at 3.35 TB/s
-// (0.011-0.023 ms): K3 and K5 are bound by operations in fp32, K4 by
-// bytes; in bf16 (989 TFLOP/s on the tensor cores, half the bytes) all
-// three by bytes.  What the design does about it: nothing of [S, S] size
-// reaches device memory except K5's output, which is the gradient itself.
-// K3 and K5 keep scores in registers and ds in per-warp shared strips,
-// fp32 FMA register-blocked (16 x 2 score tiles per thread) with every
-// shared-memory read a broadcast or 32 consecutive words.  K4 keeps p^T
-// and ds^T in its mma accumulators and takes them as the A operands of
-// dv and dk in place, with Q/dO tiles double-buffered by cp.async.
+// GFLOP and K5 2 = 1.61 GFLOP: 0.010-0.020 ms in split TF32 at 495 / 3
+// TFLOP/s.  They move 65-78 MB (q, k, v, dO read, the outputs written;
+// K5's output is the [S, S] gradient itself, 25 MB) at 3.35 TB/s:
+// 0.020-0.023 ms, so all three are bound by bytes, in bf16 too (989
+// TFLOP/s, half the bytes).  Nothing else of [S, S] size reaches device
+// memory.
+//
+// Choices, from same-call A/B probes on the card: 32-row K/V tiles in
+// K3/K5 (64 rows put one block on an SM and were slower); dO read and
+// split per k-step in fp32 K3 (kept in registers beside Q's it spilled);
+// K5 stores two columns a thread with store2 (a quad fills whole 32-byte
+// sectors; staging the tile through shared memory for 16-byte stores
+// was slower in fp32); a minimum of one block per SM in the launch
+// bounds (ptxas then spends more registers, spills nowhere, and K3 runs
+// faster); s and dp in one loop over D (two loops were slower in K3).
 //
 // Numerics follow the TPU kernels: scores, p, dp, ds and all sums in fp32;
 // for bf16 inputs p is rounded to bf16 before p^T do (:180) and ds before
@@ -63,9 +75,28 @@ namespace {
 
 constexpr int NUM_WARPS = 4;
 constexpr int THREADS = NUM_WARPS * 32;
-constexpr int TILE = 64;                  // columns per tile; a lane owns 2
-constexpr int TS = TILE + 1;              // padded stride of transposed tiles
-constexpr int BLOCK_Q = 64;               // K3/K5: query rows per block
+constexpr int BLOCK_Q = 64;               // K3/K5: query rows per block, 16 per warp
+constexpr int Q_ROWS_BN = 32;             // K3/K5: K/V rows per tile
+constexpr int Q_ROWS_BIAS_LD = Q_ROWS_BN + 8;  // K3/K5: bias tile row stride
+// K3/K5 keep the block's Q fragments in registers (split once in fp32)
+// except in fp32 at D = 128, and dO's too except in fp32 K3 (beside dq's
+// 32 accumulators they spill at D = 64) and fp32 at D = 128
+template <typename T, int D>
+__host__ __device__ constexpr bool q_rows_qreg() { return sizeof(T) == 2 || D == 64; }
+template <typename T, int D, bool DQ>
+__host__ __device__ constexpr bool q_rows_doreg() {
+  return sizeof(T) == 2 || (D == 64 && !DQ);
+}
+#ifdef PADDLE_ATTN_BWD_PLANTED_FAULT
+// faults planted on purpose, which the backward check must catch: K3
+// pairs K's rows 2t and 2t + 1 with the wrong columns of ds in ds k, K5
+// swaps the two columns of each pair it writes
+constexpr int DS_K_ROW_XOR = 1;
+constexpr int DBIAS_PAIR_SWAP = 1;
+#else
+constexpr int DS_K_ROW_XOR = 0;
+constexpr int DBIAS_PAIR_SWAP = 0;
+#endif
 constexpr int DKV_ROWS = 64;              // K4: K/V rows per block, 16 per warp
 // K4: query rows per Q/dO tile.  32 keeps two blocks on an SM in fp32 at
 // D = 64 (106 KB of shared memory each; 64 rows would take 157 KB) and
@@ -104,7 +135,6 @@ __device__ __forceinline__ auto b_tile(T* t, float* small, int which) {
 
 using attn::bf16;
 using attn::from_f;
-using attn::round_t;
 using attn::to_f;
 
 struct Args {
@@ -115,51 +145,6 @@ struct Args {
   int S_q, S_kv; float scale; int causal;
 };
 
-// rows [row0, row0 + rows) of a [n, D] matrix into shared memory, fp32
-// row-major, zero past row n
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int row0, int rows, int n) {
-  for (int e = threadIdx.x; e < rows * D; e += THREADS) {
-    const int r = e / D;
-    dst[e] = (row0 + r < n) ? to_f(src[(int64_t)row0 * D + e]) : 0.f;
-  }
-}
-
-// rows [row0, row0 + TILE) of a [n, D] matrix into shared memory
-// transposed, dst[d * TS + r], zero past row n
-template <typename T, int D>
-__device__ __forceinline__ void load_t(float* dst, const T* src, int row0, int n) {
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D, c = e - r * D;
-    dst[c * TS + r] = (row0 + r < n) ? to_f(src[(int64_t)row0 * D + e]) : 0.f;
-  }
-}
-
-// s[r][c] = A[r0 + r] . Bt[:, lane + 32 c] and t[r][c] = A2[r0 + r] .
-// B2t[:, lane + 32 c]: two [ROWS x 2] score tiles per thread, A rows read
-// as broadcasts, Bt columns as 32 consecutive words
-template <int D, int ROWS>
-__device__ __forceinline__ void two_products(const float* A, const float* Bt,
-                                             const float* A2, const float* B2t,
-                                             int r0, int lane, float (&s)[ROWS][2],
-                                             float (&t)[ROWS][2]) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = t[r][0] = t[r][1] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; ++d) {
-    const float b0 = Bt[d * TS + lane], b1 = Bt[d * TS + lane + 32];
-    const float c0 = B2t[d * TS + lane], c1 = B2t[d * TS + lane + 32];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float a = A[(r0 + r) * D + d], a2 = A2[(r0 + r) * D + d];
-      s[r][0] = fmaf(a, b0, s[r][0]);
-      s[r][1] = fmaf(a, b1, s[r][1]);
-      t[r][0] = fmaf(a2, c0, t[r][0]);
-      t[r][1] = fmaf(a2, c1, t[r][1]);
-    }
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ const T* bias_base(const Args& a, int bh) {
   return a.bias ? static_cast<const T*>(a.bias) + (int64_t)(bh / a.heads) * a.bs_b +
@@ -167,117 +152,209 @@ __device__ __forceinline__ const T* bias_base(const Args& a, int bh) {
                 : nullptr;
 }
 
-// K3 and K5 share their tile: one block per (bh, 64 query rows); per K/V
-// tile, p and ds for the block's rows.  DQ accumulates ds k (K3); else the
-// unscaled ds is written out as dbias (K5).
+// K3/K5: the K (which = 0) or V (1) tile t as the warps read it: in fp32
+// split into TF32 halves once per tile (the small halves in `small`), in
+// bf16 as loaded
+template <typename T, int D>
+__device__ __forceinline__ auto kv_tile(T* t, float* small, int which) {
+  if constexpr (sizeof(T) == 4) {
+    float* sm = small + which * Q_ROWS_BN * attn::ld<float, D>();
+    attn::split_tile<D, Q_ROWS_BN, THREADS>(t, sm);
+    return attn::SplitTile{t, sm};
+  } else {
+    return static_cast<const T*>(t);
+  }
+}
+
+// K3 and K5 share their tile loop: one block per (bh, 64 query rows), each
+// of the 4 warps owning 16 of them (K2's layout); a loop over BN-row K/V
+// tiles, double-buffered by cp.async together with the [64 q, BN keys]
+// bias tile.  The block's Q and dO tiles come in once, and lse and delta
+// of a thread's two rows (g, g + 8) stay in registers.  Per tile: s = q
+// k^T and dp = dO v^T by mma, then ds = p (dp - delta) formed in the
+// accumulators.  DQ (K3): dq += (ds * scale) k with the accumulator as
+// the A operand, written once at the end; else (K5) ds goes out as dbias.
+// Shared memory keeps these blocks at one or two on an SM, so ptxas is
+// told one is enough (else it held K5 in fp32 at D = 128 to 128 registers
+// and spilled).
 template <typename T, int D, bool DQ>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 q_rows_kernel(Args a) {
-  constexpr int ROWS = BLOCK_Q / NUM_WARPS;       // query rows per warp
-  constexpr int DV = D / 32;                      // dq dims per lane
-  extern __shared__ float smem[];
-  float* Qs = smem;                               // [BLOCK_Q][D]
-  float* dOs = Qs + BLOCK_Q * D;                  // [BLOCK_Q][D]
-  float* Kt = dOs + BLOCK_Q * D;                  // [D][TS], K transposed
-  float* Vt = Kt + D * TS;                        // [D][TS], V transposed
-  float* Ps = Vt + D * TS;                        // [BLOCK_Q][TILE], ds (K3)
+  constexpr int BN = Q_ROWS_BN;
+  constexpr int LD = attn::ld<T, D>();
+  constexpr int KS = attn::Mma<T>::K;
+  constexpr int NT = BN / 8;                      // score n-tiles per warp
+  constexpr int DT = D / 8;                       // dq n-tiles per warp
+  constexpr bool QREG = q_rows_qreg<T, D>();
+  constexpr bool DOREG = q_rows_doreg<T, D, DQ>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);         // [BLOCK_Q][LD]
+  T* dOs = Qs + BLOCK_Q * LD;                     // [BLOCK_Q][LD]
+  T* KV = dOs + BLOCK_Q * LD;                     // stage s: K at KV + 2s tiles, V after
+  float* SMALL = reinterpret_cast<float*>(KV + 4 * BN * LD);  // fp32: K's, V's small halves
+  T* BS = reinterpret_cast<T*>(SMALL + (sizeof(T) == 4 ? 2 * BN * LD : 0));
+  // stage s: the bias tile at BS + s * BLOCK_Q * Q_ROWS_BIAS_LD
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BLOCK_Q;
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * ROWS;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = (threadIdx.x >> 5) * 16;         // this warp's first query row
   const int S_q = a.S_q, S_kv = a.S_kv;
   const T* kb = static_cast<const T*>(a.k) + (int64_t)bh * S_kv * D;
   const T* vb = static_cast<const T*>(a.v) + (int64_t)bh * S_kv * D;
   const T* biasb = bias_base<T>(a, bh);
 
-  load_rows<T, D>(Qs, static_cast<const T*>(a.q) + (int64_t)bh * S_q * D, q0, BLOCK_Q, S_q);
-  load_rows<T, D>(dOs, static_cast<const T*>(a.dout) + (int64_t)bh * S_q * D, q0, BLOCK_Q,
-                  S_q);
-  float lse[ROWS], delta[ROWS];
+  // causal: tiles starting at or past q0 + BLOCK_Q lie wholly above the
+  // diagonal for every row of the block and are skipped
+  const int kv_live = a.causal ? min(S_kv, q0 + BLOCK_Q) : S_kv;
+  const int ntiles = (kv_live + BN - 1) / BN;
+  const bool vec = biasb != nullptr && attn::bias_vec(biasb, a.bs_q, a.bs_k);
+  auto issue = [&](int i) {
+    T* Ks = KV + (i & 1) * 2 * BN * LD;
+    attn::load_tile_async<T, D, BN, THREADS>(Ks, kb, i * BN, S_kv);
+    attn::load_tile_async<T, D, BN, THREADS>(Ks + BN * LD, vb, i * BN, S_kv);
+    if (biasb != nullptr)
+      attn::load_bias_async<T, BLOCK_Q, BN, Q_ROWS_BIAS_LD - BN, THREADS>(
+          BS + (i & 1) * BLOCK_Q * Q_ROWS_BIAS_LD, biasb, a.bs_q, a.bs_k, q0, i * BN, S_q,
+          S_kv, vec);
+    attn::cp_async_commit();
+  };
+  attn::load_tile_async<T, D, BLOCK_Q, THREADS>(
+      Qs, static_cast<const T*>(a.q) + (int64_t)bh * S_q * D, q0, S_q);
+  attn::load_tile_async<T, D, BLOCK_Q, THREADS>(
+      dOs, static_cast<const T*>(a.dout) + (int64_t)bh * S_q * D, q0, S_q);
+  issue(0);                                       // one group: Q, dO and tile 0
+  if (ntiles > 1) issue(1);
+
+  float lse[2], delta[2];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qi = q0 + r0 + r;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + rw + g + 8 * r;
     lse[r] = qi < S_q ? a.lse[(int64_t)bh * S_q + qi] : 0.f;
     delta[r] = qi < S_q ? a.delta[(int64_t)bh * S_q + qi] : 0.f;
   }
-  float acc[DQ ? ROWS : 1][DV];
-  if (DQ) {
-#pragma unroll
-    for (int r = 0; r < (DQ ? ROWS : 1); ++r)
-#pragma unroll
-      for (int j = 0; j < DV; ++j) acc[r][j] = 0.f;
-  }
   T* db = DQ ? nullptr : static_cast<T*>(a.out0) + (int64_t)bh * S_q * S_kv;
+  if (!DQ && ntiles * BN < S_kv) {
+    // K5 writes the columns of the skipped tiles as zeros, as
+    // _dbias_kernel does
+    const int z0 = ntiles * BN, w = S_kv - z0;
+    for (int e = threadIdx.x; e < BLOCK_Q * w; e += THREADS) {
+      const int qi = q0 + e / w;
+      if (qi < S_q) db[(int64_t)qi * S_kv + z0 + e % w] = from_f<T>(0.f);
+    }
+  }
 
-  // causal: tiles starting at or past q0 + BLOCK_Q are above the diagonal
-  // for every row of the block
-  const int kv_live = a.causal ? min(S_kv, q0 + BLOCK_Q) : S_kv;
-  if (!DQ) {
-    // K5 writes those dead tiles as zeros, as _dbias_kernel does
-    for (int k0 = (kv_live + TILE - 1) / TILE * TILE; k0 < S_kv; k0 += TILE)
+  attn::FragA<T> qf[QREG ? D / KS : 1], df[DOREG ? D / KS : 1];
+  float dq[DQ ? DT : 1][4];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r)
+  for (int d = 0; d < (DQ ? DT : 1); ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles) attn::cp_async_wait<1>(); else attn::cp_async_wait<0>();
+    __syncthreads();                              // tile i (and Q, dO) landed
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / KS; ++kk) {
+        if constexpr (QREG) attn::load_a(qf[kk], Qs, LD, rw, kk * KS, lane);
+        if constexpr (DOREG) attn::load_a(df[kk], dOs, LD, rw, kk * KS, lane);
+      }
+    }
+    T* Kraw = KV + (i & 1) * 2 * BN * LD;
+    const auto Ks = kv_tile<T, D>(Kraw, SMALL, 0);
+    const auto Vs = kv_tile<T, D>(Kraw + BN * LD, SMALL, 1);
+    if constexpr (sizeof(T) == 4) __syncthreads();  // the split tiles are written
+    T* Bs = BS + (i & 1) * BLOCK_Q * Q_ROWS_BIAS_LD;
+    const int k0 = i * BN;
+
+    // s = q k^T and dp = dO v^T for the warp's 16 rows and the tile's keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / KS; ++kk) {
+      attn::FragA<T> qa, da;
+      if constexpr (QREG) qa = qf[kk];
+      else attn::load_a(qa, Qs, LD, rw, kk * KS, lane);
+      if constexpr (DOREG) da = df[kk];
+      else attn::load_a(da, dOs, LD, rw, kk * KS, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        attn::FragB<T> b;
+        attn::load_bt(b, Ks, LD, n * 8, kk * KS, lane);
+        attn::mma(s[n], qa, b);
+        attn::load_bt(b, Vs, LD, n * 8, kk * KS, lane);
+        attn::mma(dp[n], da, b);
+      }
+    }
+
+    // ds into dp: element e of n-tile n is query row g + 8 (e >> 1), key
+    // column n * 8 + 2t + (e & 1); the bias pair read in one load
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + rw + g + 8 * r;
+        float bb[2] = {0.f, 0.f};
+        if (biasb != nullptr)
+          attn::load2(Bs + (rw + g + 8 * r) * Q_ROWS_BIAS_LD + n * 8 + 2 * t, bb[0], bb[1]);
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int qi = q0 + r0 + r, kj = k0 + lane + 32 * c;
-          if (qi < S_q && kj < S_kv) db[(int64_t)qi * S_kv + kj] = from_f<T>(0.f);
-        }
-  }
-  for (int k0 = 0; k0 < kv_live; k0 += TILE) {
-    __syncthreads();  // Qs/dOs written; previous tile's Kt/Vt/Ps reads done
-    load_t<T, D>(Kt, kb, k0, S_kv);
-    load_t<T, D>(Vt, vb, k0, S_kv);
-    __syncthreads();
-
-    float s[ROWS][2], dp[ROWS][2];
-    two_products<D, ROWS>(Qs, Kt, dOs, Vt, r0, lane, s, dp);
-
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qi = q0 + r0 + r;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kj = k0 + lane + 32 * c;
-        float p = 0.f;
-        if (qi < S_q && kj < S_kv && !(a.causal && qi < kj)) {
-          float x = s[r][c] * a.scale;
-          if (biasb != nullptr) x += to_f(biasb[(int64_t)qi * a.bs_q + (int64_t)kj * a.bs_k]);
-          p = expf(x - lse[r]);
-        }
-        const float ds = p * (dp[r][c] - delta[r]);
-        if (DQ) {
-          Ps[(r0 + r) * TILE + lane + 32 * c] = round_t<T>(ds * a.scale);
-        } else if (qi < S_q && kj < S_kv) {
-          db[(int64_t)qi * S_kv + kj] = from_f<T>(ds);
+          const int kj = k0 + n * 8 + 2 * t + c;
+          float p = 0.f;
+          if (qi < S_q && kj < S_kv && !(a.causal && qi < kj))
+            p = expf(s[n][2 * r + c] * a.scale + bb[c] - lse[r]);
+          const float ds = p * (dp[n][2 * r + c] - delta[r]);
+          dp[n][2 * r + c] = DQ ? ds * a.scale : ds;
         }
       }
-    }
-    if (DQ) {
-      __syncwarp();  // each warp reads back only its own Ps rows
-#pragma unroll 2
-      for (int kk = 0; kk < TILE; ++kk) {
-        float kv[DV];
+
+    if constexpr (DQ) {
+      // dq += ds k (bf16: ds rounded in a_from_c, the TPU kernel's
+      // ds.astype(q.dtype))
 #pragma unroll
-        for (int j = 0; j < DV; ++j) kv[j] = Kt[(lane + 32 * j) * TS + kk];
+      for (int kk = 0; kk < BN / KS; ++kk) {
+        attn::FragA<T> dsa;
+        attn::a_from_c(dsa, dp, kk);
 #pragma unroll
-        for (int r = 0; r < (DQ ? ROWS : 1); ++r) {
-          const float ds = Ps[(r0 + r) * TILE + kk];
-#pragma unroll
-          for (int j = 0; j < DV; ++j) acc[r][j] = fmaf(ds, kv[j], acc[r][j]);
+        for (int d = 0; d < DT; ++d) {
+          attn::FragB<T> b;
+          attn::load_b(b, Ks, LD, kk * KS, d * 8, lane, DS_K_ROW_XOR);
+          attn::mma(dq[d], dsa, b);
         }
       }
-    }
-  }
-  if (DQ) {
-    T* dq = static_cast<T*>(a.out0);
+    } else {
+      // ds as dbias, two columns a store where the row allows
 #pragma unroll
-    for (int r = 0; r < (DQ ? ROWS : 1); ++r) {
-      const int qi = q0 + r0 + r;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = q0 + rw + g + 8 * r, kj = k0 + n * 8 + 2 * t;
+          if (qi >= S_q || kj >= S_kv) continue;
+          T* dst = db + (int64_t)qi * S_kv + kj;
+          const float x = dp[n][2 * r + DBIAS_PAIR_SWAP], y = dp[n][2 * r + !DBIAS_PAIR_SWAP];
+          if (S_kv % 2 == 0) {
+            attn::store2(dst, x, y);
+          } else {
+            dst[0] = from_f<T>(x);
+            if (kj + 1 < S_kv) dst[1] = from_f<T>(y);
+          }
+        }
+    }
+    __syncthreads();                              // every warp is done with this stage
+    if (i + 2 < ntiles) issue(i + 2);
+  }
+
+  if constexpr (DQ) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + rw + g + 8 * r;
       if (qi >= S_q) continue;
-      T* row = dq + ((int64_t)bh * S_q + qi) * D;
+      T* row = static_cast<T*>(a.out0) + ((int64_t)bh * S_q + qi) * D + 2 * t;
 #pragma unroll
-      for (int j = 0; j < DV; ++j) row[lane + 32 * j] = from_f<T>(acc[r][j]);
+      for (int d = 0; d < DT; ++d) attn::store2(row + d * 8, dq[d][2 * r], dq[d][2 * r + 1]);
     }
   }
 }
@@ -452,7 +529,13 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream, const 
 
 template <typename T, int D, bool DQ>
 cudaError_t launch_q_rows(const Args& a, int BH, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * BLOCK_Q * D + 2 * D * TS + (DQ ? BLOCK_Q * TILE : 0));
+  // Q and dO, 2 stages of K and V, (fp32) the small halves of the current
+  // K and V tiles, then 2 stages of the bias tile (K5 always has a bias)
+  constexpr int LD = attn::ld<T, D>(), BN = Q_ROWS_BN;
+  const bool bias = a.bias != nullptr || !DQ;
+  const size_t smem = sizeof(T) * (LD * (2 * BLOCK_Q + 4 * BN) +
+                                   (bias ? 2 * BLOCK_Q * Q_ROWS_BIAS_LD : 0)) +
+                      (sizeof(T) == 4 ? sizeof(float) * 2 * BN * LD : 0);
   return launch(q_rows_kernel<T, D, DQ>, dim3((a.S_q + BLOCK_Q - 1) / BLOCK_Q, BH), smem,
                 stream, a);
 }

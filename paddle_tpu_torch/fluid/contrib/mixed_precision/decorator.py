@@ -48,8 +48,8 @@ class OptimizerWithMixedPrecision:
         if self._need_scaling():
             raise NotImplementedError(
                 "AMP loss scaling is not ported yet (ROADMAP.md, port queue "
-                "1 item 2: 'the loss-scaling branch of contrib."
-                "mixed_precision'); bf16 trains without it: leave "
+                "1: 'the loss-scaling branch of contrib.mixed_precision'); "
+                "bf16 trains without it: leave "
                 "init_loss_scaling=1.0 and use_dynamic_loss_scaling=False")
         program = loss.block.program
         program._amp_dtype = self._amp_dtype

@@ -24,7 +24,7 @@ from . import unique_name
 def _not_ported(what):
     return NotImplementedError(
         "%s is not ported yet (ROADMAP.md, port queue 1: 'the other "
-        "optimizers and regularizers')" % what)
+        "optimizers')" % what)
 
 
 class Optimizer:

@@ -1,19 +1,21 @@
 """The numerics of the tensor-core attention kernels, emulated on the CPU.
 
-K2 (flash-attention forward) and K4 (dK/dV) compute their float32
-products on the tensor cores in split TF32 (``csrc/attention_mma.cuh``):
+K2 (flash-attention forward), K3 (dQ), K4 (dK/dV) and K5 (dBias)
+compute their float32 products on the tensor cores in split TF32
+(``csrc/attention_mma.cuh``):
 each operand x is taken as big + small, big = x rounded to TF32 and
 small = (x - big) rounded again (``cvt.rna.tf32.f32``: round to nearest,
 ties away from zero, onto 10 explicit mantissa bits), and a b is summed
 as a_s b_b + a_b b_s + a_b b_b in float32.  This file rounds to TF32 by
 integer operations on the float32 bits, runs the plain forward and the
-plain dK/dV pass with every product done that way, and holds them against
-float64 at BERT-like shapes (a [B, 1, S, S] padding mask, D = 64 and 128,
-causal) within the tolerances that ``chip_smoke.py`` holds the kernels
-to: ``FP32_ATOL`` (``MASKED_ATOL`` on fully masked rows) for the forward,
-``BWD_FP32_ATOL`` plus the ``MASKED_P_REL`` bound of fully masked rows
-for dK/dV.  One TF32 pass per product (11 mantissa bits) must fail those
-same tolerances, so the check tells the two apart.
+plain dQ, dK/dV and dBias passes with every product done that way (ds k
+included), and holds them against float64 at BERT-like shapes (a
+[B, 1, S, S] padding mask, D = 64 and 128, causal) within the tolerances
+that ``chip_smoke.py`` holds the kernels to: ``FP32_ATOL``
+(``MASKED_ATOL`` on fully masked rows) for the forward, ``BWD_FP32_ATOL``
+plus the ``MASKED_P_REL`` bound of fully masked rows for the backward.
+One TF32 pass per product (11 mantissa bits) must fail those same
+tolerances, so the check tells the two apart.
 """
 
 import math
@@ -65,11 +67,28 @@ def forward(q, k, v, bias, scale, causal, matmul):
 def dkv(q, k, v, bias, scale, dO, lse, delta, causal, matmul):
     """(dk, dv) of K4 (p recomputed from lse) with the products done by
     ``matmul``."""
-    p = torch.exp(scores(q, k, bias, scale, causal, matmul) -
-                  lse.unsqueeze(-1))
-    dp = matmul(dO, v.transpose(1, 2))
+    p, dp = p_dp(q, k, v, bias, scale, dO, lse, causal, matmul)
     ds = p * (dp - delta.unsqueeze(-1)) * scale
     return matmul(ds.transpose(1, 2), q), matmul(p.transpose(1, 2), dO)
+
+
+def p_dp(q, k, v, bias, scale, dO, lse, causal, matmul):
+    """p recomputed from lse, and dp = dO v^T, as K3, K4 and K5 form them."""
+    p = torch.exp(scores(q, k, bias, scale, causal, matmul) -
+                  lse.unsqueeze(-1))
+    return p, matmul(dO, v.transpose(1, 2))
+
+
+def dq(q, k, v, bias, scale, dO, lse, delta, causal, matmul):
+    """(dq,) of K3: (p (dp - delta) scale) k, ds k by ``matmul`` too."""
+    p, dp = p_dp(q, k, v, bias, scale, dO, lse, causal, matmul)
+    return (matmul(p * (dp - delta.unsqueeze(-1)) * scale, k),)
+
+
+def dbias(q, k, v, bias, scale, dO, lse, delta, causal, matmul):
+    """(dbias,) of K5: p (dp - delta), unscaled."""
+    p, dp = p_dp(q, k, v, bias, scale, dO, lse, causal, matmul)
+    return (p * (dp - delta.unsqueeze(-1)),)
 
 
 def f64(a, b):
@@ -111,22 +130,29 @@ def _forward_errors(passes, D, causal):
     return real, lse_err, masked_err
 
 
-def _dkv_errors(passes, D, causal):
-    """max over dk and dv of |emulated - float64| beyond
-    BWD_FP32_ATOL plus the masked-row bound (<= 0 passes), and the
-    largest raw error."""
+# each backward pass emulated, with the names of its outputs in
+# chip_smoke._masked_bounds
+BWD_PASSES = {"dq": (dq, ("dq",)), "dkv": (dkv, ("dk", "dv")),
+              "dbias": (dbias, ("dbias",))}
+
+
+def _bwd_errors(which, passes, D, causal):
+    """max over the outputs of backward pass ``which`` of |emulated -
+    float64| beyond BWD_FP32_ATOL plus the masked-row bound (<= 0
+    passes), and the largest raw error."""
+    fn, names = BWD_PASSES[which]
     q, k, v, dO, bias, masked, scale = _inputs(D, causal, seed=1)
     d64 = [None if t is None else t.double() for t in (q, k, v, bias, dO)]
     out, lse = forward(*d64[:4], scale, causal, f64)
     delta = (out * d64[4]).sum(-1)
-    want = dkv(*d64[:4], scale, d64[4], lse, delta, causal, f64)
+    want = fn(*d64[:4], scale, d64[4], lse, delta, causal, f64)
     lse32, delta32 = lse.float(), delta.float()
-    got = dkv(q, k, v, bias, scale, dO, lse32, delta32, causal,
-              lambda a, b: mm(a, b, passes))
+    got = fn(q, k, v, bias, scale, dO, lse32, delta32, causal,
+             lambda a, b: mm(a, b, passes))
     args = (q, k, v, bias, scale, dO, lse32, delta32, causal)
     bounds = chip_smoke._masked_bounds(args, masked)
     excess, raw = [], []
-    for g, w, name in zip(got, want, ("dk", "dv")):
+    for g, w, name in zip(got, want, names):
         diff = (g.double() - w).abs()
         excess.append((diff - chip_smoke.BWD_FP32_ATOL -
                        bounds[name].double()).max().item())
@@ -169,9 +195,31 @@ def test_split_tf32_forward_within_kernel_tolerances(case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_split_tf32_dkv_within_kernel_tolerances(case):
     D, causal = CASES[case]
-    excess, raw = _dkv_errors(3, D, causal)
+    excess, raw = _bwd_errors("dkv", 3, D, causal)
     assert excess <= 0, (excess, raw)
-    excess1, raw1 = _dkv_errors(1, D, causal)
+    excess1, raw1 = _bwd_errors("dkv", 1, D, causal)
+    assert excess1 > 0, (excess1, raw1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_tf32_dq_within_kernel_tolerances(case):
+    """K3: s, dp and ds k all in split TF32 stay within the kernel's
+    tolerance; one TF32 pass each does not."""
+    D, causal = CASES[case]
+    excess, raw = _bwd_errors("dq", 3, D, causal)
+    assert excess <= 0, (excess, raw)
+    excess1, raw1 = _bwd_errors("dq", 1, D, causal)
+    assert excess1 > 0, (excess1, raw1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_tf32_dbias_within_kernel_tolerances(case):
+    """K5: s and dp in split TF32 stay within the kernel's tolerance;
+    one TF32 pass each does not."""
+    D, causal = CASES[case]
+    excess, raw = _bwd_errors("dbias", 3, D, causal)
+    assert excess <= 0, (excess, raw)
+    excess1, raw1 = _bwd_errors("dbias", 1, D, causal)
     assert excess1 > 0, (excess1, raw1)
 
 

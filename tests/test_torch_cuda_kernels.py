@@ -14,7 +14,9 @@ the same points in bf16.  Bias masks are random (not whole padded rows),
 so no row is fully masked; the cases cross the mma fragments' and tiles'
 edges (1 x 1, 9 x 13, 130 x 130) and read biases broadcast over heads or
 transposed (bs_k != 1).  A K2 built with a fault planted in its p v step
-must fail chip_smoke.py's K2 check (it imports chip_smoke.py).  K1 (3x3
+must fail chip_smoke.py's K2 check (it imports chip_smoke.py), and the
+backward built with faults planted in K3's ds k and K5's store must fail
+its backward check; K3 and K5 repeat bit for bit.  K1 (3x3
 conv): float32 within 1e-4 of the largest output, bf16 within 2e-2 of
 it (the plain version rounds the float32 sum once, as the kernel does);
 each K1 case also asserts which
@@ -234,6 +236,51 @@ def test_flash_attention_bwd_kernels_match_plain_versions(case):
     for g, w in zip(got, want):
         assert g.dtype == dt and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_bwd_check_catches_a_fault_planted_in_ds_k(dt, monkeypatch):
+    """chip_smoke.py's backward check passes K3 and K5 as built and fails
+    the variant built with PADDLE_ATTN_BWD_PLANTED_FAULT on dq (K's rows
+    2t and 2t + 1 paired with the wrong columns of ds) and on dbias (the
+    two columns of each stored pair swapped), on a BERT-like case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import chip_smoke
+    from paddle_tpu_torch.fluid.ops import _kernels
+    q, k, v, b = _inputs(96, 128, 128, 64, "mask4d", seed=19)
+    dO = np.random.RandomState(20).randn(96, 128, 64).astype(np.float32)
+    dev = torch.device("cuda", 0)
+    case = dict(zip(("q", "k", "v", "bias", "dO"),
+                    (_to(a, dev, torch.float32) for a in (q, k, v, b, dO))))
+    ok, rep = chip_smoke._bwd_check("as_built", case, dt, False, True)
+    assert ok, rep
+    real = _kernels.load
+    name, defines = chip_smoke.BWD_PLANTED_FAULT
+    monkeypatch.setattr(_kernels, "load", lambda n, d=(): real(
+        n, defines if n == name else d))
+    errors = chip_smoke._bwd_check("planted", case, dt, False, True)[1][
+        "errors"]
+    assert not errors["dq"]["ok"] and not errors["dbias"]["ok"], errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_dq_and_dbias_kernels_repeat_bit_for_bit(dt):
+    """K3 and K5 own their output rows (no atomics): a second launch on
+    the same inputs gives the same bits, causal and with a bias."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    args, _ = _bwd_inputs("bert_bf16_d64" if dt == torch.bfloat16
+                          else "bert_fp32_d64")
+    causal = (*args[:8], True)
+    for fn in (port_attn.flash_attention_bwd_dq,
+               port_attn.flash_attention_bwd_dbias):
+        for a in (args, causal):
+            assert torch.equal(fn(*a), fn(*a)), (fn.__name__, a[8])
 
 
 @pytest.mark.cuda
