@@ -34,6 +34,12 @@ non-zero exit (nothing is caught):
    then their times at the training shape beside the plain versions, the
    SDPA backward (and the names of the kernels it runs) and the bounds,
    and K2's with the LSE.
+5b. kernel_nmt: K2 (with the LSE), K3 and K4 at Transformer NMT's
+   shape (BH=256, S=256, D=64), causal and with its [B,1,1,S] pad bias
+   read as a stride-0 view, in fp32 (the dtype its attention runs in)
+   and bf16, against their plain versions at the same tolerances (K5 too
+   in the pad-bias check); their times beside the plain versions, SDPA
+   and the bounds, the causal half of the work counted.
 6. kernel_conv: ptxas's report for K1's wgmma kernel (registers,
    spills: none allowed); K1 (3x3 implicit-GEMM conv) against its plain
    version at the four ResNet-50 3x3 stride-1 shapes, batch 256 in bf16
@@ -83,12 +89,31 @@ non-zero exit (nothing is caught):
 14. ln_path: a fused_layer_norm program forward and backward through
    Executor: one K6 launch per run, and the gradients of the layer_norm
    op's program.
-15. kernels: one JSON line listing every ported kernel.
+15. nmt_train: bench.py's bench_nmt program built with the port —
+   Transformer NMT base (6 + 6 layers, width 512, 8 heads, S=256,
+   vocabularies of 30,000, dropout 0.1, label smoothing 0.1), Adam on
+   noam_decay, pure bf16, batch 32, bench_nmt's two all-ones-mask feeds
+   in turn — 2 warm-up and 8 timed steps: finite losses, the fetched
+   learning rate equal to the Noam closed form at steps 1-10, the step
+   counter at 10, no flash kernel (attention dropout takes the
+   composition); ms per step, tokens/s, peak memory, one profiled step.
+16. nmt_train_flash: the same with attention dropout off and ragged
+   masks: 18 K2, 18 K3, 18 K4 (6 causal) and 0 K5 per step; then
+   nmt_check: step 1 from the startup weights, dropout off, the fused
+   route against the composition route (bf16, batch 32) and the card
+   against the port's CPU path (fp32, batch 2, 2 + 2 layers), each
+   within the larger of its fixed bound and twice the spread of the
+   fused route running the kernels' plain versions.
+17. lenet_train: bench_lenet's program (LeNet-5, batch 1024, Adam 1e-3,
+   two feeds in turn), 2 warm-up and 8 timed steps: finite falling
+   losses, images/s, none of the port's kernels launched.
+18. kernels: one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -100,7 +125,7 @@ import numpy as np
 import torch
 
 import paddle_tpu_torch.fluid as fluid
-from paddle_tpu_torch.fluid.ops import _kernels
+from paddle_tpu_torch.fluid.ops import _kernels, attention_ops
 from paddle_tpu_torch.fluid.ops.attention_ops import (
     attention_delta, attention_reference, dbias_reference, dkv_reference,
     dq_reference, flash_attention, flash_attention_bwd_dbias,
@@ -109,7 +134,7 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
     K1_VARIANTS, conv3x3_bn_relu, conv3x3_bn_relu_reference, k1_plan)
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
-from paddle_tpu_torch.models import bert, resnet
+from paddle_tpu_torch.models import bert, lenet, resnet, transformer
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -214,11 +239,24 @@ def _check_no_host_sync(fn, spin=100_000_000):
                          % (host_ms, spin_ms))
 
 
-def phase_device():
-    smi = subprocess.run(
+def _fail_unless(name, checks):
+    """Ends the run, naming the phase and its failed checks, unless every
+    check passed."""
+    if not all(checks.values()):
+        raise SystemExit("%s checks failed: %s"
+                         % (name, [k for k, ok in checks.items() if not ok]))
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    smi = _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
@@ -516,6 +554,49 @@ def _timeline(prof):
     return busy_us / 1e3, idle_us / 1e3, len(spans)
 
 
+WARM_STEPS, TIMED_STEPS = 2, 8      # every training phase
+
+
+def _train_steps(exe, main, feeds, fetch, scope):
+    """Runs WARM_STEPS + TIMED_STEPS steps, feeds taken in turn; (fetches
+    of each step as tensors, ms per timed step)."""
+    got = []
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        if i == WARM_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        got.append(exe.run(main, feed=feeds[i % len(feeds)],
+                           fetch_list=fetch, scope=scope,
+                           return_numpy=False))
+    torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+
+
+def _profile_step(name, exe, main, feed, fetch, scope):
+    """One profiled step: kernel time against wall, the device timeline's
+    busy share, device events, launch calls, top kernels and the kernel
+    time by kind, which it returns."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    dev_ms, top = _device_ms(prof, 1)
+    busy_ms, _, events = _timeline(prof)
+    launch = [e for e in prof.key_averages()
+              if e.key.startswith("cudaLaunchKernel")]
+    kinds = _kernel_kinds(prof)
+    emit(phase=name, wall_ms=wall_ms, kernel_ms=dev_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_events=events, launch_calls=sum(e.count for e in launch),
+         kernel_ms_by_kind=kinds, top_kernels=top)
+    return kinds
+
+
 def phase_profile(exe, infer, enc, scope, sv_args, reqs):
     """Where the time goes.  (a) One full batch of 8: host wall of
     back-to-back Executor.run calls (no serving threads) against the
@@ -672,9 +753,7 @@ def phase_slice():
          max_abs_err_batched_vs_alone=list(map(float, err_alone)),
          max_abs_err_fused_vs_composition=err_comp,
          max_abs_err_gpu_vs_cpu=err_cpu, checks=checks)
-    if not all(checks.values()):
-        raise SystemExit("slice checks failed: %s"
-                         % [k for k, ok in checks.items() if not ok])
+    _fail_unless("slice", checks)
     phase_profile(exe, infer, enc, scope, sv_args, reqs)
     return all_launches
 
@@ -1038,6 +1117,120 @@ def phase_kernel_bwd():
     return out
 
 
+# Transformer NMT's attention (bench_nmt: batch 32, 8 heads, S = 256,
+# D = 64): the decoder's causal self-attention and the encoder's and the
+# cross-attention's [B,1,1,S] pad bias, which fused_attention hands the
+# kernels as a [B,1,S,S] view with a stride-0 query dim
+NB, NH, NS = 32, 8, 256
+
+
+def _pad_bias_view(lengths, dtype, dev):
+    """[B,1,1,S] additive key-padding bias as _pad_bias builds it (0 on a
+    real key, -1e4 on a padding key), in ``dtype``, expanded to [B,1,S,S]
+    as the fused_attention op expands it."""
+    m = (torch.arange(NS, device=dev)[None, :] <
+         torch.as_tensor(lengths, device=dev)[:, None]).float()
+    bias = ((m - 1.0) * 1e4).reshape(len(lengths), 1, 1, NS).to(dtype)
+    return bias.expand(len(lengths), 1, NS, NS)
+
+
+def _causal_share(S_q, S_kv):
+    """The share of the score matrix that a causal mask keeps."""
+    return (S_q * (S_q + 1) / 2) / (S_q * S_kv)
+
+
+def phase_kernel_nmt():
+    """K2, K3 and K4 at Transformer NMT's shape (BH = 256, S = 256,
+    D = 64), causal and with the stride-0 pad-bias view, in float32 (the
+    dtype the program's attention runs in under pure bf16: every q/k/v
+    projection adds its float32 bias) and in bf16, against their plain
+    versions at the unchanged tolerances; then their times beside the
+    plain versions, SDPA and the bounds (the causal half of the work
+    counted).  The pad-bias cases also run K5 in the check; the NMT path
+    launches none."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    BH = NB * NH
+    lengths = torch.randint(NS // 2, NS + 1, (NB,), generator=gen,
+                            device=dev).tolist()
+    t = dict(q=rand(BH, NS, D), k=rand(BH, NS, D), v=rand(BH, NS, D),
+             dO=rand(BH, NS, D))
+    cases = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dt == torch.float32 else "bf16"
+        cases["causal_" + tag] = (dict(t, bias=None), dt, True)
+        cases["pad_bias_" + tag] = (
+            dict(t, bias=_pad_bias_view(lengths, dt, dev)), dt, False)
+    errs = {}
+    for name, (tt, dt, causal) in cases.items():
+        ok, rep = _k2_check("nmt_" + name, tt, dt, causal)
+        emit(phase="kernel_nmt_check", kernel="K2", ok=ok, **rep)
+        if not ok:
+            raise SystemExit("flash_attention disagrees with its plain "
+                             "version at the NMT shape, case %s" % name)
+        bok, brep = _bwd_check("nmt_" + name, tt, dt, causal, True)
+        emit(phase="kernel_nmt_check", kernel="K3/K4/K5", **brep)
+        if not bok:
+            raise SystemExit("flash-attention backward kernels disagree "
+                             "with their plain versions at the NMT shape, "
+                             "case %s" % name)
+        errs[name] = dict(fwd=rep["max_abs_err"], **{
+            n: e["max_abs_err"] for n, e in brep["errors"].items()})
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = {}
+    for name, (tt, dt, causal) in cases.items():
+        args, _ = _bwd_args(tt, dt, causal, True)
+        q, k, v, b, scale, dO, lse, delta, _c = args
+        esz = q.element_size()
+        qkv = q.numel() * esz
+        # K2 writes the LSE; K3 and K4 read it and delta
+        bias = 0 if b is None else NB * NS * esz
+        lse_bytes = lse.numel() * 4
+        share = _causal_share(NS, NS) if causal else 1.0
+        sq = BH * NS * NS * share
+        peak_bound = (_attention_bound if dt == torch.float32 else
+                      lambda nb, fl: _bound(nb, fl, PEAK_BF16_FLOPS))
+        q4, k4, v4 = (x.detach().view(NB, NH, NS, D).requires_grad_()
+                      for x in (q, k, v))
+        g4 = dO.view(NB, NH, NS, D)
+        kw = dict(is_causal=True) if causal else dict(attn_mask=b)
+        o4 = sdpa(q4, k4, v4, scale=scale, **kw)
+        lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), g4, retain_graph=True))
+        work = dict(fwd=(4 * qkv + bias + lse_bytes, 4.0 * sq * D),
+                    dq=(5 * qkv + bias + 2 * lse_bytes, 6.0 * sq * D),
+                    dkv=(6 * qkv + bias + 2 * lse_bytes, 8.0 * sq * D))
+        fns = dict(
+            fwd=(lambda: flash_attention(q, k, v, b, scale, causal=causal,
+                                         with_lse=True),
+                 lambda: attention_reference(q, k, v, b, scale,
+                                             causal=causal, with_lse=True),
+                 cuda_time_ms(lambda: sdpa(q4.detach(), k4.detach(),
+                                           v4.detach(), scale=scale,
+                                           **kw))),
+            dq=(lambda: flash_attention_bwd_dq(*args),
+                lambda: dq_reference(*args), lib_bwd),
+            dkv=(lambda: flash_attention_bwd_dkv(*args),
+                 lambda: dkv_reference(*args), lib_bwd))
+        for kname, (fn, plain, lib) in fns.items():
+            timing = dict(ms=cuda_time_ms(fn), plain_ms=cuda_time_ms(plain),
+                          library_ms=lib, **peak_bound(*work[kname]))
+            emit(phase="kernel_nmt_time", kernel=kname, case=name,
+                 shape=[BH, NS, D], dtype=str(dt), causal=causal,
+                 bias=None if b is None else [NB, 1, 1, NS],
+                 library="scaled_dot_product_attention %s"
+                 % ("forward" if kname == "fwd" else
+                    "backward (dq, dk, dv)"),
+                 roofline_share=timing["bound_ms"] / timing["ms"], **timing)
+            timings.setdefault(kname, {})[name] = timing
+    return dict(errors=errs, timings=timings)
+
+
 class _GradsOnly:
     """An optimizer stand-in for build_pretrain: the backward only, so a
     comparison run reads gradients and leaves the weights as they are."""
@@ -1115,7 +1308,6 @@ def phase_train():
     0.1, attention dropout 0) through Executor on the card: 2 warm-up and
     8 timed steps on one batch, then the checks against the composition
     path and the port's CPU path."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = bert.base_config(attn_dropout=0.0)
     main, startup, out = _build_pretrain(cfg)
     ops = [op.type for op in main.global_block().ops]
@@ -1135,19 +1327,10 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts go to 0 here and are read after it
     _reset_launches()
-    losses = []
-    warm, timed = 2, 8
-    for i in range(warm + timed):
-        if i == warm:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        losses.append(exe.run(main, feed=feed, fetch_list=[out["loss"]],
-                              scope=scope, return_numpy=False)[0])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    got, step_ms = _train_steps(exe, main, [feed], [out["loss"]], scope)
     launches = _launches()
-    losses = [float(x.item()) for x in losses]
-    steps = warm + timed
+    losses = [float(g[0].item()) for g in got]
+    steps = len(got)
     per_step = {n: c / steps for n, c in launches.items()}
     emit(phase="train", steps=steps, losses=losses, ms_per_step=step_ms,
          sequences_per_s=BT / step_ms * 1e3,
@@ -1164,23 +1347,7 @@ def phase_train():
         "k5_0": launches["flash_attention_bwd_dbias"] == 0,
     }
 
-    # one profiled step: device busy share and top kernels
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[out["loss"]], scope=scope,
-                return_numpy=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    dev_ms, top = _device_ms(prof, 1)
-    busy_ms, _, events = _timeline(prof)
-    launch = [e for e in prof.key_averages()
-              if e.key.startswith("cudaLaunchKernel")]
-    emit(phase="train_profile", wall_ms=wall_ms, kernel_ms=dev_ms,
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-         device_events=events, launch_calls=sum(e.count for e in launch),
-         top_kernels=top)
+    _profile_step("train_profile", exe, main, feed, [out["loss"]], scope)
 
     # fused vs composition on the card, and the card vs the port's CPU
     # path, from the trained weights.  Dropout is off in these programs:
@@ -1221,9 +1388,7 @@ def phase_train():
          fused_vs_composition=dict(loss_rel=comp_loss, grads=comp_g),
          loss_card_b2=card2[0], loss_cpu_b2=cpu2[0], cpu_seconds=cpu_s,
          card_vs_cpu=dict(loss_rel=cpu_loss, grads=cpu_g), checks=checks)
-    if not all(checks.values()):
-        raise SystemExit("train checks failed: %s"
-                         % [k for k, ok in checks.items() if not ok])
+    _fail_unless("train", checks)
     return dict(launches=launches, ms_per_step=step_ms)
 
 
@@ -1295,9 +1460,7 @@ def phase_train_bias(B_=8, steps=3):
          bias_grad_shape=list(gf.shape),
          bias_grad_max_err_rel=bias_err, tolerance="max|diff|/max|grad| %g"
          % TRAIN_GRAD_TOL, checks=checks)
-    if not all(checks.values()):
-        raise SystemExit("train_bias checks failed: %s"
-                         % [k for k, ok in checks.items() if not ok])
+    _fail_unless("train_bias", checks)
     return launches
 
 
@@ -1575,7 +1738,7 @@ RN_GRADS = ("fc_0.w_0", "fc_0.b_0", "batch_norm_52.b_0")
 RN_ROUNDING = ("conv2d_2.w_0", "batch_norm_2.w_0")
 
 
-def _resnet_grads(exe, main, loss, state, feed, names=RN_GRADS):
+def _step_grads(exe, main, loss, state, feed, names=RN_GRADS):
     """The loss and the gradients of ``names`` of one step of ``main`` on
     a copy of ``state``."""
     scope = _state_copy(main, state, exe.device)
@@ -1593,15 +1756,16 @@ def _l2_rel(a, b):
     return math.sqrt(num / den)
 
 
-def _route_check(got, want, other, loss_rtol, grad_tol, whole=False):
-    """``got``, a route through K1, against ``want`` ((loss, {name:
-    grad}) each): the loss, each of RN_GRADS and (``whole``) every
-    gradient together in L2, each bound the larger of the fixed one and
-    twice how far ``other``, a route that runs no K1 either, lies from
-    ``want``."""
+def _route_check(got, want, other, loss_rtol, grad_tol, whole=False,
+                 names=RN_GRADS):
+    """``got``, a route through the kernels under test (K1; K2-K4 for
+    NMT), against ``want`` ((loss, {name: grad}) each): the loss, each of
+    ``names`` and (``whole``) every gradient together in L2, each bound
+    the larger of the fixed one and twice how far ``other``, a route
+    that runs none of those kernels either, lies from ``want``."""
     def dist(a):
         d = {"loss": abs(a[0] - want[0]) / abs(want[0])}
-        d.update((n, _rel(a[1][n], want[1][n])) for n in RN_GRADS)
+        d.update((n, _rel(a[1][n], want[1][n])) for n in names)
         if whole:
             d["all_grads_l2"] = _l2_rel(a[1], want[1])
         return d
@@ -1638,20 +1802,12 @@ def phase_resnet_train():
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts go to 0 here and are read after it
     _reset_launches()
-    losses, warm, timed = [], 2, 8
-    for i in range(warm + timed):
-        if i == warm:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        losses.append(exe.run(main, feed=feed, fetch_list=[loss],
-                              scope=scope, return_numpy=False)[0])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    got, step_ms = _train_steps(exe, main, [feed], [loss], scope)
     launches = _launches()
     k1_variants = dict(conv3x3_bn_relu.launches_by_variant)
     k1_copies = conv3x3_bn_relu.input_copies
-    losses = [float(x.float().item()) for x in losses]
-    steps = warm + timed
+    losses = [float(g[0].float().item()) for g in got]
+    steps = len(got)
     emit(phase="resnet_train", steps=steps, losses=losses,
          ms_per_step=step_ms, images_per_s=RN_BATCH / step_ms * 1e3,
          peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
@@ -1667,12 +1823,10 @@ def phase_resnet_train():
         "no_other_kernel": not any(c for n, c in launches.items()
                                    if n != "conv3x3_bn_relu"),
     }
-    checks["profile_has_k1"] = phase_resnet_profile(exe, main, loss, scope,
-                                                    feed)["k1"] > 0
+    checks["profile_has_k1"] = _profile_step(
+        "resnet_profile", exe, main, feed, [loss], scope)["k1"] > 0
     checks.update(phase_resnet_check(exe, main, loss, init, feed))
-    if not all(checks.values()):
-        raise SystemExit("resnet_train checks failed: %s"
-                         % [k for k, ok in checks.items() if not ok])
+    _fail_unless("resnet_train", checks)
     return dict(launches=launches, ms_per_step=step_ms,
                 k1_launches_by_variant=k1_variants)
 
@@ -1689,7 +1843,7 @@ def phase_resnet_check(exe, main, loss, init, feed):
         flags.set_flag("conv_pallas", pallas)
         flags.set_flag("conv_im2col", im2col)
         try:
-            return _resnet_grads(exe, prog, ls, state, fd, **kw)
+            return _step_grads(exe, prog, ls, state, fd, **kw)
         finally:
             flags.set_flag("conv_pallas", False)
             flags.set_flag("conv_im2col", "off")
@@ -1711,7 +1865,7 @@ def phase_resnet_check(exe, main, loss, init, feed):
     t2 = time.perf_counter()
     flags.set_flag("conv_pallas", True)
     try:
-        cpu2 = _resnet_grads(fluid.Executor(fluid.CPUPlace()), fmain, floss,
+        cpu2 = _step_grads(fluid.Executor(fluid.CPUPlace()), fmain, floss,
                              init, two, names)
     finally:
         flags.set_flag("conv_pallas", False)
@@ -1740,48 +1894,32 @@ def phase_resnet_check(exe, main, loss, init, feed):
 
 def _kernel_kinds(prof):
     """Device ms of one profiled step by kind of kernel, from the kernel
-    names: K1; the library's convolutions and GEMMs (cuDNN / cuBLAS /
-    CUTLASS names); reductions; everything else (elementwise, copies)."""
-    kinds = dict(k1=0.0, library_conv_gemm=0.0, reduce=0.0, other=0.0)
+    names: K1; the flash-attention kernels K2-K5; the library's
+    convolutions and GEMMs (cuDNN / cuBLAS / cuBLASLt's nvjet / CUTLASS
+    names); reductions; PyTorch's elementwise kernels; everything else
+    (copies, fills, gathers)."""
+    kinds = dict(k1=0.0, k2_k5=0.0, library_conv_gemm=0.0, reduce=0.0,
+                 elementwise=0.0, other=0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.key.lower()
         if "conv3x3" in name:
             kind = "k1"
+        elif any(w in name for w in ("flash_fwd_kernel", "dkv_kernel",
+                                     "q_rows_kernel")):
+            kind = "k2_k5"
         elif any(w in name for w in ("xmma", "cudnn", "cutlass", "gemm",
-                                     "implicit", "conv", "dgrad",
+                                     "nvjet", "implicit", "conv", "dgrad",
                                      "wgrad")):
             kind = "library_conv_gemm"
         elif "reduce" in name:
             kind = "reduce"
+        elif "elementwise" in name:
+            kind = "elementwise"
         else:
             kind = "other"
         kinds[kind] += e.self_device_time_total / 1e3
-    return kinds
-
-
-def phase_resnet_profile(exe, main, loss, scope, feed):
-    """One profiled ResNet-50 step: kernel time against wall, the device
-    timeline's busy share, device events, launch calls, top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                return_numpy=False)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    dev_ms, top = _device_ms(prof, 1)
-    busy_ms, _, events = _timeline(prof)
-    launch = [e for e in prof.key_averages()
-              if e.key.startswith("cudaLaunchKernel")]
-    kinds = _kernel_kinds(prof)
-    emit(phase="resnet_profile", wall_ms=wall_ms, kernel_ms=dev_ms,
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-         device_events=events, launch_calls=sum(e.count for e in launch),
-         kernel_ms_by_kind=kinds, top_kernels=top)
     return kinds
 
 
@@ -1848,9 +1986,311 @@ def phase_ln_path():
     emit(phase="ln_path", x=[BT, S, H * D], launches=launches,
          errors_rel=errs, tolerance="max|diff|/max|ref| %g" % LN_PATH_TOL,
          checks=checks)
-    if not all(checks.values()):
-        raise SystemExit("ln_path checks failed: %s"
-                         % [k for k, ok in checks.items() if not ok])
+    _fail_unless("ln_path", checks)
+    return launches
+
+
+
+# ---------------------------------------------------------------------------
+# Transformer NMT training (bench_nmt) and LeNet (bench_lenet)
+# ---------------------------------------------------------------------------
+
+NMT_BATCH = 32                # bench.py runs bench_nmt(batch=32)
+NMT_LR, NMT_WARMUP = 2.0, 4000
+NMT_LR_RTOL = 1e-6            # fetched learning rate vs the closed form
+NMT_LOSS_RTOL = 1e-2          # step-1 loss, fused route vs composition (bf16)
+NMT_GRAD_TOL = 5e-2           # _nmt_grad_names, same comparison
+NMT_CPU_BATCH = 2             # card vs CPU path: fp32, batch 2,
+NMT_CPU_LAYERS = 2            # 2 + 2 layers
+NMT_CPU_LOSS_RTOL = 1e-4
+NMT_CPU_GRAD_TOL = 1e-3       # named gradients, and all in relative L2
+LENET_BATCH = 1024            # bench.py runs bench_lenet(batch=1024)
+COUNTER = "@LR_DECAY_COUNTER@"
+
+
+def _nmt_config(**kw):
+    return transformer.base_config(**kw)
+
+
+def _nmt_program(cfg, amp=True):
+    """bench_nmt's program: build_train(cfg, lr=2.0, warmup_steps=4000)
+    and (``amp``) pure bf16 as bench_nmt tags it."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = transformer.build_train(cfg, lr=NMT_LR,
+                                      warmup_steps=NMT_WARMUP)
+    if amp:
+        main._amp_dtype = "bfloat16"
+        main._amp_keep = True
+    return main, startup, out
+
+
+def _nmt_feed(cfg, batch, rng, ragged=False):
+    """A feed on the card drawn as bench_nmt draws it (all-ones masks), or
+    with source and target lengths S/2..S (``ragged``)."""
+    S_ = cfg.max_len
+
+    def mask():
+        if not ragged:
+            return np.ones((batch, S_, 1), np.float32)
+        n = rng.randint(S_ // 2, S_ + 1, batch)
+        return (np.arange(S_)[None, :, None] < n[:, None, None]).astype(
+            np.float32)
+    feed = {"src_ids": rng.randint(0, cfg.src_vocab_size, (batch, S_, 1)),
+            "src_mask": mask(),
+            "trg_ids": rng.randint(0, cfg.trg_vocab_size, (batch, S_, 1)),
+            "trg_mask": mask(),
+            "label": rng.randint(0, cfg.trg_vocab_size, (batch, S_, 1))}
+    return {k: torch.from_numpy(np.asarray(v)).to("cuda")
+            for k, v in feed.items()}
+
+
+def _nmt_grad_names(L):
+    """The encoder's first q projection, the decoder's first
+    self-attention q projection (causal) and the output projection: fc
+    numbering runs 6 per encoder layer, 10 per decoder layer, then the
+    projection."""
+    return ("fc_0.w_0", "fc_%d.w_0" % (6 * L), "fc_%d.w_0" % (16 * L))
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The attention wrappers run their plain versions on the card's
+    tensors: a route through the fused op that launches none of K2-K5."""
+    real = attention_ops._kernel_device
+    attention_ops._kernel_device = lambda *a, **kw: False
+    try:
+        yield
+    finally:
+        attention_ops._kernel_device = real
+
+
+def _nmt_startup(name, main, startup, cfg):
+    ops = [op.type for op in main.global_block().ops]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.global_block().all_parameters()
+    emit(phase=name + "_startup", seconds=time.perf_counter() - t0,
+         parameters=int(sum(scope.find_var(p.name).numel() for p in params)),
+         parameter_tensors=len(params), ops=len(ops),
+         startup_ops=len(startup.global_block().ops),
+         grad_ops=sum(t.endswith("_grad") for t in ops),
+         adam_ops=ops.count("adam"),
+         fused_attention=ops.count("fused_attention"),
+         attn_dropout=cfg.attn_dropout, hidden_dropout=cfg.dropout,
+         amp="pure bf16", batch=NMT_BATCH, seq=cfg.max_len,
+         layers=cfg.num_layers)
+    return exe, scope
+
+
+def _nmt_phase(name, cfg, feeds, fetch_lr, checks_fn, keep_init=False):
+    """One NMT training phase: bench_nmt's program for ``cfg`` started on
+    the card, WARM_STEPS + TIMED_STEPS steps with ``feeds`` taken in turn
+    (the main path's run, with the launch counts set to 0 before it and
+    read after it), ms per step, tokens/s (batch x S a step, as bench_nmt
+    counts), peak memory and launches, then one profiled step.
+    ``checks_fn(got, launches, extra, scope)`` returns the checks by
+    name and may add fields to ``extra`` for the phase's line.  Returns
+    the executor, a copy of the startup weights (``keep_init``, else
+    None), the checks and the launches."""
+    main, startup, out = _nmt_program(cfg)
+    exe, scope = _nmt_startup(name, main, startup, cfg)
+    init = _state_copy(main, scope) if keep_init else None
+    fetch = [out["loss"]]
+    if fetch_lr:
+        fetch.append(out["optimizer"]._global_learning_rate(main))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    got, step_ms = _train_steps(exe, main, feeds, fetch, scope)
+    launches = _launches()
+    extra = dict(losses=[float(g[0].float().item()) for g in got])
+    checks = {"losses_finite": bool(np.isfinite(extra["losses"]).all())}
+    checks.update(checks_fn(got, launches, extra, scope))
+    emit(phase=name, card=_card(), steps=len(got), ms_per_step=step_ms,
+         tokens_per_s=NMT_BATCH * cfg.max_len / step_ms * 1e3,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+         launches=launches,
+         launches_per_step={n: c / len(got) for n, c in launches.items()},
+         **extra)
+    _profile_step(name + "_profile", exe, main, feeds[0], fetch, scope)
+    return exe, init, checks, launches
+
+
+def phase_nmt_train():
+    """bench_nmt's configuration through Executor on the card: base_config
+    (6 + 6 layers, width 512, 8 heads, ffn 2048, S = 256, vocabularies of
+    30,000, dropout 0.1 on the hidden states and the attention weights,
+    label smoothing 0.1), Adam on noam_decay(512, 4000) x 2.0, pure bf16,
+    batch 32, all-ones masks, bench_nmt's two feeds taken in turn.
+    Attention dropout routes every fused_attention op through the
+    composition: no flash kernel may launch.  The learning rate of each
+    run must be the closed form and the step counter 10 after ten runs;
+    the loss only finite (over these steps the rate stays under
+    3.5e-6)."""
+    cfg = _nmt_config()
+    rng = np.random.RandomState(0)
+    feeds = [_nmt_feed(cfg, NMT_BATCH, rng) for _ in range(2)]
+
+    def checks(got, launches, extra, scope):
+        lrs = [float(g[1].reshape(-1)[0].item()) for g in got]
+        t = np.arange(1, len(got) + 1, dtype=np.float64)
+        want = NMT_LR * cfg.hidden_size ** -0.5 * np.minimum(
+            t ** -0.5, t * NMT_WARMUP ** -1.5)
+        lr_err = float(np.max(np.abs(np.array(lrs) - want) / want))
+        counter = float(scope.find_var(COUNTER).reshape(-1)[0].item())
+        extra.update(learning_rates=lrs, lr_max_rel_err=lr_err,
+                     counter=counter)
+        return {"lr_is_noam": lr_err <= NMT_LR_RTOL,
+                "counter_reads_10": counter == len(got),
+                "no_flash_kernel": not any(launches.values())}
+    _, _, ok, launches = _nmt_phase("nmt_train", cfg, feeds, True, checks)
+    _fail_unless("nmt_train", ok)
+    return launches
+
+
+def phase_nmt_train_flash():
+    """bench_nmt's widths, batch and bf16 with attention dropout off
+    (hidden dropout stays 0.1) and ragged masks: every fused_attention
+    op runs flash attention, 18 K2, 18 K3, 18 K4 and 0 K5 a step (6
+    causal).  Then phase_nmt_check."""
+    cfg = _nmt_config()
+    cfg.attn_dropout = 0.0
+    feed = _nmt_feed(cfg, NMT_BATCH, np.random.RandomState(SEED),
+                     ragged=True)
+    n_attn = 3 * cfg.num_layers
+
+    def checks(got, launches, extra, scope):
+        steps = len(got)
+        return {
+            "k2_k3_k4_18_per_step": all(
+                launches[n] == n_attn * steps for n in (
+                    "flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")),
+            "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+            "no_other_kernel": not any(
+                c for n, c in launches.items()
+                if not n.startswith("flash_attention"))}
+    exe, init, ok, launches = _nmt_phase("nmt_train_flash", cfg, [feed],
+                                         False, checks, keep_init=True)
+    ok.update(phase_nmt_check(exe, init, feed))
+    _fail_unless("nmt_train_flash", ok)
+    return launches
+
+
+def phase_nmt_check(exe, init, feed):
+    """Step 1 from the startup weights ``init``, with all dropout off in
+    both routes of each comparison (the routes number their random ops
+    differently): the fused route (K2-K4) against the composition route
+    (use_fused_attention=False) in bf16 at batch 32, with the fused route
+    running the kernels' plain versions as the spread; then the card
+    against the port's CPU path, fp32 at batch 2 and 2 + 2 layers, with
+    the card's plain-version route as the spread.  Returns the checks by
+    name."""
+    L = _nmt_config().num_layers
+    names = _nmt_grad_names(L)
+    fused, _, fout = _nmt_program(_nmt_config(dropout=0.0))
+    comp, _, cout = _nmt_program(_nmt_config(dropout=0.0,
+                                             use_fused_attention=False))
+    before = _launches()
+    card = _step_grads(exe, fused, fout["loss"], init, feed, names)
+    ran = {n: c - before[n] for n, c in _launches().items()}
+    want = _step_grads(exe, comp, cout["loss"], init, feed, names)
+    with _plain_attention():
+        plain = _step_grads(exe, fused, fout["loss"], init, feed, names)
+    bf16 = _route_check(card, want, plain, NMT_LOSS_RTOL, NMT_GRAD_TOL,
+                        names=names)
+
+    cut = _nmt_config(dropout=0.0, num_layers=NMT_CPU_LAYERS)
+    fmain, fstartup, fo = _nmt_program(cut, amp=False)
+    fscope = fluid.Scope()
+    exe.run(fstartup, scope=fscope)
+    all_names = [p.name for p in fmain.global_block().all_parameters()]
+    two = {k: v[:NMT_CPU_BATCH] for k, v in feed.items()}
+    before = _launches()
+    card2 = _step_grads(exe, fmain, fo["loss"], fscope, two, all_names)
+    ran2 = {n: c - before[n] for n, c in _launches().items()}
+    t2 = time.perf_counter()
+    cpu2 = _step_grads(fluid.Executor(fluid.CPUPlace()), fmain, fo["loss"],
+                         fscope, {k: v.cpu() for k, v in two.items()},
+                         all_names)
+    cpu_s = time.perf_counter() - t2
+    with _plain_attention():
+        plain2 = _step_grads(exe, fmain, fo["loss"], fscope, two,
+                               all_names)
+    fp32 = _route_check(card2, cpu2, plain2, NMT_CPU_LOSS_RTOL,
+                        NMT_CPU_GRAD_TOL, whole=True,
+                        names=_nmt_grad_names(NMT_CPU_LAYERS))
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+    checks = {
+        "fused_route_ran_k2_k3_k4": all(ran[n] == 3 * L for n in kernels)
+        and ran["flash_attention_bwd_dbias"] == 0,
+        "fused_matches_composition": bf16["ok"],
+        "card_fp32_ran_k2_k3_k4": all(ran2[n] == 3 * NMT_CPU_LAYERS
+                                      for n in kernels),
+        "card_matches_cpu_path": fp32["ok"],
+    }
+    emit(phase="nmt_check",
+         tolerance="each: max(fixed, 2 x the spread of a route without "
+         "K2-K5 from the same reference); dropout off in every route; "
+         "fixed: fused vs composition route (bf16, batch %d; spread: the "
+         "fused route with the kernels' plain versions) loss rel %g, "
+         "grads max|diff|/max|grad| %g; card vs CPU (fp32, batch %d, %d + "
+         "%d layers; spread: the card's plain-version route) %g, %g, all "
+         "gradients in relative L2 %g"
+         % (NMT_BATCH, NMT_LOSS_RTOL, NMT_GRAD_TOL, NMT_CPU_BATCH,
+            NMT_CPU_LAYERS, NMT_CPU_LAYERS, NMT_CPU_LOSS_RTOL,
+            NMT_CPU_GRAD_TOL, NMT_CPU_GRAD_TOL),
+         grads=list(names), loss_fused_route=card[0],
+         loss_composition_route=want[0], loss_plain_route=plain[0],
+         fused_vs_composition=bf16, launched_fused_route=ran,
+         loss_card_b2=card2[0], loss_cpu_b2=cpu2[0],
+         loss_plain_b2=plain2[0], cpu_seconds=cpu_s, card_vs_cpu=fp32,
+         launched_card_b2=ran2, checks=checks)
+    return checks
+
+
+def phase_lenet_train():
+    """bench_lenet's configuration through Executor on the card: LeNet-5,
+    1 x 28 x 28, batch 1024, Adam 1e-3, bench_lenet's two feeds taken in
+    turn, 2 warm-up and 8 timed steps: finite losses, the last below the
+    first, and none of the port's kernels launched (its 5x5 convs are
+    cuDNN's)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = lenet.build_train(lr=1e-3)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = []
+    for _ in range(2):
+        feeds.append({
+            "img": torch.from_numpy(rng.normal(
+                0, 1, (LENET_BATCH, 1, 28, 28)).astype(np.float32)).cuda(),
+            "label": torch.from_numpy(rng.randint(
+                0, 10, (LENET_BATCH, 1)).astype(np.int64)).cuda()})
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    got, step_ms = _train_steps(exe, main, feeds, [out["loss"]], scope)
+    launches = _launches()
+    losses = [float(g[0].item()) for g in got]
+    checks = {"losses_finite": bool(np.isfinite(losses).all()),
+              "last_loss_below_first": losses[-1] < losses[0],
+              "no_port_kernel": not any(launches.values())}
+    emit(phase="lenet_train", card=_card(), steps=len(got),
+         batch=LENET_BATCH,
+         losses=losses, ms_per_step=step_ms,
+         images_per_s=LENET_BATCH / step_ms * 1e3,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+         launches=launches, checks=checks)
+    _fail_unless("lenet_train", checks)
     return launches
 
 
@@ -1864,6 +2304,7 @@ def main():
     bounds = phase_bounds()
     k2 = phase_kernel()
     bwd = phase_kernel_bwd()
+    nmt = phase_kernel_nmt()
     k1 = phase_kernel_conv(bounds)
     k6 = phase_kernel_ln(bounds)
     by_path = {"serve": phase_slice()}
@@ -1873,6 +2314,9 @@ def main():
     resnet = phase_resnet_train()
     by_path["resnet_train"] = resnet["launches"]
     by_path["ln_path"] = phase_ln_path()
+    by_path["nmt_train"] = phase_nmt_train()
+    by_path["nmt_train_flash"] = phase_nmt_train_flash()
+    by_path["lenet_train"] = phase_lenet_train()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],
@@ -1905,12 +2349,24 @@ def main():
         if name == "conv3x3_bn_relu":
             rows[-1]["variants_resnet_train"] = resnet[
                 "k1_launches_by_variant"]
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
         if name == "flash_attention_fwd":
             # the row's numbers are the serving shape's; training
             # launches it with the LSE at BH = 384
             rows[-1]["training_with_lse"] = {
-                key: bwd["fwd_with_lse"][key] for key in
-                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                key: bwd["fwd_with_lse"][key] for key in keys}
+        nmt_key = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq":
+                   "dq", "flash_attention_bwd_dkv": "dkv"}.get(name)
+        if nmt_key:
+            # Transformer NMT's shape (BH = 256, S = 256, D = 64; K2 with
+            # the LSE), causal and with the pad bias, fp32 and bf16
+            rows[-1]["nmt"] = {}
+            for case, t in nmt["timings"][nmt_key].items():
+                e = nmt["errors"][case]
+                err = max(e["dk"], e["dv"]) if nmt_key == "dkv" else \
+                    e[nmt_key]
+                rows[-1]["nmt"][case] = dict(
+                    {key: t[key] for key in keys}, max_abs_err=err)
     emit(kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 Mirrors ``paddle_tpu.fluid``: a Program IR built from Python layers, run
 by ``Executor(CUDAPlace(0))`` op by op on torch tensors.  Ported so far:
-BERT-base serving, BERT-base pretraining with Adam, and ResNet-50
-training with Momentum, L2Decay and pure-bf16 AMP (see ROADMAP.md's port
-queue).
+BERT-base serving, BERT-base pretraining with Adam, ResNet-50 training
+with Momentum, L2Decay and pure-bf16 AMP, LeNet, and Transformer NMT
+training with a Noam-scheduled Adam (see ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs

@@ -86,13 +86,28 @@ class Variable:
             self.name, self.shape, self.dtype,
             ", persistable" if self.persistable else "")
 
-    # operator sugar (reference layers/math_op_patch.py); the slice ports
-    # only the `+` that model code uses
-    def __add__(self, other):
+    # operator sugar (reference layers/math_op_patch.py): `+`, `-`, `*`
+    # and `/`, with a float scalar on the Variable's right lowered to a
+    # `scale` op, as in the JAX package
+    def _binary(self, other, op_type):
         from .layers import math_op_patch
-        return math_op_patch.binary(self, other, "elementwise_add")
+        return math_op_patch.binary(self, other, op_type)
+
+    def __add__(self, other):
+        return self._binary(other, "elementwise_add")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __mul__(self, other):
+        return self._binary(other, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
 
 
 class Parameter(Variable):
@@ -307,6 +322,11 @@ class Program:
             yield
         finally:
             self._current_role = prev_role
+
+    def _lr_schedule_guard(self):
+        """Ops appended inside carry ``OpRole.LRSched`` (reference
+        framework.py:463): the learning-rate schedule's ops."""
+        return self._role_guard(OpRole.LRSched)
 
     # -- cloning -----------------------------------------------------------
     def clone(self, for_test=False):

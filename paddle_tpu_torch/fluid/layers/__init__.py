@@ -1,7 +1,8 @@
 """Layer namespace (reference: python/paddle/fluid/layers/__init__.py).
 
-Exports only what the port has ported: the layers BERT pretraining and
-ResNet training call.
+Exports only what the port has ported: the layers that BERT, ResNet,
+LeNet and Transformer NMT training call, and the learning-rate
+schedules.
 """
 
 from . import io
@@ -10,12 +11,16 @@ from . import tensor
 from . import rnn
 from . import math_op_patch
 from . import metric_op
+from . import learning_rate_scheduler
 
 from .io import data                                         # noqa: F401
 from .nn import (fc, embedding, layer_norm, dropout, softmax,  # noqa: F401
                  matmul, scale, reshape, transpose, unsqueeze, slice,
                  gather, mean, softmax_with_cross_entropy, conv2d,
-                 pool2d, batch_norm, relu, topk)
+                 pool2d, batch_norm, relu, topk, elementwise_add,
+                 elementwise_mul, elementwise_div, elementwise_min,
+                 elementwise_pow, reduce_sum, one_hot, label_smooth)
 from .metric_op import accuracy                              # noqa: F401
-from .tensor import assign, create_parameter                 # noqa: F401
+from .tensor import assign, create_parameter, fill_constant  # noqa: F401
 from .rnn import fused_attention                             # noqa: F401
+from .learning_rate_scheduler import *                       # noqa: F401,F403

@@ -1,7 +1,9 @@
 """Operator-overload support for Variables (reference: layers/math_op_patch.py).
 
-The slice ports ``+`` (``elementwise_add``), with a float scalar on
-either side lowered to a ``scale`` op as in the JAX package."""
+The slice ports ``+``, ``-``, ``*`` and ``/`` between two Variables
+(``elementwise_add``/``_sub``/``_mul``/``_div``, ``axis=-1``: Y aligns
+to X's trailing dims) and with a float scalar on the Variable's right,
+lowered to a ``scale`` op as in the JAX package."""
 
 from ..data_types import is_floating
 from ..framework import Variable
@@ -17,17 +19,29 @@ def scale(x, scale_val=1.0, bias=0.0):
     return out
 
 
+# (scale, bias) of ``x <op> y`` for a float scalar y (math_op_patch.py:36)
+_SCALAR = {
+    "elementwise_add": lambda y: (1.0, y),
+    "elementwise_sub": lambda y: (1.0, -y),
+    "elementwise_mul": lambda y: (y, 0.0),
+    "elementwise_div": lambda y: (1.0 / y, 0.0),
+}
+
+
 def binary(x, y, op_type):
-    if op_type != "elementwise_add":
-        raise NotImplementedError("only `+` is ported, not %s" % op_type)
+    if op_type not in _SCALAR:
+        raise NotImplementedError("%s between Variables is not ported"
+                                  % op_type)
     if isinstance(y, (int, float)):
         if not is_floating(x.dtype):
             raise NotImplementedError(
-                "scalar + integer Variable is not ported (the JAX package "
-                "fills a tensor for it, fill_constant_batch_size_like)")
-        return scale(x, 1.0, y)
+                "a scalar with an integer Variable is not ported (the JAX "
+                "package fills a tensor for it, "
+                "fill_constant_batch_size_like)")
+        return scale(x, *_SCALAR[op_type](y))
     if not isinstance(y, Variable):
-        raise TypeError("cannot add %r to a Variable" % (y,))
+        raise TypeError("cannot apply %s to a Variable and %r"
+                        % (op_type, y))
     helper = LayerHelper(op_type)
     out = helper.create_variable_for_type_inference(x.dtype)
     out.shape = x.shape if (x.shape and y.shape and

@@ -425,3 +425,82 @@ def gather(input, index):
     helper.append_op("gather", inputs={"X": [input], "Index": [index]},
                      outputs={"Out": [out]})
     return out
+
+
+def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type, name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out, act)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    """Sum over ``dim`` (an int or a list), or over every axis when
+    ``dim`` is None (``reduce_all``; the declared shape is (1,), the
+    value 0-d, as in the JAX package)."""
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        out.shape = (1,)
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        dims = dim if isinstance(dim, (list, tuple)) else [dim]
+        if input.shape:
+            nd = len(input.shape)
+            axes = set(d % nd for d in dims)
+            if keep_dim:
+                out.shape = tuple(1 if i in axes else s
+                                  for i, s in enumerate(input.shape))
+            else:
+                out.shape = tuple(s for i, s in enumerate(input.shape)
+                                  if i not in axes)
+        attrs = {"dim": list(dims), "keep_dim": keep_dim,
+                 "reduce_all": False}
+    helper.append_op("reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    if input.shape is not None:
+        base = input.shape[:-1] if input.shape[-1] == 1 else input.shape
+        out.shape = tuple(base) + (depth,)
+    helper.append_op("one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """``(1 − eps)·label + eps·prior`` (uniform over the last axis when
+    ``prior_dist`` is None), built from ``scale`` ops as the JAX package
+    builds it; there is no label_smooth op."""
+    if prior_dist is None:
+        num_classes = label.shape[-1]
+        return scale(label, 1.0 - epsilon, epsilon / float(num_classes))
+    return elementwise_add(scale(label, 1.0 - epsilon),
+                           scale(prior_dist, epsilon))

@@ -1,6 +1,6 @@
 """Tensor layers (reference: python/paddle/fluid/layers/tensor.py):
-``assign``, which BERT's causal composition path calls, and
-``create_parameter``."""
+``assign``, which BERT's causal composition path and the Transformer's
+positional table call, ``create_parameter`` and ``fill_constant``."""
 
 import numpy as np
 
@@ -39,3 +39,15 @@ def create_parameter(shape, dtype, name=None, attr=None,
     return helper.create_parameter(attr, list(shape), dtype,
                                    is_bias=is_bias,
                                    default_initializer=default_initializer)
+
+
+def fill_constant(shape, dtype, value, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(shape)
+    helper.append_op("fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape),
+                            "dtype": canonical_dtype(dtype),
+                            "value": float(value)})
+    return out

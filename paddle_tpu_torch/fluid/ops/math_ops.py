@@ -28,11 +28,26 @@ def _align(x, y, axis):
     return y
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, op):
-    x = ctx.i("X")
-    y = _align(x, ctx.i("Y"), ctx.attr("axis", -1))
-    ctx.set("Out", x + y)
+def _binary(fn):
+    def lower(ctx, op):
+        x = ctx.i("X")
+        y = _align(x, ctx.i("Y"), ctx.attr("axis", -1))
+        ctx.set("Out", fn(x, y))
+    return lower
+
+
+# the elementwise types of JAX's table (math_ops.py:42) that the ported
+# models and learning-rate schedules use; torch's type promotion (bf16
+# with float32 gives float32) and true division are jnp's
+for _name, _fn in [
+    ("elementwise_add", torch.add),
+    ("elementwise_sub", torch.sub),
+    ("elementwise_mul", torch.mul),
+    ("elementwise_div", torch.div),
+    ("elementwise_min", torch.minimum),
+    ("elementwise_pow", torch.pow),
+]:
+    register_op(_name)(_binary(_fn))
 
 
 @register_op("scale")
@@ -139,6 +154,21 @@ def _sum(ctx, op):
 def _mean(ctx, op):
     # the reference mean_op emits a 1-element tensor, not a 0-d scalar
     ctx.set("Out", torch.mean(ctx.i("X")).reshape((1,)))
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, op):
+    """math_ops.py:136: the sum over ``dim`` (Paddle's negative axes
+    allowed), or over every axis with ``reduce_all``, which gives a 0-d
+    tensor as ``jnp.sum(axis=None)`` does (a 1-element one of rank
+    ``x.dim()`` with ``keep_dim``).  An empty ``dim`` sums nothing."""
+    x = ctx.i("X")
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False):
+        axes = tuple(range(x.dim()))
+    else:
+        axes = tuple(sorted({d % x.dim() for d in ctx.attr("dim", [0])}))
+    ctx.set("Out", torch.sum(x, dim=axes, keepdim=keep) if axes else x)
 
 
 @register_op("softmax")

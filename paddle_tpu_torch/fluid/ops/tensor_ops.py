@@ -148,3 +148,26 @@ def _top_k(ctx, op):
     vals, idxs = torch.topk(ctx.i("X"), ctx.attr("k", 1), dim=-1)
     ctx.set("Out", vals)
     ctx.set("Indices", idxs)
+
+
+@register_op("one_hot", nondiff_inputs=("X",), stop_gradient=True)
+def _one_hot(ctx, op):
+    """tensor_ops.py:246: int ids ``[..., 1]`` (or ``[...]``) → float32
+    ``[..., depth]``.  An id outside ``[0, depth)`` gives a row of zeros,
+    as ``jax.nn.one_hot`` does, so a bad label cannot fault the device
+    (``F.one_hot`` would raise)."""
+    x = ctx.i("X")
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    depth = int(ctx.attr("depth"))
+    classes = torch.arange(depth, device=x.device)
+    ctx.set("Out", (x.long().unsqueeze(-1) == classes).to(torch.float32))
+
+
+@register_op("increment")
+def _increment(ctx, op):
+    """tensor_ops.py:274: ``X + step`` in X's dtype.  The learning-rate
+    counter names one variable as X and Out; the result is a new tensor,
+    which the executor writes back to the scope after the run."""
+    x = ctx.i("X")
+    ctx.set("Out", x + torch.tensor(ctx.attr("step", 1.0), dtype=x.dtype))

@@ -8,12 +8,13 @@
 accumulators (``velocity``, ``moment1``, ``moment2``, ``beta1_pow_acc``,
 ``beta2_pow_acc``) get the JAX package's names, so
 ``convert.load_numpy_params`` carries every persistable of a JAX scope
-across.  Gradient clipping, learning-rate schedules and the other
-optimizers are not ported yet (ROADMAP.md, port queue 1); asking for them
-raises.
+across.  The learning rate is a float, or a Variable such as
+``layers.noam_decay``'s, which the optimizer ops then read on every run.
+Gradient clipping, per-parameter learning rates and the other optimizers
+are not ported yet (ROADMAP.md, port queue 1); asking for them raises.
 """
 
-from .framework import OpRole, default_main_program
+from .framework import OpRole, Variable, default_main_program
 from .backward import append_backward
 from .regularizer import append_regularization_ops
 from .initializer import ConstantInitializer
@@ -30,17 +31,28 @@ def _not_ported(what):
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None):
         self.regularization = regularization
-        if not isinstance(learning_rate, (int, float)):
-            raise _not_ported("a learning-rate schedule or variable")
+        if callable(learning_rate):
+            # a dygraph LearningRateDecay object (JAX optimizer.py:86)
+            raise _not_ported("a dygraph learning-rate schedule")
+        if not isinstance(learning_rate, (int, float, Variable)):
+            raise TypeError("learning_rate must be a float or a Variable, "
+                            "got %r" % (learning_rate,))
         self._name = name
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate if \
+            isinstance(learning_rate, Variable) else float(learning_rate)
         self._learning_rate_map = {}
         self._accumulators = {}
 
     # -- learning rate -----------------------------------------------------
     def _create_global_learning_rate(self):
+        """The program's learning-rate variable: the Variable given (a
+        schedule's output), else a persistable one initialised to the
+        float (JAX optimizer.py:69)."""
         program = default_main_program()
         if program in self._learning_rate_map:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_map[program] = self._learning_rate
             return
         helper = LayerHelper("learning_rate")
         lr_var = helper.create_global_variable(
@@ -51,11 +63,14 @@ class Optimizer:
             lr_var, ConstantInitializer(self._learning_rate))
         self._learning_rate_map[program] = lr_var
 
+    def _global_learning_rate(self, program=None):
+        return self._learning_rate_map.get(program or default_main_program())
+
     def _create_param_lr(self, param_and_grad):
         param = param_and_grad[0]
         if param.optimize_attr.get("learning_rate", 1.0) != 1.0:
             raise _not_ported("a per-parameter learning rate")
-        return self._learning_rate_map[default_main_program()]
+        return self._global_learning_rate()
 
     # -- accumulators ------------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0, shape=None,

@@ -250,7 +250,8 @@ def test_a_variable_in_two_slots_gets_its_gradient_once():
 
 
 def test_unported_optimizer_options_raise_naming_the_roadmap():
-    """Regularizers are ported (regularizer.py); learning-rate schedules,
+    """Regularizers and layers.noam_decay are ported (the other
+    schedules raise); a dygraph schedule (a callable learning rate),
     per-parameter learning rates and gradient clipping still raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fluid.optimizer.AdamOptimizer(learning_rate=lambda: 0.1)
