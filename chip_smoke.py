@@ -107,7 +107,24 @@ non-zero exit (nothing is caught):
 17. lenet_train: bench_lenet's program (LeNet-5, batch 1024, Adam 1e-3,
    two feeds in turn), 2 warm-up and 8 timed steps: finite falling
    losses, images/s, none of the port's kernels launched.
-18. kernels: one JSON line listing every ported kernel.
+18. deepfm_train: bench_deepfm's program (DeepFM base_config: 26
+   fields over a 1,000,001-row table, embeddings of 10, a 400 x 3 tower;
+   Adam 1e-3, batch 4096, two feeds in turn), 2 warm-up and 8 timed
+   steps: finite falling losses, examples/s, peak memory, one profiled
+   step, none of the port's kernels launched; then deepfm_check: three
+   steps from the startup weights on the card (twice, then with each
+   batch's examples reversed) and on the port's CPU path (as fed and
+   reversed), losses within 1e-4, each parameter within max(2 x the sum
+   of the largest spreads over the card's runs and the CPU's, 1e-6).
+19. deepfm_optimizers: DeepFM at batch 512, the same check for each of
+   the eight optimizers the port adds (LarsMomentum, Adamax, Adagrad,
+   DecayedAdagrad, Adadelta, centered RMSProp, Ftrl, Lamb), Adam with
+   GradientClipByGlobalNorm, SGD with GradientClipByValue on the tower
+   and a per-parameter rate of 0.5 on fm_emb, and SGD on each of the
+   seven schedules, whose fetched rate must equal its closed form
+   within 1e-6.
+20. kernels: one JSON line listing every ported kernel, with its
+   launches on every main path (0 on DeepFM's).
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.
@@ -134,7 +151,7 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
     K1_VARIANTS, conv3x3_bn_relu, conv3x3_bn_relu_reference, k1_plan)
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
-from paddle_tpu_torch.models import bert, lenet, resnet, transformer
+from paddle_tpu_torch.models import bert, deepfm, lenet, resnet, transformer
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -1896,10 +1913,11 @@ def _kernel_kinds(prof):
     """Device ms of one profiled step by kind of kernel, from the kernel
     names: K1; the flash-attention kernels K2-K5; the library's
     convolutions and GEMMs (cuDNN / cuBLAS / cuBLASLt's nvjet / CUTLASS
-    names); reductions; PyTorch's elementwise kernels; everything else
-    (copies, fills, gathers)."""
-    kinds = dict(k1=0.0, k2_k5=0.0, library_conv_gemm=0.0, reduce=0.0,
-                 elementwise=0.0, other=0.0)
+    names); embedding, index, gather and scatter kernels (DeepFM's
+    lookups and their gradients); reductions; PyTorch's elementwise
+    kernels; everything else (copies, fills)."""
+    kinds = dict(k1=0.0, k2_k5=0.0, library_conv_gemm=0.0,
+                 gather_scatter=0.0, reduce=0.0, elementwise=0.0, other=0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1913,6 +1931,9 @@ def _kernel_kinds(prof):
                                      "nvjet", "implicit", "conv", "dgrad",
                                      "wgrad")):
             kind = "library_conv_gemm"
+        elif any(w in name for w in ("embedding", "index", "scatter",
+                                     "gather")):
+            kind = "gather_scatter"
         elif "reduce" in name:
             kind = "reduce"
         elif "elementwise" in name:
@@ -2294,6 +2315,305 @@ def phase_lenet_train():
     return launches
 
 
+DFM_BATCH = 4096              # bench.py runs bench_deepfm(batch=4096)
+DFM_LR = 1e-3                 # ... with build_train(cfg, lr=1e-3): Adam
+DFM_OPT_BATCH = 512           # deepfm_optimizers: the CPU side stays cheap
+DFM_CHECK_STEPS = 3           # card vs the port's CPU path, from one state
+DFM_LOSS_RTOL = 1e-4          # per-step losses, card vs CPU
+DFM_PARAM_FLOOR = 1e-6        # parameters, card vs CPU: max(2 x the
+                              # card's spread, this floor)
+DFM_LR_RTOL = 1e-6            # fetched rate vs the schedule's closed form
+
+
+def _dfm_config():
+    return deepfm.base_config()
+
+
+def _dfm_feeds(cfg, batch, n=2):
+    """bench_deepfm's feeds: ``n`` batches drawn from RandomState(0),
+    taken in turn, as numpy arrays."""
+    rng = np.random.RandomState(0)
+    return [{"sparse_ids": rng.randint(0, cfg.sparse_feature_dim,
+                                       (batch, cfg.num_fields, 1))
+             .astype(np.int64),
+             "dense_value": rng.rand(batch, cfg.dense_dim).astype(np.float32),
+             "label": rng.randint(0, 2, (batch, 1)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def _dfm_program(make_opt=None, tweak=None):
+    """DeepFM at ``_dfm_config()``: bench_deepfm's build_train(cfg,
+    lr=1e-3) (Adam), or with ``make_opt`` the same forward, then
+    ``tweak(main)`` (clip or rate attributes on its parameters) and
+    ``make_opt().minimize``.  (main, startup, loss, optimizer)."""
+    cfg = _dfm_config()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if make_opt is None:
+            out = deepfm.build_train(cfg, lr=DFM_LR)
+            return main, startup, out["loss"], out["optimizer"]
+        ids = fluid.layers.data(name="sparse_ids",
+                                shape=[cfg.num_fields, 1], dtype="int64")
+        dense = fluid.layers.data(name="dense_value", shape=[cfg.dense_dim],
+                                  dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        loss, _ = deepfm.deepfm(ids, dense, label, cfg)
+        if tweak is not None:
+            tweak(main)
+        opt = make_opt()
+        opt.minimize(loss)
+    return main, startup, loss, opt
+
+
+def _dfm_steps(exe, main, loss, fetch, state, feeds, steps=DFM_CHECK_STEPS):
+    """``steps`` runs of ``main`` on a copy of ``state`` on ``exe``'s
+    device, feeds taken in turn: ([loss and ``fetch`` of each step],
+    {parameter: value after the last step})."""
+    scope = _state_copy(main, state, exe.device)
+    got = []
+    for i in range(steps):
+        out = exe.run(main, feed=feeds[i % len(feeds)],
+                      fetch_list=[loss] + fetch, scope=scope,
+                      return_numpy=False)
+        got.append([float(t.reshape(-1)[0].item()) for t in out])
+    return got, {p.name: scope.find_var(p.name)
+                 for p in main.global_block().all_parameters()}
+
+
+def _max_abs(a, b):
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def _reversed(feeds):
+    """The same batches with their examples in reverse order: the same
+    loss and gradients in exact arithmetic, summed in another order."""
+    return [{k: np.ascontiguousarray(v[::-1]) for k, v in f.items()}
+            for f in feeds]
+
+
+def _dfm_card_vs_cpu(exe, main, loss, init, feeds, fetch=()):
+    """Three card runs (the feeds twice, then each batch's examples in
+    reverse order) and two runs of the port's CPU path (the feeds, then
+    reversed), each DFM_CHECK_STEPS steps from the state ``init``:
+    per-step losses within DFM_LOSS_RTOL; each parameter within the
+    larger of DFM_PARAM_FLOOR and twice the sum of the two sides'
+    spreads, a side's spread being how far its first run lies from its
+    others (the card's nondeterminism, and each side's rounding: sums in
+    another order), at the parameter that moves most.  Adagrad, Adamax
+    and Ftrl divide by the gradient's own size plus a small epsilon,
+    which turns the rounding of a gradient entry near 0 into a step up
+    to lr/epsilon times larger; which tensor holds the most sensitive
+    entry is chance, so the spread is taken over the whole model, not
+    tensor by tensor.  Returns (report, checks, fetches of the first
+    card run); no port kernel may launch."""
+    before = _launches()
+    card, cp = _dfm_steps(exe, main, loss, list(fetch), init, feeds)
+    card2, cp2 = _dfm_steps(exe, main, loss, list(fetch), init, feeds)
+    rev, rp = _dfm_steps(exe, main, loss, list(fetch), init,
+                         _reversed(feeds))
+    launched = {n: c - before[n] for n, c in _launches().items()}
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    t0 = time.perf_counter()
+    cpu, pp = _dfm_steps(cpu_exe, main, loss, list(fetch), init, feeds)
+    cpu_s = time.perf_counter() - t0
+    _, prp = _dfm_steps(cpu_exe, main, loss, list(fetch), init,
+                        _reversed(feeds))
+    loss_err = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(card, cpu))
+    spread = {n: max(_max_abs(cp[n], cp2[n]), _max_abs(cp[n], rp[n]))
+              for n in cp}
+    cpu_spread = {n: _max_abs(pp[n], prp[n]) for n in cp}
+    err = {n: _max_abs(cp[n], pp[n]) for n in cp}
+    bound = max(2 * (max(spread.values()) + max(cpu_spread.values())),
+                DFM_PARAM_FLOOR)
+    over = {n: e for n, e in err.items() if e > bound}
+    losses = [g[0] for g in card]
+    checks = {"losses_finite": bool(np.isfinite(losses).all()),
+              "card_losses_match_cpu": loss_err <= DFM_LOSS_RTOL,
+              "card_params_match_cpu": not over,
+              "no_port_kernel": not any(launched.values())}
+    report = dict(losses_card=losses, losses_card_2=[g[0] for g in card2],
+                  losses_card_reversed=[g[0] for g in rev],
+                  losses_cpu=[g[0] for g in cpu], loss_max_rel_err=loss_err,
+                  card_runs_bit_equal=all(_max_abs(cp[n], cp2[n]) == 0
+                                          for n in cp),
+                  param_max_abs_err=err, param_spread_card=spread,
+                  param_spread_cpu=cpu_spread, param_bound=bound,
+                  params_over_bound=over,
+                  cpu_seconds=cpu_s)
+    return report, checks, card
+
+
+def phase_deepfm_train():
+    """bench_deepfm's configuration through Executor on the card:
+    base_config (26 fields over a 1,000,001-row table, embeddings of 10,
+    13 dense features, a 273 -> 400 -> 400 -> 400 -> 1 tower), Adam 1e-3,
+    batch 4096, bench_deepfm's two feeds from RandomState(0) taken in
+    turn, 2 warm-up and 8 timed steps: finite losses, the last below the
+    first, none of the port's kernels launched (the lookups, their dense
+    scatter-add gradients and the tower are PyTorch's); ms per step,
+    examples/s, peak memory, one profiled step.  Then phase_deepfm_check
+    from the startup weights."""
+    main, startup, loss, _ = _dfm_program()
+    ops = [op.type for op in main.global_block().ops]
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.global_block().all_parameters()
+    emit(phase="deepfm_startup", seconds=time.perf_counter() - t0,
+         parameters=int(sum(scope.find_var(p.name).numel() for p in params)),
+         parameter_tensors=len(params), ops=len(ops),
+         grad_ops=sum(t.endswith("_grad") for t in ops),
+         adam_ops=ops.count("adam"), batch=DFM_BATCH)
+    init = _state_copy(main, scope)
+    feeds_np = _dfm_feeds(_dfm_config(), DFM_BATCH)
+    feeds = [{k: torch.from_numpy(v).cuda() for k, v in f.items()}
+             for f in feeds_np]
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    got, step_ms = _train_steps(exe, main, feeds, [loss], scope)
+    launches = _launches()
+    losses = [float(g[0].item()) for g in got]
+    checks = {"losses_finite": bool(np.isfinite(losses).all()),
+              "last_loss_below_first": losses[-1] < losses[0],
+              "no_port_kernel": not any(launches.values())}
+    emit(phase="deepfm_train", card=_card(), steps=len(got),
+         batch=DFM_BATCH, losses=losses, ms_per_step=step_ms,
+         examples_per_s=DFM_BATCH / step_ms * 1e3,
+         peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+         launches=launches, checks=checks)
+    _profile_step("deepfm_train_profile", exe, main, feeds[0], [loss], scope)
+    checks.update(phase_deepfm_check(exe, main, loss, init, feeds_np))
+    _fail_unless("deepfm_train", checks)
+    return launches
+
+
+def phase_deepfm_check(exe, main, loss, init, feeds):
+    """The card against the port's CPU path at full width: bench_deepfm's
+    program from the startup weights ``init``, its two feeds, three Adam
+    steps.  Returns the checks by name."""
+    report, checks, _ = _dfm_card_vs_cpu(exe, main, loss, init, feeds)
+    emit(phase="deepfm_check", batch=DFM_BATCH, steps=DFM_CHECK_STEPS,
+         tolerance="losses rel %g; each parameter max|card - cpu| <= "
+         "max(2 x (card spread + cpu spread), %g); card spread: the "
+         "largest max|card - card again| or max|card - card on the "
+         "reversed batches| of any parameter; cpu spread: the largest "
+         "max|cpu - cpu on the reversed batches|"
+         % (DFM_LOSS_RTOL, DFM_PARAM_FLOOR),
+         checks=checks, **report)
+    return checks
+
+
+# optimizer runs of deepfm_optimizers: name -> (make the optimizer,
+# tweak the program before minimize)
+def _tower_clip(main):
+    for p in main.global_block().all_parameters():
+        if p.name.startswith("fc_"):
+            p.gradient_clip_attr = fluid.clip.GradientClipByValue(0.01)
+
+
+def _tower_clip_and_emb_rate(main):
+    _tower_clip(main)
+    main.global_block().var("fm_emb").optimize_attr["learning_rate"] = 0.5
+
+
+def _global_norm_clip(main):
+    fluid.clip.set_gradient_clip(fluid.clip.GradientClipByGlobalNorm(1.0),
+                                 program=main)
+
+
+DFM_OPTIMIZERS = {
+    "lars_momentum": (lambda: fluid.optimizer.LarsMomentumOptimizer(
+        0.1, momentum=0.9), None),
+    "adamax": (lambda: fluid.optimizer.AdamaxOptimizer(1e-3), None),
+    "adagrad": (lambda: fluid.optimizer.AdagradOptimizer(1e-2), None),
+    "decayed_adagrad": (
+        lambda: fluid.optimizer.DecayedAdagradOptimizer(1e-2), None),
+    "adadelta": (lambda: fluid.optimizer.AdadeltaOptimizer(1.0), None),
+    "rmsprop_centered": (lambda: fluid.optimizer.RMSPropOptimizer(
+        1e-3, momentum=0.9, centered=True), None),
+    "ftrl": (lambda: fluid.optimizer.FtrlOptimizer(
+        1e-2, l1=1e-4, l2=1e-4), None),
+    "lamb": (lambda: fluid.optimizer.LambOptimizer(1e-3), None),
+    "adam_global_norm_clip": (
+        lambda: fluid.optimizer.AdamOptimizer(DFM_LR), _global_norm_clip),
+    "sgd_tower_clip_emb_rate": (
+        lambda: fluid.optimizer.SGDOptimizer(0.5), _tower_clip_and_emb_rate),
+}
+
+
+def _closed_poly_cycle(t, lr0, ds, end, power):
+    decay = ds * np.maximum(np.ceil(t / ds), 1.0)
+    return (lr0 - end) * (1.0 - t / decay) ** power + end
+
+
+# schedule runs: name -> (the rate as a Variable, its closed form at the
+# step t = 0, 1, ...); SGD reads it
+DFM_SCHEDULES = {
+    "exponential_decay": (
+        lambda L: L.exponential_decay(0.1, 2, 0.5, staircase=True),
+        lambda t: 0.1 * 0.5 ** np.floor(t / 2)),
+    "natural_exp_decay": (lambda L: L.natural_exp_decay(0.1, 2, 0.3),
+                          lambda t: 0.1 * np.exp(-0.3 * t / 2)),
+    "inverse_time_decay": (lambda L: L.inverse_time_decay(0.1, 2, 0.5),
+                           lambda t: 0.1 / (1 + 0.5 * t / 2)),
+    "polynomial_decay": (
+        lambda L: L.polynomial_decay(0.1, 2, 1e-3, power=2.0, cycle=True),
+        lambda t: _closed_poly_cycle(t, 0.1, 2, 1e-3, 2.0)),
+    "piecewise_decay": (
+        lambda L: L.piecewise_decay([1, 2], [0.1, 0.05, 0.01]),
+        lambda t: np.array([0.1, 0.05, 0.01])[
+            np.searchsorted([1, 2], t, side="right")]),
+    "cosine_decay": (lambda L: L.cosine_decay(0.1, 1, 8),
+                     lambda t: 0.05 * (np.cos(np.pi * t / 8) + 1)),
+    "linear_lr_warmup": (lambda L: L.linear_lr_warmup(0.1, 2, 0.01, 0.1),
+                         lambda t: np.where(t < 2, 0.01 + 0.09 * t / 2,
+                                            0.1)),
+}
+
+
+def phase_deepfm_optimizers():
+    """DeepFM at base_config and batch 512: each of the eight optimizers
+    the port adds, Adam with GradientClipByGlobalNorm(1.0), SGD with
+    GradientClipByValue(0.01) on the tower and a rate of 0.5 on fm_emb,
+    and SGD on each of the seven schedules, for three steps on the card
+    and on the port's CPU path from one startup state, held as
+    deepfm_check holds Adam; each schedule's fetched rate within
+    DFM_LR_RTOL of its closed form.  Any miss fails the run."""
+    feeds = _dfm_feeds(_dfm_config(), DFM_OPT_BATCH)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    runs = [(n, make, tweak, None) for n, (make, tweak) in
+            DFM_OPTIMIZERS.items()]
+    for n, (sched, closed) in DFM_SCHEDULES.items():
+        runs.append((n, lambda sched=sched: fluid.optimizer.SGDOptimizer(
+            sched(fluid.layers)), None, closed))
+    checks = {}
+    for name, make, tweak, closed in runs:
+        main, startup, loss, opt = _dfm_program(make, tweak)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        fetch = [] if closed is None else [opt._global_learning_rate(main)]
+        report, ok, card = _dfm_card_vs_cpu(exe, main, loss, scope, feeds,
+                                            fetch)
+        if closed is not None:
+            rates = [g[1] for g in card]
+            want = closed(np.arange(len(rates), dtype=np.float64))
+            lr_err = float(np.max(np.abs(np.array(rates) - want) / want))
+            report.update(learning_rates=rates, lr_max_rel_err=lr_err)
+            ok["lr_is_closed_form"] = lr_err <= DFM_LR_RTOL
+        ops = main.global_block().ops
+        emit(phase="deepfm_optimizers", run=name, batch=DFM_OPT_BATCH,
+             steps=DFM_CHECK_STEPS, ops=len(ops),
+             clip_ops=sum(op.type in ("clip", "squared_l2_norm") and
+                          op.attr("op_role") == fluid.OpRole.Optimize
+                          for op in ops), checks=ok, **report)
+        checks.update({"%s_%s" % (name, k): v for k, v in ok.items()})
+    _fail_unless("deepfm_optimizers", checks)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -2317,6 +2637,8 @@ def main():
     by_path["nmt_train"] = phase_nmt_train()
     by_path["nmt_train_flash"] = phase_nmt_train_flash()
     by_path["lenet_train"] = phase_lenet_train()
+    by_path["deepfm_train"] = phase_deepfm_train()
+    phase_deepfm_optimizers()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],
@@ -2336,7 +2658,7 @@ def main():
             ("conv3x3_bn_relu", "conv3x3_bn_relu.cu", "conv_pallas.py:33"),
             ("layer_norm", "layer_norm.cu", "pallas_ops.py:706")):
         t = timings[name]
-        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
+        paths = {p: c.get(name, 0) for p, c in by_path.items()}
         rows.append(dict(
             name=name, route="cuda", source=csrc + source,
             replaces="paddle_tpu/fluid/ops/" + replaces,

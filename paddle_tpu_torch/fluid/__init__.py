@@ -3,8 +3,11 @@
 Mirrors ``paddle_tpu.fluid``: a Program IR built from Python layers, run
 by ``Executor(CUDAPlace(0))`` op by op on torch tensors.  Ported so far:
 BERT-base serving, BERT-base pretraining with Adam, ResNet-50 training
-with Momentum, L2Decay and pure-bf16 AMP, LeNet, and Transformer NMT
-training with a Noam-scheduled Adam (see ROADMAP.md's port queue).
+with Momentum, L2Decay and pure-bf16 AMP, LeNet, Transformer NMT
+training with a Noam-scheduled Adam, and DeepFM CTR training; the
+eleven update-rule optimizers, gradient clipping (``fluid.clip``),
+per-parameter learning rates and the eight LR schedules (see
+ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -26,8 +29,13 @@ from .param_attr import ParamAttr
 from . import backward
 from .backward import append_backward, gradients
 from . import regularizer
+from . import clip
 from . import optimizer
-from .optimizer import SGDOptimizer, MomentumOptimizer, AdamOptimizer
+from .optimizer import (SGDOptimizer, MomentumOptimizer,  # noqa: F401
+                        LarsMomentumOptimizer, AdamOptimizer,
+                        AdamaxOptimizer, AdagradOptimizer,
+                        DecayedAdagradOptimizer, AdadeltaOptimizer,
+                        RMSPropOptimizer, FtrlOptimizer, LambOptimizer)
 from . import contrib
 from . import convert
 from .convert import load_numpy_params

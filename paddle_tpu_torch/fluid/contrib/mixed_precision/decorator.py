@@ -9,9 +9,10 @@ keep their outputs bf16.  Parameters, optimizer state, BN statistics and
 the loss stay float32.
 
 Loss scaling (``init_loss_scaling != 1`` or dynamic scaling) needs ops
-the port does not have yet (``isfinite``, ``where``, ``clip``, ...); asking
-for it raises ``NotImplementedError`` naming its ROADMAP item.  bf16 keeps
-float32's exponent range, so bf16 training does not need it.
+the port does not have yet (``isfinite``, ``where`` gating, the dynamic
+scale update); asking for it raises ``NotImplementedError`` naming its
+ROADMAP item.  bf16 keeps float32's exponent range, so bf16 training
+does not need it.
 """
 
 from .fp16_lists import AutoMixedPrecisionLists

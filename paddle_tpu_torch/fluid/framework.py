@@ -86,9 +86,11 @@ class Variable:
             self.name, self.shape, self.dtype,
             ", persistable" if self.persistable else "")
 
-    # operator sugar (reference layers/math_op_patch.py): `+`, `-`, `*`
-    # and `/`, with a float scalar on the Variable's right lowered to a
-    # `scale` op, as in the JAX package
+    # operator sugar (reference layers/math_op_patch.py; JAX
+    # framework.py:116-146): `+`, `-`, `*`, `/` and unary `-`.  A float
+    # scalar on a float Variable's right is a `scale` op; a scalar on the
+    # left (or beside an integer Variable) is filled into a tensor first
+    # (`fill_constant_batch_size_like`), as in the JAX package
     def _binary(self, other, op_type):
         from .layers import math_op_patch
         return math_op_patch.binary(self, other, op_type)
@@ -101,6 +103,10 @@ class Variable:
     def __sub__(self, other):
         return self._binary(other, "elementwise_sub")
 
+    def __rsub__(self, other):
+        from .layers import math_op_patch
+        return math_op_patch.binary(other, self, "elementwise_sub")
+
     def __mul__(self, other):
         return self._binary(other, "elementwise_mul")
 
@@ -108,6 +114,14 @@ class Variable:
 
     def __truediv__(self, other):
         return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        from .layers import math_op_patch
+        return math_op_patch.binary(other, self, "elementwise_div")
+
+    def __neg__(self):
+        from .layers import math_op_patch
+        return math_op_patch.scale(self, -1.0)
 
 
 class Parameter(Variable):

@@ -1,9 +1,14 @@
-"""Operator-overload support for Variables (reference: layers/math_op_patch.py).
+"""Operator-overload support for Variables (reference: layers/math_op_patch.py;
+counterpart paddle_tpu/fluid/layers/math_op_patch.py, whose branch order
+this copies so both packages emit the same ops).
 
-The slice ports ``+``, ``-``, ``*`` and ``/`` between two Variables
-(``elementwise_add``/``_sub``/``_mul``/``_div``, ``axis=-1``: Y aligns
-to X's trailing dims) and with a float scalar on the Variable's right,
-lowered to a ``scale`` op as in the JAX package."""
+``+``, ``-``, ``*`` and ``/`` between two Variables are
+``elementwise_add``/``_sub``/``_mul``/``_div`` with ``axis=-1`` (Y aligns
+to X's trailing dims).  A scalar on a float Variable's right is a
+``scale`` op; a scalar on the left, or beside an integer Variable, is
+filled into a tensor shaped like the Variable first
+(``fill_constant_batch_size_like``), so ``1.0 - v`` is a fill and an
+``elementwise_sub``."""
 
 from ..data_types import is_floating
 from ..framework import Variable
@@ -19,6 +24,19 @@ def scale(x, scale_val=1.0, bias=0.0):
     return out
 
 
+def _fill_like(ref, value):
+    """A tensor of ``value`` shaped like ``ref`` (math_op_patch.py:16)."""
+    helper = LayerHelper("fill")
+    out = helper.create_variable_for_type_inference(ref.dtype)
+    out.shape = ref.shape
+    helper.append_op("fill_constant_batch_size_like",
+                     inputs={"Input": [ref]}, outputs={"Out": [out]},
+                     attrs={"shape": [s if s and s > 0 else 1
+                                      for s in (ref.shape or (1,))],
+                            "value": float(value), "dtype": ref.dtype})
+    return out
+
+
 # (scale, bias) of ``x <op> y`` for a float scalar y (math_op_patch.py:36)
 _SCALAR = {
     "elementwise_add": lambda y: (1.0, y),
@@ -29,19 +47,19 @@ _SCALAR = {
 
 
 def binary(x, y, op_type):
-    if op_type not in _SCALAR:
-        raise NotImplementedError("%s between Variables is not ported"
-                                  % op_type)
+    # a scalar beside an integer Variable is filled (scale would cast it
+    # to the integer dtype)
+    if isinstance(y, (int, float)) and not (
+            isinstance(x, Variable) and is_floating(x.dtype)):
+        y = _fill_like(x, y)
     if isinstance(y, (int, float)):
-        if not is_floating(x.dtype):
-            raise NotImplementedError(
-                "a scalar with an integer Variable is not ported (the JAX "
-                "package fills a tensor for it, "
-                "fill_constant_batch_size_like)")
-        return scale(x, *_SCALAR[op_type](y))
-    if not isinstance(y, Variable):
-        raise TypeError("cannot apply %s to a Variable and %r"
-                        % (op_type, y))
+        if op_type in _SCALAR:
+            return scale(x, *_SCALAR[op_type](y))
+        y = _fill_like(x, y)
+    if isinstance(x, (int, float)):
+        x = _fill_like(y, x)
+    if not (isinstance(x, Variable) and isinstance(y, Variable)):
+        raise TypeError("cannot apply %s to %r and %r" % (op_type, x, y))
     helper = LayerHelper(op_type)
     out = helper.create_variable_for_type_inference(x.dtype)
     out.shape = x.shape if (x.shape and y.shape and

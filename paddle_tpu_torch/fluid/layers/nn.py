@@ -211,15 +211,6 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
     return helper.append_activation(out, act)
 
 
-def relu(x, name=None):
-    """Elementwise relu (operators/activation_op.cc; JAX layers/ops.py)."""
-    helper = LayerHelper("relu", name=name)
-    out = helper.create_variable_for_type_inference(x.dtype)
-    out.shape = x.shape
-    helper.append_op("relu", inputs={"X": [x]}, outputs={"Out": [out]})
-    return out
-
-
 def topk(input, k, name=None):
     """(values, int64 indices) of the k largest entries of the last axis
     (JAX nn.py:692)."""
@@ -301,6 +292,43 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None, normalize=False):
+    """Elementwise logistic loss of logits x against float labels (JAX
+    nn.py:340)."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out
+
+
+def clip(x, min, max, name=None):
+    """x clipped to [min, max] (JAX nn.py:729)."""
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """x scaled to L2 norm ``max_norm`` where its norm is larger (JAX
+    nn.py:738)."""
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
 
 
 def mean(x, name=None):
@@ -446,6 +474,10 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
 
 
 def elementwise_min(x, y, axis=-1, act=None, name=None):

@@ -1,6 +1,8 @@
-"""Tensor layers (reference: python/paddle/fluid/layers/tensor.py):
-``assign``, which BERT's causal composition path and the Transformer's
-positional table call, ``create_parameter`` and ``fill_constant``."""
+"""Tensor layers (reference: python/paddle/fluid/layers/tensor.py;
+counterpart paddle_tpu/fluid/layers/tensor.py): ``assign``, which BERT's
+causal composition path and the Transformer's positional table call,
+``create_parameter``, ``fill_constant``, and ``cast``, ``concat`` and
+``sums`` (DeepFM and the global-norm clip)."""
 
 import numpy as np
 
@@ -50,4 +52,41 @@ def fill_constant(shape, dtype, value, out=None, name=None):
                      attrs={"shape": list(shape),
                             "dtype": canonical_dtype(dtype),
                             "value": float(value)})
+    return out
+
+
+def cast(x, dtype):
+    """x in ``dtype`` (JAX tensor.py:53)."""
+    helper = LayerHelper("cast")
+    dtype = canonical_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = x.shape
+    helper.append_op("cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """The ``input`` list joined along ``axis`` (JAX tensor.py:63)."""
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    shapes = [v.shape for v in input]
+    if all(s is not None for s in shapes):
+        shape = list(shapes[0])
+        ax = axis % len(shape)
+        if all(s[ax] is not None and s[ax] >= 0 for s in shapes):
+            shape[ax] = sum(s[ax] for s in shapes)
+        out.shape = tuple(shape)
+    helper.append_op("concat", inputs={"X": input}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def sums(input, out=None):
+    """The sum of the ``input`` list, one ``sum`` op (JAX tensor.py:98)."""
+    helper = LayerHelper("sums")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    out.shape = input[0].shape
+    helper.append_op("sum", inputs={"X": input}, outputs={"Out": [out]})
     return out

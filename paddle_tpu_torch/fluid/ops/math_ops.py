@@ -37,13 +37,15 @@ def _binary(fn):
 
 
 # the elementwise types of JAX's table (math_ops.py:42) that the ported
-# models and learning-rate schedules use; torch's type promotion (bf16
-# with float32 gives float32) and true division are jnp's
+# models, learning-rate schedules and clips use; torch's type promotion
+# (bf16 with float32 gives float32) and true division are jnp's, and
+# torch.maximum/minimum, like jnp's, split the gradient evenly at a tie
 for _name, _fn in [
     ("elementwise_add", torch.add),
     ("elementwise_sub", torch.sub),
     ("elementwise_mul", torch.mul),
     ("elementwise_div", torch.div),
+    ("elementwise_max", torch.maximum),
     ("elementwise_min", torch.minimum),
     ("elementwise_pow", torch.pow),
 ]:
@@ -129,14 +131,77 @@ def _gelu(ctx, op):
                           approximate="tanh" if approx else "none"))
 
 
-# activations of JAX's table (math_ops.py:172) that the ported models use
+def _softplus(x):
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus switches to x past
+    # a threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# JAX's whole unary table (math_ops.py:172), one torch function each
 for _name, _fn in [
-    ("tanh", torch.tanh),
     ("relu", torch.relu),
+    ("sigmoid", torch.sigmoid),
+    ("tanh", torch.tanh),
+    ("exp", torch.exp),
+    ("log", torch.log),
+    ("sqrt", torch.sqrt),
+    ("rsqrt", torch.rsqrt),
+    ("square", torch.square),
+    ("abs", torch.abs),
+    ("floor", torch.floor),
+    ("ceil", torch.ceil),
+    ("round", torch.round),           # half to even, as jnp.round
+    ("reciprocal", torch.reciprocal),
+    ("sin", torch.sin),
+    ("cos", torch.cos),
+    ("softsign", F.softsign),
+    ("softplus", _softplus),
     ("sign", torch.sign),
+    ("erf", torch.erf),
+    ("logsigmoid", F.logsigmoid),
+    ("acos", torch.acos),
+    ("asin", torch.asin),
+    ("atan", torch.atan),
 ]:
     register_op(_name)(
         lambda ctx, op, _fn=_fn: ctx.set("Out", _fn(ctx.i("X"))))
+
+
+def _scalar(v, like):
+    """A Python number as a 0-d host tensor of ``like``'s dtype: it acts
+    as a scalar on any device, and rounds as ``jnp.asarray(v, dtype)``
+    (or a weakly typed Python float) does in the JAX rules."""
+    return torch.tensor(v, dtype=like.dtype)
+
+
+@register_op("clip")
+def _clip(ctx, op):
+    """math_ops.py:248, ``jnp.clip``: ``minimum(maximum(x, min), max)``.
+    The composition keeps jnp's gradient at a bound (half on each side of
+    a tie), where ``torch.clamp`` passes all of it."""
+    x = ctx.i("X")
+    out = torch.maximum(x, _scalar(ctx.attr("min"), x))
+    ctx.set("Out", torch.minimum(out, _scalar(ctx.attr("max"), x)))
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, op):
+    """math_ops.py:254: ``x · max_norm / ‖x‖`` where ``‖x‖ > max_norm``,
+    else x, the norm floored at 1e-12 in the division."""
+    x = ctx.i("X")
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    # the 0-d max_norm divides (a Python float on the left would be
+    # torch's reciprocal-then-multiply, not jnp's division)
+    scale = torch.where(norm > max_norm, _scalar(max_norm, norm) /
+                        torch.maximum(norm, _scalar(1e-12, norm)), 1.0)
+    ctx.set("Out", x * scale.to(x.dtype))
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, op):
+    """math_ops.py:295: ``sum(x²)`` as a 1-element tensor."""
+    ctx.set("Out", torch.sum(torch.square(ctx.i("X"))).reshape((1,)))
 
 
 @register_op("sum")

@@ -1,6 +1,7 @@
 """NN op lowerings of the slice (counterpart ``paddle_tpu/fluid/ops/
 nn_ops.py``): conv2d / depthwise_conv2d, pool2d, batch_norm, layer_norm,
-dropout, softmax_with_cross_entropy and accuracy.
+dropout, softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits
+and accuracy.
 
 Every conv route but K1's stays a library convolution (``F.conv2d``,
 cuDNN on the card), as the JAX package leaves its convs to XLA; K1 is
@@ -248,6 +249,29 @@ def _softmax_with_cross_entropy(ctx, op):
             loss = loss.masked_fill((lab == ignore_index).unsqueeze(-1),
                                     0.0)
     ctx.set("Loss", loss.to(logits.dtype))
+
+
+@register_op("sigmoid_cross_entropy_with_logits", nondiff_inputs=("Label",))
+def _sigmoid_cross_entropy_with_logits(ctx, op):
+    """nn_ops.py:379, the same stable form
+    ``max(x, 0) − x·z + log1p(exp(−|x|))`` (not
+    ``F.binary_cross_entropy_with_logits``, whose backward rounds
+    differently and splits the subgradient at x = 0 otherwise:
+    ``torch.maximum``, like ``jnp.maximum``, sends half to each side of
+    the tie).  Entries whose label is ``ignore_index`` (when it is not
+    -100) give 0; ``normalize`` divides by the count of the others."""
+    x = ctx.i("X")
+    label = ctx.i("Label").to(x.dtype)
+    loss = torch.maximum(x, torch.zeros((), dtype=x.dtype)) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    ignore_index = ctx.attr("ignore_index", -100)
+    if ignore_index != -100:
+        loss = torch.where(label == ignore_index, torch.zeros_like(loss),
+                           loss)
+    if ctx.attr("normalize", False):
+        n = torch.sum((label != ignore_index).to(x.dtype))
+        loss = loss / torch.clamp_min(n, 1.0)
+    ctx.set("Out", loss)
 
 
 @register_op("accuracy", stop_gradient=True)

@@ -1,5 +1,15 @@
 """Optimizer op lowerings (counterpart ``paddle_tpu/fluid/ops/
-optimizer_ops.py``): ``sgd``, ``momentum`` and ``adam``.
+optimizer_ops.py``): ``sgd``, ``momentum``, ``lars_momentum``, ``adam``,
+``adamax``, ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``,
+``ftrl`` and ``lamb``.
+
+Each rule is the JAX rule's arithmetic in the same order.  The JAX rules
+round every attribute to the parameter's dtype first
+(``jnp.asarray(beta, p.dtype)``) and take ``1 − b`` in that dtype;
+:func:`_f32` does the same here, and a Python float that holds a
+float32 value multiplies a float32 tensor exactly as that float32 does.
+A Python number is never divided by a tensor (torch computes
+``c / t`` as ``reciprocal(t) · c``).
 
 Each op reads Param/Grad/state and writes its ``*Out`` slots under the
 same names; the executor writes them back to the scope.  The update is
@@ -13,6 +23,24 @@ import numpy as np
 import torch
 
 from ..registry import register_op
+
+
+def _f32(ctx, name, default):
+    """The attribute rounded to float32, as a Python float."""
+    return float(np.float32(ctx.attr(name, default)))
+
+
+def _one_minus(b):
+    """``1 − b`` in float32 (``b`` already rounded), as a Python float."""
+    return float(np.float32(1) - np.float32(b))
+
+
+def _lr(ctx, p):
+    return ctx.i("LearningRate").reshape(()).to(p.dtype)
+
+
+def _norm(t):
+    return torch.sqrt(torch.sum(torch.square(t)))
 
 
 @register_op("sgd", stop_gradient=True)
@@ -66,3 +94,181 @@ def _adam(ctx, op):
     ctx.set("ParamOut", p - lr_t * m1n / (torch.sqrt(m2n) + eps))
     ctx.set("Moment1Out", m1n)
     ctx.set("Moment2Out", m2n)
+
+
+@register_op("lars_momentum", stop_gradient=True)
+def _lars_momentum(ctx, op):
+    """optimizer_ops.py:40: the local rate ``lr·coeff·‖p‖ / (‖g‖ + wd·‖p‖
+    + 1e-12)`` where both norms are positive (else lr),
+    ``v = mu·v + local_lr·(g + wd·p)``, ``p − v``.  ``lars_coeff`` and
+    ``lars_weight_decay`` enter as weakly typed Python floats there,
+    which rounds them to float32 too."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = _lr(ctx, p)
+    mu = _f32(ctx, "mu", 0.9)
+    coeff = _f32(ctx, "lars_coeff", 0.001)
+    wd = _f32(ctx, "lars_weight_decay", 0.0005)
+    p_norm, g_norm = _norm(p), _norm(g)
+    local_lr = torch.where(
+        (p_norm > 0) & (g_norm > 0),
+        lr * coeff * p_norm / (g_norm + wd * p_norm + 1e-12), lr)
+    v_new = mu * ctx.i("Velocity") + local_lr * (g + wd * p)
+    ctx.set("ParamOut", p - v_new)
+    ctx.set("VelocityOut", v_new)
+
+
+@register_op("adamax", stop_gradient=True)
+def _adamax(ctx, op):
+    """optimizer_ops.py:80: ``m = b1·m + (1−b1)·g``,
+    ``u = max(b2·u, |g| + eps)``, ``p − lr/(1−β1^t)·m/u``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    b1p = ctx.i("Beta1Pow").reshape(()).to(p.dtype)
+    lr = _lr(ctx, p)
+    b1 = _f32(ctx, "beta1", 0.9)
+    b2 = _f32(ctx, "beta2", 0.999)
+    eps = _f32(ctx, "epsilon", 1e-8)
+    m_new = b1 * ctx.i("Moment") + _one_minus(b1) * g
+    inf_new = torch.maximum(b2 * ctx.i("InfNorm"), torch.abs(g) + eps)
+    lr_t = lr / (1 - b1p)
+    ctx.set("ParamOut", p - lr_t * m_new / inf_new)
+    ctx.set("MomentOut", m_new)
+    ctx.set("InfNormOut", inf_new)
+
+
+@register_op("adagrad", stop_gradient=True)
+def _adagrad(ctx, op):
+    """optimizer_ops.py:99: ``M = M + g²``, ``p − lr·g/(sqrt(M) + eps)``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = _lr(ctx, p)
+    eps = _f32(ctx, "epsilon", 1e-6)
+    mom_new = ctx.i("Moment") + torch.square(g)
+    ctx.set("ParamOut", p - lr * g / (torch.sqrt(mom_new) + eps))
+    ctx.set("MomentOut", mom_new)
+
+
+@register_op("decayed_adagrad", stop_gradient=True)
+def _decayed_adagrad(ctx, op):
+    """optimizer_ops.py:111: ``M = d·M + (1−d)·g²``,
+    ``p − lr·g/(sqrt(M) + eps)``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = _lr(ctx, p)
+    decay = _f32(ctx, "decay", 0.95)
+    eps = _f32(ctx, "epsilon", 1e-6)
+    mom_new = decay * ctx.i("Moment") + _one_minus(decay) * torch.square(g)
+    ctx.set("ParamOut", p - lr * g / (torch.sqrt(mom_new) + eps))
+    ctx.set("MomentOut", mom_new)
+
+
+@register_op("adadelta", stop_gradient=True)
+def _adadelta(ctx, op):
+    """optimizer_ops.py:124: ``E[g²] = rho·E[g²] + (1−rho)·g²``,
+    ``Δ = −sqrt((E[Δ²] + eps)/(E[g²] + eps))·g``,
+    ``E[Δ²] = rho·E[Δ²] + (1−rho)·Δ²``, ``p + Δ`` (no learning rate)."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    asu = ctx.i("AvgSquaredUpdate")
+    rho = _f32(ctx, "rho", 0.95)
+    eps = _f32(ctx, "epsilon", 1e-6)
+    asg_new = rho * ctx.i("AvgSquaredGrad") + _one_minus(rho) * \
+        torch.square(g)
+    update = -torch.sqrt((asu + eps) / (asg_new + eps)) * g
+    asu_new = rho * asu + _one_minus(rho) * torch.square(update)
+    ctx.set("ParamOut", p + update)
+    ctx.set("AvgSquaredGradOut", asg_new)
+    ctx.set("AvgSquaredUpdateOut", asu_new)
+
+
+@register_op("rmsprop", stop_gradient=True)
+def _rmsprop(ctx, op):
+    """optimizer_ops.py:140: ``E[g²] = rho·E[g²] + (1−rho)·g²``; centered,
+    also ``E[g] = rho·E[g] + (1−rho)·g`` and the denominator
+    ``E[g²] − E[g]² + eps``, else ``E[g²] + eps``;
+    ``v = momentum·v + lr·g·rsqrt(denominator)``, ``p − v``.  MeanGrad is
+    written only when centered."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = _lr(ctx, p)
+    rho = _f32(ctx, "decay", 0.95)
+    eps = _f32(ctx, "epsilon", 1e-6)
+    momentum = _f32(ctx, "momentum", 0.0)
+    ms_new = rho * ctx.i("MeanSquare") + _one_minus(rho) * torch.square(g)
+    if ctx.attr("centered", False):
+        mg_new = rho * ctx.i("MeanGrad") + _one_minus(rho) * g
+        denom = ms_new - torch.square(mg_new) + eps
+        ctx.set("MeanGradOut", mg_new)
+    else:
+        denom = ms_new + eps
+    mom_new = momentum * ctx.i("Moment") + lr * g * torch.rsqrt(denom)
+    ctx.set("ParamOut", p - mom_new)
+    ctx.set("MeanSquareOut", ms_new)
+    ctx.set("MomentOut", mom_new)
+
+
+@register_op("ftrl", stop_gradient=True)
+def _ftrl(ctx, op):
+    """optimizer_ops.py:165: ``n' = n + g²``,
+    ``z' = z + g − (n'^−k − n^−k)/lr·p`` (k = lr_power),
+    ``p = (l1·sign(z') − z') / (n'^−k/lr + 2·l2)`` where ``|z'| > l1``,
+    else 0.  The accumulator starts at 0, so the first step reads
+    ``0^0.5`` = 0 at the default k = −0.5."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    sq = ctx.i("SquaredAccumulator")
+    lr = _lr(ctx, p)
+    l1 = torch.tensor(_f32(ctx, "l1", 0.0), dtype=p.dtype)
+    l2 = torch.tensor(_f32(ctx, "l2", 0.0), dtype=p.dtype)
+    k = -_f32(ctx, "lr_power", -0.5)
+    new_accum = sq + torch.square(g)
+    lin_new = (ctx.i("LinearAccumulator") + g -
+               (torch.pow(new_accum, k) - torch.pow(sq, k)) / lr * p)
+    x = l1 * torch.sign(lin_new) - lin_new
+    y = torch.pow(new_accum, k) / lr + 2 * l2
+    ctx.set("ParamOut", torch.where(torch.abs(lin_new) > l1, x / y,
+                                    torch.zeros_like(p)))
+    ctx.set("SquaredAccumOut", new_accum)
+    ctx.set("LinearAccumOut", lin_new)
+
+
+@register_op("lamb", stop_gradient=True)
+def _lamb(ctx, op):
+    """optimizer_ops.py:187: Adam's moments, ``r = m̂/(sqrt(v̂) + eps) +
+    wd·p``, the trust ratio ``‖p‖ / max(‖r‖, 1e-12)`` where both norms
+    are positive (else 1), ``p − lr·ratio·r``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    b1p = ctx.i("Beta1Pow").reshape(()).to(p.dtype)
+    b2p = ctx.i("Beta2Pow").reshape(()).to(p.dtype)
+    lr = _lr(ctx, p)
+    b1 = _f32(ctx, "beta1", 0.9)
+    b2 = _f32(ctx, "beta2", 0.999)
+    eps = _f32(ctx, "epsilon", 1e-6)
+    wd = _f32(ctx, "weight_decay", 0.01)
+    m1n = b1 * ctx.i("Moment1") + _one_minus(b1) * g
+    m2n = b2 * ctx.i("Moment2") + _one_minus(b2) * torch.square(g)
+    m1_hat = m1n / (1 - b1p)
+    m2_hat = m2n / (1 - b2p)
+    r = m1_hat / (torch.sqrt(m2_hat) + eps) + wd * p
+    p_norm, r_norm = _norm(p), _norm(r)
+    ratio = torch.where(
+        (p_norm > 0) & (r_norm > 0),
+        p_norm / torch.maximum(r_norm, torch.tensor(1e-12, dtype=p.dtype)),
+        1.0)
+    ctx.set("ParamOut", p - lr * ratio * r)
+    ctx.set("Moment1Out", m1n)
+    ctx.set("Moment2Out", m2n)
+
+
+def _proximal_not_ported(ctx, op):
+    raise NotImplementedError(
+        "%s is not ported yet (ROADMAP.md, port queue 1: 'the proximal "
+        "optimizers')" % op.type)
+
+
+# JAX optimizer_ops.py:288-310; no optimizer class of either package
+# appends them
+register_op("proximal_gd", stop_gradient=True)(_proximal_not_ported)
+register_op("proximal_adagrad", stop_gradient=True)(_proximal_not_ported)

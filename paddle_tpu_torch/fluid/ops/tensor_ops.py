@@ -21,6 +21,35 @@ def _fill_constant(ctx, op):
                               device=ctx.state.device))
 
 
+@register_op("fill_constant_batch_size_like", nondiff_inputs=("Input",))
+def _fill_constant_batch_size_like(ctx, op):
+    """tensor_ops.py:25: ``shape`` with its ``output_dim_idx`` entry taken
+    from Input's ``input_dim_idx`` dim, filled with ``value`` (the fill
+    behind a scalar on the left of a Variable operator)."""
+    ref = ctx.i("Input")
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ref.shape[ctx.attr("input_dim_idx", 0)]
+    dtype = torch_dtype(ctx.attr("dtype", "float32"))
+    ctx.set("Out", torch.full(tuple(shape), ctx.attr("value", 0.0),
+                              dtype=dtype, device=ref.device))
+
+
+@register_op("cast")
+def _cast(ctx, op):
+    """tensor_ops.py:54: X in ``out_dtype``.  A float-to-float cast passes
+    its gradient through (autograd's ``to``); an integer input gets none
+    (the tape differentiates float inputs only)."""
+    ctx.set("Out", ctx.i("X").to(torch_dtype(ctx.attr("out_dtype"))))
+
+
+@register_op("concat")
+def _concat(ctx, op):
+    """tensor_ops.py:133: the X list joined along ``axis``."""
+    xs = [ctx.env[n] for n in op.input("X")]
+    ctx.set("Out", torch.cat(xs, dim=ctx.attr("axis", 0)))
+
+
 @register_op("assign")
 def _assign(ctx, op):
     ctx.set("Out", ctx.i("X"))

@@ -1,6 +1,7 @@
 """paddle_tpu_torch.models — model program builders ported so far."""
 
 from . import bert  # noqa: F401
+from . import deepfm  # noqa: F401
 from . import lenet  # noqa: F401
 from . import resnet  # noqa: F401
 from . import transformer  # noqa: F401

@@ -269,10 +269,30 @@ def test_noam_decay_ops_carry_the_lr_schedule_role():
 
 
 def test_other_schedules_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fluid.layers.exponential_decay(0.1, 100, 0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fluid.layers.cosine_decay(0.1, 100, 10)
+    """The two schedules this test once saw raise now build the
+    reference's ops (exponential_decay: the counter, scale, the
+    rate's fill, elementwise_pow, scale; cosine_decay: floor and cos),
+    all LRSched, and give its rate run by run (every schedule:
+    tests/test_torch_optimizers.py)."""
+    for build in (lambda L: L.exponential_decay(0.1, 100, 0.9),
+                  lambda L: L.cosine_decay(0.1, 100, 10)):
+        progs, rates = {}, {}
+        for key, pkg in (("jax", jfluid), ("port", fluid)):
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.program_guard(main, startup), pkg.unique_name.guard():
+                lr = build(pkg.layers)
+            scope = pkg.Scope()
+            exe = pkg.Executor(pkg.CPUPlace())
+            exe.run(startup, scope=scope)
+            rates[key] = [float(np.asarray(exe.run(
+                main, fetch_list=[lr], scope=scope)[0]).reshape(-1)[0])
+                for _ in range(3)]
+            progs[key] = main
+        ops = progs["port"].global_block().ops
+        assert [(o.type, o.attrs) for o in ops] == \
+            [(o.type, o.attrs) for o in progs["jax"].global_block().ops]
+        assert all(o.attr("op_role") == OpRole.LRSched for o in ops)
+        np.testing.assert_allclose(rates["port"], rates["jax"], rtol=1e-6)
 
 
 def test_grad_ops_of_the_new_types_pop_their_tape_entries(monkeypatch):

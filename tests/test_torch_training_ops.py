@@ -250,9 +250,10 @@ def test_a_variable_in_two_slots_gets_its_gradient_once():
 
 
 def test_unported_optimizer_options_raise_naming_the_roadmap():
-    """Regularizers and layers.noam_decay are ported (the other
-    schedules raise); a dygraph schedule (a callable learning rate),
-    per-parameter learning rates and gradient clipping still raise."""
+    """Per-parameter learning rates and gradient clipping train now
+    (tests/test_torch_optimizers.py); a dygraph schedule (a callable
+    learning rate), AMP loss scaling and the wrapper optimizers such as
+    ModelAverage still raise, naming their ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fluid.optimizer.AdamOptimizer(learning_rate=lambda: 0.1)
     main, startup = fluid.Program(), fluid.Program()
@@ -260,14 +261,10 @@ def test_unported_optimizer_options_raise_naming_the_roadmap():
         x = fluid.layers.data("x", [8])
         loss = fluid.layers.mean(fluid.layers.fc(
             x, 2, param_attr=fluid.ParamAttr(learning_rate=0.5)))
+        opt = fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.AdamOptimizer(), init_loss_scaling=128.0)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fluid.optimizer.AdamOptimizer().minimize(loss)
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        x = fluid.layers.data("x", [8])
-        loss = fluid.layers.mean(fluid.layers.fc(
-            x, 2, param_attr=fluid.ParamAttr(gradient_clip=object())))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fluid.optimizer.AdamOptimizer(
-                regularization=fluid.regularizer.L2Decay(1e-4)).minimize(
-                    loss)
+            opt.minimize(loss)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fluid.optimizer.ModelAverage(0.15, min_average_window=10,
+                                     max_average_window=20)
