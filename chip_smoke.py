@@ -123,8 +123,40 @@ non-zero exit (nothing is caught):
    and a per-parameter rate of 0.5 on fm_emb, and SGD on each of the
    seven schedules, whose fetched rate must equal its closed form
    within 1e-6.
-20. kernels: one JSON line listing every ported kernel, with its
-   launches on every main path (0 on DeepFM's).
+20. lookup_grad: the lookup_table rule's table gradient (torch's
+   embedding backward under its deterministic algorithms) against
+   torch's default one, at BERT-base's three tables (batch 32) and
+   DeepFM's two (batch 4096): wall ms per call, distinct results over
+   5 calls (the rule's must be 1), agreement within 1e-4 of the
+   gradient's largest entry.
+21. ckpt_resume: BERT-base pretraining as phase 9 builds it (batch 32,
+   fp32, Adam 1e-4, hidden dropout 0.1), one batch per step.  Run A: 6
+   steps, twice.  Run B: 3 steps, an async CheckpointManager.save() (~1.3
+   GB: parameters and both Adam moments), a 4th step with the write in
+   flight, a second save killed mid-write by a fault hook (a torn
+   .tmp-* directory), a fresh Scope and Executor with the program
+   rebuilt, resume() (which must pick the complete checkpoint), steps
+   4-6: losses at steps 4-6 and every persistable after step 6 equal to
+   run A's bit for bit (twice the A runs' spread if those differ); 12
+   K2, K3, K4 a step; the checkpoint's bytes, the snapshot's ms, the
+   async write's seconds, the step's ms with the write in flight and
+   without, the restore's seconds.
+22. export_serve: phase 8's BERT-base serving program exported with
+   save_inference_model once per file and once with params_filename;
+   ServingExecutor.from_inference_model(dir, max_batch=8) serves phase
+   8's 24-request burst from each: rows bit-equal to the live
+   ServingExecutor's, the same batches, 0 recompiles after warmup(), 12
+   K2 a batch; the export and load seconds.
+23. predictor_resnet: ResNet-50 inference (bench_resnet's model,
+   is_test, fp32, 224 x 224, batch 32) with batch-norm statistics from a
+   seeded calibration batch, exported and run by create_paddle_predictor(Config(
+   dir)) on the card with the default passes (53 batch_norm folded; rtol
+   1e-3 / atol 1e-4 of Executor.run of the unexported program) and with
+   switch_ir_optim(False) (1e-4 / 1e-5); export and load seconds, ms per
+   batch.
+24. kernels: one JSON line listing every ported kernel, with its
+   launches on every main path (0 on DeepFM's and ResNet-50
+   inference's).
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.
@@ -133,6 +165,8 @@ no result, where torch.cuda.is_available() is false.
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2614,6 +2648,443 @@ def phase_deepfm_optimizers():
     _fail_unless("deepfm_optimizers", checks)
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints, model export and the inference predictor
+# ---------------------------------------------------------------------------
+
+# every file these phases write lives here, inside the checkout (build/ is
+# gitignored), and is removed when the phase ends
+IO_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_io"
+CKPT_STEPS = 6                # run A; run B: 3, save, resume, 3
+PRED_BATCH = 32               # predictor_resnet: ResNet-50 at 224 x 224
+PRED_FUSED_TOL = dict(rtol=1e-3, atol=1e-4)   # conv-bn folded vs executor
+PRED_PLAIN_TOL = dict(rtol=1e-4, atol=1e-5)   # no passes vs executor
+
+
+class _Killed(BaseException):
+    """A kill at a checkpoint write boundary (fault hook)."""
+
+
+def _io_dir(name):
+    d = IO_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _dir_bytes(d):
+    return sum(p.stat().st_size for p in Path(d).rglob("*") if p.is_file())
+
+
+def _ckpt_run(cfg, feeds, start=0, stop=None, scope=None):
+    """Build BERT-base pretraining as phase_train does; with no scope, a
+    fresh one from the startup program.  Runs feeds[start:stop]; returns
+    (main, scope, exe, losses as tensors, ms per step)."""
+    main, startup, out = _build_pretrain(cfg)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    if scope is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in feeds[start:stop]:
+        losses.append(exe.run(main, feed=f, fetch_list=[out["loss"]],
+                              scope=scope, return_numpy=False)[0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(1, len(losses))
+    return main, scope, exe, out, losses, ms
+
+
+def _persistables(main, scope):
+    return {v.name: scope.find_var(v.name) for v in main.list_vars()
+            if v.persistable}
+
+
+def _spread(a, b):
+    """{name: max |a - b|} over the tensors of two states that differ."""
+    out = {}
+    for n, t in a.items():
+        d = float((t.double() - b[n].double()).abs().max())
+        if d:
+            out[n] = d
+    return out
+
+
+def phase_lookup_grad(repeats=5):
+    """What the lookup_table rule's table gradient costs: the rule takes
+    ``embedding_dense_backward`` under torch's deterministic algorithms
+    (``tensor_ops.LookupFunction``, which makes ckpt_resume's runs
+    bit-equal), torch's default takes it without.  Both at each table of
+    BERT-base pretraining (batch 32) and of DeepFM (batch 4096), on the
+    ids of those paths: wall ms per call over 50 calls, the device
+    drained before and after, and how many distinct results ``repeats``
+    calls give.  The deterministic one must give one, and agree with the
+    default one within 1e-4 of the gradient's largest entry."""
+    from paddle_tpu_torch.fluid.ops.tensor_ops import _deterministic
+    cfg = bert.base_config()
+    bf = _train_feed(cfg, BT, SEED)
+    dcfg = _dfm_config()
+    sparse = _dfm_feeds(dcfg, DFM_BATCH, 1)[0]["sparse_ids"]
+    H = cfg.hidden_size
+    tables = {"bert_word": (cfg.vocab_size, H, bf["src_ids"]),
+              "bert_position": (cfg.max_position, H, bf["pos_ids"]),
+              "bert_sentence": (cfg.type_vocab_size, H, bf["sent_ids"]),
+              "deepfm_fm_emb": (dcfg.sparse_feature_dim,
+                                dcfg.embedding_size, sparse),
+              "deepfm_fm_w1": (dcfg.sparse_feature_dim, 1, sparse)}
+    rng = torch.Generator(device="cuda").manual_seed(SEED)
+    out, ok = {}, True
+    for name, (rows, width, ids) in tables.items():
+        ids = torch.from_numpy(ids.reshape(-1)).cuda()
+        g = torch.randn(ids.numel(), width, device="cuda", generator=rng)
+
+        def plain():
+            return torch.ops.aten.embedding_dense_backward(
+                g, ids, rows, -1, False)
+
+        def fixed():
+            with _deterministic():
+                return plain()
+        res = {}
+        for label, fn in (("default", plain), ("deterministic", fixed)):
+            got = [fn() for _ in range(repeats)]
+            res[label] = dict(
+                ms=_wall_ms(fn, n=50),
+                distinct=len({t.cpu().numpy().tobytes() for t in got}),
+                first=got[0])
+        scale = float(res["default"]["first"].abs().max())
+        err = float((res["deterministic"]["first"] -
+                     res["default"]["first"]).abs().max())
+        ok = ok and res["deterministic"]["distinct"] == 1 and \
+            err <= 1e-4 * scale
+        out[name] = dict(rows=rows, width=width, ids=ids.numel(),
+                         max_abs_err=err, grad_max_abs=scale,
+                         **{"%s_%s" % (label, k): r[k]
+                            for label, r in res.items()
+                            for k in ("ms", "distinct")})
+        del res, g
+    emit(phase="lookup_grad", repeats=repeats, tables=out)
+    _fail_unless("lookup_grad", {"deterministic_repeats_and_agrees": ok})
+
+
+def phase_ckpt_resume():
+    """Checkpoint and resume BERT-base pretraining exactly as phase_train
+    builds it (batch 32, fp32, Adam 1e-4, hidden dropout 0.1, attention
+    dropout 0; one synthetic batch per step).  Run A: 6 steps, twice,
+    from the startup program.  Run B: 3 steps; an async
+    CheckpointManager.save(); a 4th step while its write is in flight; a
+    second save killed at its first tensor file's midpoint, which leaves
+    a torn .tmp-* directory; a fresh Scope and Executor with the program
+    rebuilt; resume(), which must pick the complete checkpoint and skip
+    the torn one; steps 4-6.  Dropout seeds come from the step counter,
+    which the checkpoint restores, so run B's losses at steps 4-6 and
+    every persistable after step 6 must equal run A's bit for bit (or,
+    if the two A runs differ, lie within twice their largest difference
+    over the model; the tensors whose first update already differs name
+    the non-deterministic gradients); 12 K2, K3 and K4 a step, no K5."""
+    cfg = bert.base_config(attn_dropout=0.0)
+    feeds = [{k: torch.from_numpy(v).cuda() for k, v in
+              _train_feed(cfg, BT, SEED + i).items()}
+             for i in range(CKPT_STEPS)]
+    d = _io_dir("ckpt_resume")
+    torch.cuda.reset_peak_memory_stats()
+    # the path's run: counts go to 0 here and are read after run B
+    _reset_launches()
+    runs_a = []
+    for _ in range(2):
+        main_a, scope_a, _, _, loss_a, _ = _ckpt_run(cfg, feeds, 0, 1)
+        step1 = {n: t.clone() for n, t in
+                 _persistables(main_a, scope_a).items()}
+        more = _ckpt_run(cfg, feeds, 1, None, scope=scope_a)
+        ms_a = more[5]          # steps 2-6
+        runs_a.append((_persistables(main_a, scope_a), step1,
+                       loss_a + more[4]))
+    (state_a, step1_a, loss_a), (state_a2, step1_a2, loss_a2) = runs_a
+    # the tensors whose first update already differs between two runs
+    # from the same state name the non-deterministic gradients
+    step1_spread = _spread(step1_a, step1_a2)
+    spread = _spread(state_a, state_a2)
+    loss_spread = max(abs(float(x) - float(y))
+                      for x, y in zip(loss_a, loss_a2))
+    del runs_a, state_a2, step1_a, step1_a2
+
+    half = CKPT_STEPS // 2
+    main_b, scope_b, exe_b, out_b, loss_b1, ms_plain = _ckpt_run(
+        cfg, feeds, 0, half)
+    mgr = fluid.CheckpointManager(str(d), async_save=True,
+                                  main_program=main_b)
+    t0 = time.perf_counter()
+    path = mgr.save(scope=scope_b)
+    save_return_ms = (time.perf_counter() - t0) * 1e3
+    snapshot_ms = mgr.last_snapshot_ms
+    t1 = time.perf_counter()
+    extra = exe_b.run(main_b, feed=feeds[half], fetch_list=[out_b["loss"]],
+                      scope=scope_b, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    ms_in_flight = (time.perf_counter() - t1) * 1e3
+    write_in_flight = mgr._thread is not None and mgr._thread.is_alive()
+    t2 = time.perf_counter()
+    mgr.wait()
+    wait_s = time.perf_counter() - t2
+    ckpt_bytes = _dir_bytes(path)
+    write_s, serialized = mgr.last_save_s, mgr.last_bytes
+
+    def kill(point):
+        if point.startswith("tensor:") and point.endswith("_mid"):
+            raise _Killed(point)
+    prev = fluid.checkpoint.set_fault_hook(kill)
+    try:
+        mgr.save(scope=scope_b, sync=True)
+        killed = False
+    except _Killed:
+        killed = True
+    finally:
+        fluid.checkpoint.set_fault_hook(prev)
+    torn = sorted(p.name for p in d.iterdir() if ".tmp-" in p.name)
+    del scope_b, exe_b, mgr
+
+    main_r, _, _ = _build_pretrain(cfg)
+    scope_r = fluid.Scope()
+    mgr_r = fluid.CheckpointManager(str(d), main_program=main_r)
+    t3 = time.perf_counter()
+    meta = mgr_r.resume(scope=scope_r)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t3
+    _, scope_r, _, _, loss_b2, _ = _ckpt_run(cfg, feeds, half, None,
+                                             scope=scope_r)
+    launches = _launches()
+    steps = 2 * CKPT_STEPS + CKPT_STEPS + 1
+    state_b = _persistables(main_r, scope_r)
+    diff = _spread(state_a, state_b)
+    loss_diff = [abs(float(x) - float(y))
+                 for x, y in zip(loss_a[half:], loss_b2)]
+    # which tensor of the model holds the largest rounding difference is
+    # chance, so the bound is the whole model's: twice the largest
+    # difference between the two A runs (0: bit-equality)
+    bound = 2 * max(spread.values(), default=0.0)
+    b_max = max(diff.values(), default=0.0)
+
+    def top(d, k=8):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])
+    emit(phase="ckpt_resume", steps_a=CKPT_STEPS, losses_a=[
+        float(x) for x in loss_a], losses_b=[float(x) for x in loss_b1] +
+        [float(x) for x in loss_b2], loss_step4_while_saving=float(extra),
+        checkpoint_bytes=ckpt_bytes, tensors=len(state_b),
+        serialized_bytes=serialized, snapshot_ms=snapshot_ms,
+        save_return_ms=save_return_ms, async_write_s=write_s,
+        wait_after_step_s=wait_s, step_ms_without_save=ms_plain,
+        step_ms_run_a=ms_a, step_ms_save_in_flight=ms_in_flight,
+        write_in_flight_after_step=write_in_flight, restore_s=restore_s,
+        resumed=os.path.basename(meta["path"]), torn=torn,
+        a_step1_differ=top(step1_spread, 16),
+        a_runs_differ=len(spread), a_runs_top=top(spread),
+        a_loss_spread=loss_spread, bound=bound,
+        b_vs_a_differ=len(diff), b_vs_a_top=top(diff), b_vs_a_max=b_max,
+        b_vs_a_loss_diff=loss_diff, launches=launches,
+        peak_device_mb=torch.cuda.max_memory_allocated() / 2**20)
+    shutil.rmtree(d, ignore_errors=True)
+    L = cfg.num_layers
+    checks = {
+        "losses_finite": bool(np.isfinite([float(x) for x in loss_a +
+                                           loss_b1 + loss_b2]).all()),
+        "killed_mid_write": killed and bool(torn),
+        "resumed_the_complete_checkpoint":
+            os.path.basename(meta["path"]) == "step-%d" % (half + 1)
+            and scope_r.step_counter == 2 * half + 1,
+        "losses_4_to_6_equal_run_a": all(
+            x <= 2 * loss_spread for x in loss_diff),
+        "persistables_equal_run_a": b_max <= bound and
+            set(state_b) == set(state_a),
+        "k2_k3_k4_12_per_step": all(launches[n] == L * steps for n in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")),
+        "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+    }
+    _fail_unless("ckpt_resume", checks)
+    return launches
+
+
+def _served(sv, reqs):
+    """Submit every request, then drain: with every request queued within
+    the scheduler's wait the batches are packed the same way every time,
+    so two executors see the same buckets."""
+    futs = [sv.submit(r) for r in reqs]
+    sv.close()
+    return [f.result(timeout=300)[0] for f in futs], sv.stats()
+
+
+def phase_export_serve():
+    """BERT-base serving program as phase_slice builds it, exported with
+    save_inference_model once per file and once with params_filename,
+    then served by ServingExecutor.from_inference_model(dir, max_batch=8)
+    for each layout: the same 24-request burst as phase_slice, whose rows
+    must equal the live ServingExecutor's rows for the same requests bit
+    for bit, with 0 recompiles after warmup() and 12 K2 a batch."""
+    cfg = bert.base_config()
+    main, startup, enc = _build_bert(cfg)
+    infer = main.clone(for_test=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    reqs = _requests(cfg, np.random.RandomState(SEED), 24)
+    specs = {n: ((cfg.max_seq_len, 1), "float32" if n == "input_mask"
+                 else "int64") for n in FEEDS}
+    # max_wait_ms holds a batch open while the burst is queued, so the
+    # packing does not depend on the host's timing
+    sv_kw = dict(max_batch=8, max_wait_ms=1000)
+    live = fluid.ServingExecutor(infer, feed_specs=specs, fetch_list=[enc],
+                                 scope=scope, executor=exe, **sv_kw)
+    live.warmup()
+    want, live_st = _served(live, reqs)
+    d = _io_dir("export_serve")
+    exports, checks = {}, {}
+    _reset_launches()
+    for layout, pf in (("files", None), ("combined", "params")):
+        target = d / layout
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(str(target), list(FEEDS), [enc],
+                                          exe, main, params_filename=pf)
+        export_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        sv = fluid.ServingExecutor.from_inference_model(str(target),
+                                                        **sv_kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        sv.warmup()
+        before = flash_attention.launches
+        got, st = _served(sv, reqs)
+        k2 = flash_attention.launches - before
+        same = all(g.shape == w.shape and np.array_equal(g, w)
+                   for g, w in zip(got, want))
+        exports[layout] = dict(export_s=export_s, load_s=load_s,
+                               bytes=_dir_bytes(target),
+                               files=len(list(target.iterdir())),
+                               batches=st["batches"], k2=k2,
+                               recompiles=st["recompiles"])
+        checks.update({
+            layout + "_rows_equal_live": same,
+            layout + "_same_batches": st["batches"] == live_st["batches"],
+            layout + "_recompiles_after_warmup_0": st["recompiles"] == 0,
+            layout + "_k2_12_per_batch":
+                k2 == cfg.num_layers * st["batches"],
+            layout + "_feed_order": sv.feed_names == list(FEEDS)})
+    launches = _launches()
+    checks["no_backward_launches"] = not any(
+        c for n, c in launches.items() if n != "flash_attention_fwd")
+    emit(phase="export_serve", requests=len(reqs),
+         live_batches=live_st["batches"], exports=exports,
+         launches=launches, checks=checks)
+    shutil.rmtree(d, ignore_errors=True)
+    _fail_unless("export_serve", checks)
+    return launches
+
+
+def _wall_ms(fn, n=10, warmup=3):
+    """Wall milliseconds per call of ``fn`` over ``n`` calls after
+    ``warmup``, the device drained before and after."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_predictor_resnet():
+    """ResNet-50 inference (bench_resnet's model, is_test, fp32, 224 x
+    224, batch 32) with the startup program's weights and batch-norm
+    statistics taken from a seeded calibration batch; exported, then run by create_paddle_predictor(Config(dir)) on
+    the card with the default passes (every one of the 53 batch_norm ops
+    folded into its conv) and with switch_ir_optim(False), both held
+    against Executor.run of the unexported program."""
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.fluid.inference import (
+        Config, create_paddle_predictor)
+    flags.set_flag("conv_pallas", False)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data("img", [3, RN_SIZE, RN_SIZE],
+                                dtype="float32")
+        logits = resnet.resnet(img, class_dim=1000, depth=50)
+    infer = main.clone(for_test=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    bns = [op for op in infer.global_block().ops if op.type == "batch_norm"]
+    # batch-norm statistics from one training-mode pass over a seeded
+    # calibration batch with momentum 0 (each running mean and variance
+    # becomes its batch's), so that the activations stay near unit scale
+    # as in a trained network
+    calib = main.clone()
+    for op in calib.global_block().ops:
+        if op.type == "batch_norm":
+            op._set_attr("momentum", 0.0)
+    exe.run(calib, feed={"img": rng.randn(
+        PRED_BATCH, 3, RN_SIZE, RN_SIZE).astype(np.float32)}, scope=scope)
+    x = rng.randn(PRED_BATCH, 3, RN_SIZE, RN_SIZE).astype(np.float32)
+    ref, = exe.run(infer, feed={"img": x}, fetch_list=[logits], scope=scope)
+    d = _io_dir("predictor_resnet")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(str(d), ["img"], [logits], exe, main)
+    export_s = time.perf_counter() - t0
+    xt = torch.from_numpy(x).cuda()
+    runs, checks = {}, {}
+    # the path's run: counts go to 0 here and are read after both
+    # predictors (fp32 ResNet-50 inference reaches no port kernel)
+    _reset_launches()
+    for name, optim, tol in (("passes", True, PRED_FUSED_TOL),
+                             ("no_passes", False, PRED_PLAIN_TOL)):
+        config = Config(str(d))
+        config.switch_ir_optim(optim)
+        t1 = time.perf_counter()
+        pred = create_paddle_predictor(config)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        got, = pred.run([x])
+        ops = [op.type for op in pred.program().global_block().ops]
+        err = np.abs(got - ref)
+        ratio = float((err / (tol["atol"] + tol["rtol"] *
+                              np.abs(ref))).max())
+        ms = _wall_ms(lambda: pred._exe.run(
+            pred._program, feed={"img": xt}, fetch_list=pred._fetch_vars,
+            scope=pred._scope, return_numpy=False))
+        runs[name] = dict(load_s=load_s, ms_per_batch=ms,
+                          max_abs_err=float(err.max()),
+                          err_over_tolerance=ratio, ops=len(ops),
+                          batch_norm=ops.count("batch_norm"),
+                          folded_bias_adds=sum(
+                              n.endswith("@bn_folded_bias")
+                              for n in pred._scope.var_names()))
+        checks[name + "_within_tolerance"] = bool(np.isfinite(got).all()
+                                                  and ratio <= 1.0)
+    checks["passes_fold_every_batch_norm"] = \
+        runs["passes"]["batch_norm"] == 0 and \
+        runs["passes"]["folded_bias_adds"] == len(bns) == 53
+    checks["no_passes_keep_batch_norm"] = \
+        runs["no_passes"]["batch_norm"] == len(bns)
+    launches = _launches()
+    checks["no_port_kernel_launches"] = not any(launches.values())
+    exe_ms = _wall_ms(lambda: exe.run(
+        infer, feed={"img": xt}, fetch_list=[logits], scope=scope,
+        return_numpy=False))
+    emit(phase="predictor_resnet", batch=PRED_BATCH, image=RN_SIZE,
+         batch_norm=len(bns), export_s=export_s, export_bytes=_dir_bytes(d),
+         executor_ms_per_batch=exe_ms, logits_max_abs=float(np.abs(
+             ref).max()), tolerance=dict(passes=PRED_FUSED_TOL,
+                                         no_passes=PRED_PLAIN_TOL),
+         runs=runs, launches=launches, checks=checks)
+    shutil.rmtree(d, ignore_errors=True)
+    _fail_unless("predictor_resnet", checks)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -2639,6 +3110,10 @@ def main():
     by_path["lenet_train"] = phase_lenet_train()
     by_path["deepfm_train"] = phase_deepfm_train()
     phase_deepfm_optimizers()
+    phase_lookup_grad()
+    by_path["ckpt_resume"] = phase_ckpt_resume()
+    by_path["export_serve"] = phase_export_serve()
+    by_path["predictor_resnet"] = phase_predictor_resnet()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],

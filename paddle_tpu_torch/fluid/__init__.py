@@ -6,8 +6,10 @@ BERT-base serving, BERT-base pretraining with Adam, ResNet-50 training
 with Momentum, L2Decay and pure-bf16 AMP, LeNet, Transformer NMT
 training with a Noam-scheduled Adam, and DeepFM CTR training; the
 eleven update-rule optimizers, gradient clipping (``fluid.clip``),
-per-parameter learning rates and the eight LR schedules (see
-ROADMAP.md's port queue).
+per-parameter learning rates and the eight LR schedules; checkpoints
+(``fluid.io``, ``CheckpointManager`` over ``storage``), model export
+and the inference predictor (``fluid.inference``, ``ir``), in the JAX
+package's file formats (see ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -41,5 +43,16 @@ from . import convert
 from .convert import load_numpy_params
 from . import serving
 from .serving import ServingExecutor
+from . import proto_compat
+from . import io
+from .io import (save_vars, save_params, save_persistables, load_vars,
+                 load_params, load_persistables, save_inference_model,
+                 load_inference_model)
+from . import storage
+from .storage import LocalStorage, ObjectStoreStorage
+from . import checkpoint
+from .checkpoint import CheckpointManager
+from . import ir
+from . import inference
 
 name = "paddle_tpu_torch.fluid"

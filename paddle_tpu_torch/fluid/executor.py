@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import framework
-from .data_types import np_dtype, to_numpy, torch_dtype
+from .data_types import BF16_HOST, np_dtype, to_numpy, torch_dtype
 from .lowering import ExecState, plan_release, plan_tape, run_block
 
 
@@ -98,6 +98,36 @@ class Scope:
     def find_var_numpy(self, name):
         v = self.find_var(name)
         return None if v is None else to_numpy(v)
+
+    def snapshot(self, names=None):
+        """Host snapshot of named vars, the checkpoint extraction point
+        (checkpoint.py): ``{name: ndarray}``, each bfloat16 tensor as its
+        bits (``data_types.BF16_HOST``).  Device tensors are copied into
+        pinned host buffers with ``non_blocking=True`` and the copies
+        are fenced by ONE ``torch.cuda.synchronize()``; host tensors are
+        copied too.  The arrays own their memory, so the caller may go on
+        training (and update the scope in place) at once.  Names missing
+        from the scope are skipped."""
+        if names is None:
+            names = self.var_names()
+        bufs, on_card = {}, False
+        for n in names:
+            v = self.find_var(n)
+            if v is None:
+                continue
+            src = v.detach()
+            if src.dtype == torch.bfloat16:
+                src = src.view(torch.int16)
+            on_card = on_card or src.is_cuda
+            buf = torch.empty(src.shape, dtype=src.dtype,
+                              pin_memory=src.is_cuda)
+            buf.copy_(src, non_blocking=src.is_cuda)
+            bufs[n] = (buf, v.dtype == torch.bfloat16)
+        if on_card:
+            torch.cuda.synchronize()
+        # numpy() shares the buffer and keeps it alive
+        return {n: buf.numpy().view(BF16_HOST) if bf16 else buf.numpy()
+                for n, (buf, bf16) in bufs.items()}
 
 
 _global_scope = Scope()

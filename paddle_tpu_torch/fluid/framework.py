@@ -260,6 +260,9 @@ class Block:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
         attrs = dict(attrs) if attrs else {}
         if OP_ROLE_KEY not in attrs:
             attrs[OP_ROLE_KEY] = self.program._current_role
@@ -267,7 +270,7 @@ class Block:
         if scope_path and "op_namescope" not in attrs:
             attrs["op_namescope"] = scope_path
         op = Operator(self, type, inputs=inputs, outputs=outputs, attrs=attrs)
-        self.ops.append(op)
+        self.ops.insert(index, op)
         self.program._bump_version()
         return op
 
@@ -392,6 +395,20 @@ class Program:
     def list_vars(self):
         for block in self.blocks:
             yield from block.vars.values()
+
+    @staticmethod
+    def parse_from_string(binary_str):
+        """Deserialize a reference ``ProgramDesc`` protobuf string
+        (reference framework.py:3323 contract; wire codec in
+        proto_compat.py)."""
+        from . import proto_compat
+        return proto_compat.parse_program(binary_str)
+
+    def serialize_to_string(self):
+        """Serialize to reference ``ProgramDesc`` wire bytes (the
+        ``program.desc.serialize_to_string()`` idiom)."""
+        from . import proto_compat
+        return proto_compat.serialize_program(self)
 
     def to_string(self, throw_on_error=False):
         lines = []

@@ -8,3 +8,4 @@ from . import attention_ops  # noqa: F401
 from . import conv_ops       # noqa: F401
 from . import norm_ops       # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import io_ops         # noqa: F401

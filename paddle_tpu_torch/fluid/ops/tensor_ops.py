@@ -2,6 +2,8 @@
 ``paddle_tpu/fluid/ops/tensor_ops.py``), in plain torch.  The random
 fills draw from the op's explicit ``torch.Generator`` (LowerCtx)."""
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -114,6 +116,47 @@ def _gather(ctx, op):
     ctx.set("Out", torch.index_select(x, 0, ctx.i("Index").long()))
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms inside, the caller's setting
+    restored after; a caller who asked for strict determinism keeps it.
+    The setting is process-global, not per thread: while the block runs
+    (a table gradient, on the autograd engine's device thread) another
+    thread's work runs under it too, so no other thread of the process
+    may rely on nondeterministic kernels over that moment."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(
+        True, warn_only=was[1] if was[0] else True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+class LookupFunction(torch.autograd.Function):
+    """``F.embedding`` whose table gradient repeats bit for bit.  On the
+    card torch sums the gradient rows of an id that repeats many times
+    (BERT's 2-row sentence table: ~2,048 rows each a batch) in an order
+    that changes from run to run; under deterministic algorithms it
+    takes a fixed order, so a run resumed from a checkpoint retraces the
+    unbroken one."""
+
+    @staticmethod
+    def forward(ctx, ids, w):
+        ctx.save_for_backward(ids)
+        ctx.rows = w.shape[0]
+        return torch.nn.functional.embedding(ids, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        with _deterministic():
+            gw = torch.ops.aten.embedding_dense_backward(
+                g, ids, ctx.rows, -1, False)
+        return None, gw
+
+
 @register_op("lookup_table", nondiff_inputs=("Ids",))
 def _lookup_table(ctx, op):
     """Embedding lookup (operators/lookup_table_op).  Out-of-range ids
@@ -127,7 +170,7 @@ def _lookup_table(ctx, op):
         ids = ids.squeeze(-1)
     ids = ids.long().clamp_min(0)
     rows = w.shape[0]
-    out = torch.nn.functional.embedding(ids.clamp_max(rows - 1), w)
+    out = LookupFunction.apply(ids.clamp_max(rows - 1), w)
     bad = (ids >= rows).unsqueeze(-1)
     out = torch.where(bad, torch.full_like(out, float("nan")), out)
     padding_idx = ctx.attr("padding_idx", -1)

@@ -17,8 +17,10 @@
   into real rows.
 - **Backpressure** rejects (counted) beyond ``max_queue`` queued requests.
 
-Not ported yet (ROADMAP.md, port queue): ``from_inference_model``, the
-process-wide telemetry metrics and the preemption (SIGTERM drain) hooks.
+:meth:`ServingExecutor.from_inference_model` serves a
+``save_inference_model`` export of either package.  Not ported yet
+(ROADMAP.md queue 1 item 8): the process-wide telemetry metrics and the
+preemption (SIGTERM drain) hooks.
 
 Usage::
 
@@ -250,12 +252,44 @@ class ServingExecutor:
         self._occ_sum = 0.0
 
     @classmethod
-    def from_inference_model(cls, dirname, **kwargs):
-        raise NotImplementedError(
-            "ServingExecutor.from_inference_model is not ported yet "
-            "(ROADMAP.md, port queue: 'from_inference_model'); build the "
-            "program, load its weights (convert.load_numpy_params) and "
-            "pass feed_specs")
+    def from_inference_model(cls, dirname, place=None, model_filename=None,
+                             params_filename=None, **kwargs):
+        """Build a ServingExecutor from a ``save_inference_model``
+        artifact: the program and parameters load into a private scope on
+        ``place`` (default ``CUDAPlace(0)``), feed specs derive from the
+        program's data vars (leading dim must be the batch dim), and
+        ``feed_names`` follows the saved manifest's feed order — the
+        positional-request contract."""
+        from . import io as fluid_io
+        from .executor import CUDAPlace, Executor, Scope, scope_guard
+
+        exe = Executor(place if place is not None else CUDAPlace(0))
+        scope = Scope()
+        with scope_guard(scope):
+            program, feed_names, fetch_vars = \
+                fluid_io.load_inference_model(
+                    dirname, exe, model_filename=model_filename,
+                    params_filename=params_filename)
+        block = program.global_block()
+        specs = {}
+        for n in feed_names:
+            v = block.var(n)
+            shape = tuple(v.shape or ())
+            if not shape or shape[0] not in (-1, None):
+                raise ServingError(
+                    "feed %r has shape %s — serving needs a variable "
+                    "leading batch dim (shape[0] == -1); pass "
+                    "feed_specs= explicitly to override" % (n, shape))
+            sample = tuple(int(d) for d in shape[1:])
+            if any(d < 0 for d in sample):
+                raise ServingError(
+                    "feed %r has non-leading dynamic dims %s — the "
+                    "bucket ladder only pads the batch dim; pass "
+                    "feed_specs= with concrete trailing dims"
+                    % (n, shape))
+            specs[n] = (sample, v.dtype)
+        return cls(program, feed_specs=specs, fetch_list=fetch_vars,
+                   scope=scope, executor=exe, **kwargs)
 
     # -- admission ---------------------------------------------------------
     def _draining(self):

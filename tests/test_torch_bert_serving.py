@@ -15,6 +15,7 @@ fails at the seed, so the property is checked directly here).
 
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu.fluid as jfluid
 from paddle_tpu.models import bert as jbert
@@ -210,16 +211,22 @@ def test_default_place_is_the_card():
 
 def test_unported_routes_raise_naming_the_roadmap(pair):
     """The training program (train-mode dropout) now runs on CPUPlace;
-    the routes still left for a later slice raise, naming ROADMAP.md,
-    instead of computing something else: loading a saved inference
-    model, and a fused_attention op stamped for sequence parallelism."""
+    the route still left for a later slice raises, naming ROADMAP.md,
+    instead of computing something else: a fused_attention op stamped for
+    sequence parallelism.  Loading a saved inference model is ported
+    (tests/test_torch_inference.py): it loads onto the card unless asked
+    for the CPU, and never falls back to the host."""
     main = pair["pprogs"][0]
     exe = fluid.Executor(fluid.CPUPlace())
     got, = exe.run(main, feed=pair["feed"], fetch_list=[pair["penc"]],
                    scope=pair["pscope"])
     assert got.shape == pair["want"].shape and np.isfinite(got).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fluid.ServingExecutor.from_inference_model("model_dir")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            fluid.ServingExecutor.from_inference_model("model_dir")
+    with pytest.raises(FileNotFoundError):
+        fluid.ServingExecutor.from_inference_model(
+            "model_dir", place=fluid.CPUPlace())
     sp = main.clone(for_test=True)
     for op in sp.global_block().ops:
         if op.type == "fused_attention":

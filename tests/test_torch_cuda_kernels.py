@@ -515,3 +515,73 @@ def test_resnet_check_catches_a_fault_planted_in_k1(fault, monkeypatch):
     assert compared == (fault == "none"), checks
     if fault == "none":
         assert all(checks.values()), checks
+
+
+@pytest.mark.cuda
+def test_snapshot_and_checkpoint_keep_bf16_bits_on_the_card(tmp_path):
+    """Scope.snapshot copies card tensors through pinned buffers with one
+    synchronisation: bf16 comes back as its bits (V2), every array owns
+    its memory (an in-place update after the snapshot changes nothing),
+    and a CheckpointManager save and restore on the card is bit-exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.data_types import BF16_HOST
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    vals = {"emb": torch.randn(1000, 77, device=dev, generator=g)
+            .mul(30).to(torch.bfloat16),
+            "w": torch.randn(64, 33, device=dev, generator=g),
+            "n": torch.arange(5, device=dev, dtype=torch.int64)}
+    prog = fluid.Program()
+    scope = fluid.Scope()
+    for n, t in vals.items():
+        prog.global_block().create_var(
+            name=n, shape=tuple(t.shape), persistable=True,
+            dtype=str(t.dtype).replace("torch.", ""))
+        scope.set_var(n, t.clone())
+    snap = scope.snapshot()
+    assert snap["emb"].dtype == BF16_HOST
+    np.testing.assert_array_equal(
+        snap["emb"].view(np.int16),
+        vals["emb"].view(torch.int16).cpu().numpy())
+    for n in ("w", "n"):
+        np.testing.assert_array_equal(snap[n], vals[n].cpu().numpy())
+    for t in scope.vars.values():
+        t.zero_()
+    np.testing.assert_array_equal(snap["w"], vals["w"].cpu().numpy())
+    for n, t in vals.items():
+        scope.set_var(n, t.clone())
+    mgr = fluid.CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(step=4, scope=scope, main_program=prog)
+    mgr.wait()
+    fresh = fluid.Scope()
+    mgr.restore(scope=fresh, main_program=prog)
+    assert fresh.step_counter == 0
+    for n, t in vals.items():
+        got = fresh.find_var(n)
+        assert got.device == dev and got.dtype == t.dtype, n
+        assert torch.equal(got, t), n
+
+
+@pytest.mark.cuda
+def test_lookup_gradient_repeats_bit_for_bit_on_the_card():
+    """BERT's sentence table on the card: 4,096 ids into 2 rows.  torch's
+    embedding backward sums such repeated rows in an order that changes
+    from call to call; the lookup_table rule's ``LookupFunction`` gives
+    the same bits every time, within float32 rounding of a float64 sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.fluid.ops.tensor_ops import LookupFunction
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, 2, 4096)).to(dev)
+    g = torch.from_numpy(rng.randn(4096, 768).astype(np.float32)).to(dev)
+    w = torch.zeros(2, 768, device=dev, requires_grad=True)
+    grads = [torch.autograd.grad(LookupFunction.apply(ids, w), w, g)[0]
+             for _ in range(20)]
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    want = torch.zeros(2, 768, dtype=torch.float64).index_add_(
+        0, ids.cpu(), g.cpu().double())
+    assert float((grads[0].cpu().double() - want).abs().max()) < 1e-3
+    assert not torch.are_deterministic_algorithms_enabled()
