@@ -154,7 +154,29 @@ non-zero exit (nothing is caught):
    1e-3 / atol 1e-4 of Executor.run of the unexported program) and with
    switch_ir_optim(False) (1e-4 / 1e-5); export and load seconds, ms per
    batch.
-24. kernels: one JSON line listing every ported kernel, with its
+24. window_train: BERT-base pretraining as phase 9 builds it through the
+   training loop, 4 seeded batches in turn, every run from one state.
+   Run A: 2 warm-up and 12 timed exe.run calls, twice.  Run B: 2 warm-up
+   runs, then 12 batches through a program-bound DataLoader
+   (steps_per_run=4) on the feed ring (pinned staging, side-stream
+   copies), pulled by exe.run() with no feed, with a windowed
+   CheckpointManager saving after window 2.  Run C: B with
+   FLAGS_feed_ring_depth=0.  B and C bit-equal to A (or within twice the
+   A runs' spread); 12 K2/K3/K4 and 0 K5 per inner step; no new plan and
+   no recorded host sync inside a window; 3 window step events; the
+   checkpoint on the window-end marker with steps_per_run 4, a save off
+   it raising; one window traced with FLAGS_device_profile=1 naming
+   K2-K4; the host-sync sites of one window (set_sync_debug_mode).
+25. dataset_train: bench_deepfm's configuration trained from 16 x 4096
+   MultiSlot lines written from a seed: train_from_dataset
+   (steps_per_run=4) bit-equal to exe.run over the same parsed batches;
+   a real SIGTERM as window 3 starts stops the loop at step 12 after a
+   final synchronous save, and a restore finishes the last window equal
+   to the unbroken run; no port kernel.
+26. watchdog_stall: the watchdog (2 s, no abort) over BERT-base: a
+   normal window gives no record, a loader stalled once for 5 s gives
+   one kind="hang" record naming feed_wait.
+27. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's and ResNet-50
    inference's).
 
@@ -3085,6 +3107,528 @@ def phase_predictor_resnet():
     return launches
 
 
+# -- the training-loop runtime: windows, the feed ring, datasets, hooks -----
+
+WIN_K = 4                     # window_train: steps per run_window
+WIN_BATCHES = 4               # distinct seeded batches, taken in turn
+WIN_STEPS = 14                # 2 warm-up + 12 timed (3 windows of 4)
+DS_BATCHES = 16               # dataset_train: 16 x 4096 MultiSlot lines
+STALL_S = 5.0                 # watchdog_stall: the generator's one stall
+STALL_TIMEOUT_S = 2.0         # ... against this watchdog timeout
+FLASH_KERNELS = ("flash_fwd_kernel", "q_rows_kernel", "dkv_kernel")
+
+
+def _scope_from(main, init, step):
+    """A scope holding a copy of the persistables ``init`` holds, its
+    counter at ``step``: every run of a phase starts from one state."""
+    scope = _state_copy(main, init)
+    scope.step_counter = step
+    return scope
+
+
+def _events_since(n0):
+    """Step events recorded after the first ``n0`` (the ring is large
+    enough for one phase)."""
+    recorded = fluid.telemetry.step_events_recorded()
+    evs = fluid.telemetry.step_events()
+    return evs[len(evs) - (recorded - n0):] if recorded > n0 else []
+
+
+def _feed_vars(main, names):
+    return [main.global_block().var(n) for n in names]
+
+
+def _window_run(cfg, init, step0, feeds, depth, ckpt=None):
+    """Run B (depth 2) or C (depth 0) of window_train: 2 warm-up run()
+    calls with explicit feeds, then the remaining WIN_STEPS - 2 batches
+    through a program-bound DataLoader(steps_per_run=WIN_K) on the card,
+    pulled by exe.run() with no feed.  With ``ckpt`` a windowed
+    CheckpointManager saves after window 2.  Returns a dict of what the
+    gates read."""
+    main, _, out = _build_pretrain(cfg)
+    scope = _scope_from(main, init, step0)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses = [exe.run(main, feed=feeds[i], fetch_list=[out["loss"]],
+                      scope=scope, return_numpy=False)[0].reshape(1)
+              for i in range(2)]
+    flags = fluid.flags
+    prev = flags.get_flag("feed_ring_depth")
+    flags.set_flag("feed_ring_depth", depth)
+    try:
+        with fluid.program_guard(main):
+            loader = fluid.io.DataLoader.from_generator(
+                feed_list=_feed_vars(main, list(feeds[0])), capacity=2,
+                iterable=False, steps_per_run=WIN_K)
+
+        def gen():
+            for i in range(2, WIN_STEPS):
+                yield feeds[i % WIN_BATCHES]
+        loader.set_batch_generator(gen, places=fluid.CUDAPlace(0))
+        reg = fluid.telemetry.registry()
+        wait0 = reg.get("data_wait_seconds_total").value()
+        pinned0 = reg.get("feed_pinned_copies_total").value()
+        ev0 = fluid.telemetry.step_events_recorded()
+        loader.start()
+        window_ms, syncs, plans, saved = [], [], [], None
+        while True:
+            s0 = fluid.profiler.host_sync_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                got = exe.run(main, fetch_list=[out["loss"]], scope=scope,
+                              return_numpy=False)
+            except fluid.core.EOFException:
+                break
+            torch.cuda.synchronize()
+            window_ms.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(fluid.profiler.host_sync_count() - s0)
+            plans.append(exe.compile_count())
+            losses.append(got[0].reshape(-1))
+            if ckpt is not None and len(window_ms) == 2:
+                path = ckpt.save(scope=scope, sync=True)
+                saved = dict(path=path, marker=scope._window_end,
+                             meta=fluid.checkpoint.checkpoint_metadata(path))
+                try:
+                    ckpt.save(step=scope._window_end + 1, scope=scope)
+                    saved["off_marker_raised"] = False
+                except ValueError as e:
+                    saved["off_marker_raised"] = \
+                        "not a window boundary" in str(e)
+        evs = [e for e in _events_since(ev0) if "kind" not in e]
+        return dict(
+            main=main, out=out, exe=exe, scope=scope,
+            losses=torch.cat(losses), window_ms=window_ms, syncs=syncs,
+            plans=plans, saved=saved,
+            data_wait_s=reg.get("data_wait_seconds_total").value() - wait0,
+            pinned_windows=reg.get("feed_pinned_copies_total").value() -
+            pinned0,
+            window_events=sum(1 for e in evs
+                              if e.get("window") and e.get("k") == WIN_K),
+            event_syncs=[e["syncs"] for e in evs if e.get("window")])
+    finally:
+        flags.set_flag("feed_ring_depth", prev)
+
+
+def _sync_sites(exe, main, out, scope, feed):
+    """The sites that synchronize with the host during one window whose
+    stacked ``feed`` already lies on the card, from
+    torch.cuda.set_sync_debug_mode("warn"): {file:line: message}."""
+    import warnings
+    sites = {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exe.run_window(main, feed=feed, fetch_list=[out["loss"]],
+                           scope=scope, steps_per_run=WIN_K)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:
+        if "called a synchronizing" not in str(w.message):
+            continue
+        key = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
+        sites.setdefault(key, str(w.message)[:120])
+    return sites
+
+
+def phase_window_train():
+    """BERT-base pretraining (phase_train's configuration: batch 32, 20
+    masked positions, fp32, Adam 1e-4, hidden dropout 0.1, attention
+    dropout 0) through the training loop, every run from one saved
+    initial state, WIN_BATCHES seeded batches taken in turn.  Run A: 2
+    warm-up and 12 timed exe.run calls (K=1), twice.  Run B: 2 warm-up
+    runs, then the next 12 batches through a program-bound non-iterable
+    DataLoader(steps_per_run=4) on the feed ring (depth 2, pinned
+    staging on a side stream), pulled by exe.run() with no feed — 3
+    windows — with CheckpointManager(steps_per_run=4) saving after window
+    2.  Run C: run B with FLAGS_feed_ring_depth=0, no save.  Gates: B's
+    and C's losses and every persistable equal A's (bit for bit, or
+    within twice the two A runs' largest difference), 12 K2, K3, K4 and
+    0 K5 per inner step, no new plan after the first window, no host
+    sync recorded inside a window, 3 step events with window=4, the
+    checkpoint's manifest holds steps_per_run 4 and its step is the
+    window-end marker, a save off the marker raises; then one window
+    traced with FLAGS_device_profile=1, which must name K2-K4's kernels,
+    and one window under torch.cuda.set_sync_debug_mode("warn") to name
+    the sites that synchronize (reported, not gated)."""
+    cfg = bert.base_config(attn_dropout=0.0)
+    main, startup, out = _build_pretrain(cfg)
+    scope0 = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope0)
+    init, step0 = _state_copy(main, scope0), scope0.step_counter
+    del scope0
+    feeds = [_train_feed(cfg, BT, SEED + 100 + i) for i in range(WIN_BATCHES)]
+    d = _io_dir("window_train")
+    torch.cuda.reset_peak_memory_stats()
+    # the path's run (A twice, B, C): counts go to 0 here, read after C
+    _reset_launches()
+    runs_a = []
+    for _ in range(2):
+        scope = _scope_from(main, init, step0)
+        losses = []
+        for i in range(WIN_STEPS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(exe.run(main, feed=feeds[i % WIN_BATCHES],
+                                  fetch_list=[out["loss"]], scope=scope,
+                                  return_numpy=False)[0].reshape(1))
+        torch.cuda.synchronize()
+        ms_k1 = (time.perf_counter() - t0) * 1e3 / (WIN_STEPS - 2)
+        runs_a.append((torch.cat(losses), _persistables(main, scope),
+                       ms_k1))
+    mgr = fluid.CheckpointManager(str(d), main_program=main,
+                                  steps_per_run=WIN_K)
+    b = _window_run(cfg, init, step0, feeds, 2, ckpt=mgr)
+    c = _window_run(cfg, init, step0, feeds, 0)
+    launches = _launches()
+    inner = 4 * WIN_STEPS         # A twice, B, C
+    (loss_a, state_a, ms_k1), (loss_a2, state_a2, ms_k1_2) = runs_a
+    spread = _spread(state_a, state_a2)
+    bound = 2 * max(spread.values(), default=0.0)
+    loss_bound = 2 * float((loss_a - loss_a2).abs().max())
+    cmp = {}
+    for name, r in (("b", b), ("c", c)):
+        diff = _spread(state_a, _persistables(r["main"], r["scope"]))
+        cmp[name] = dict(
+            loss_max_diff=float((r["losses"] - loss_a).abs().max()),
+            persistables_differ=len(diff),
+            persistables_max_diff=max(diff.values(), default=0.0))
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    # one traced window and one under the sync debug mode, after the
+    # path's run, on run B's state
+    stacked = {k: np.stack([feeds[i % WIN_BATCHES][k] for i in range(WIN_K)])
+               for k in feeds[0]}
+    fl = fluid.flags
+    fl.set_flag("device_profile", 1)     # a window counts K: all of it
+    fl.set_flag("device_profile_dir", str(d / "trace"))
+    fluid.profiler.device_profile_reset()
+    try:
+        torch.cuda.synchronize()
+        ev0 = fluid.telemetry.step_events_recorded()
+        b["exe"].run_window(b["main"], feed=stacked,
+                            fetch_list=[b["out"]["loss"]], scope=b["scope"],
+                            steps_per_run=WIN_K)
+        # the window's own wall: its step event's dispatch time, which
+        # ends before the trace is stopped and written
+        traced_ms = _events_since(ev0)[-1]["dur_ns"] / 1e6
+        prof, trace_path = fluid.profiler.device_profile_result()
+    finally:
+        fl.set_flag("device_profile", 0)
+        fl.set_flag("device_profile_dir", "")
+    busy_ms, idle_ms, events = _timeline(prof)
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    traced = {k: any(k in n for n in names) for k in FLASH_KERNELS}
+    trace_bytes = os.path.getsize(trace_path)
+    del prof
+    on_card = {k: torch.from_numpy(v).cuda() for k, v in stacked.items()}
+    sites = _sync_sites(b["exe"], b["main"], b["out"], b["scope"], on_card)
+    L = cfg.num_layers
+    saved = b["saved"] or {}
+    meta = saved.get("meta") or {}
+    emit(phase="window_train", card=_card(), k=WIN_K, inner_steps=inner,
+         ms_per_inner_step_k1=[ms_k1, ms_k1_2],
+         ms_per_inner_step_k4=sum(b["window_ms"]) / (WIN_STEPS - 2),
+         ms_per_inner_step_k4_ring_off=sum(c["window_ms"]) / (WIN_STEPS - 2),
+         window_ms=b["window_ms"], window_ms_ring_off=c["window_ms"],
+         data_wait_seconds=b["data_wait_s"],
+         data_wait_seconds_ring_off=c["data_wait_s"],
+         pinned_windows=b["pinned_windows"],
+         pinned_windows_ring_off=c["pinned_windows"],
+         losses_a=loss_a.tolist(), a_runs_differ=len(spread),
+         bound=bound, loss_bound=loss_bound, vs_a=cmp,
+         plans=b["plans"], window_syncs=b["syncs"],
+         event_syncs=b["event_syncs"], window_events=b["window_events"],
+         checkpoint=dict(step=meta.get("step"),
+                         steps_per_run=meta.get("steps_per_run"),
+                         marker=saved.get("marker"),
+                         off_marker_raised=saved.get("off_marker_raised")),
+         traced_window_ms=traced_ms, traced_busy_ms=busy_ms,
+         traced_idle_ms=idle_ms, device_busy_share=busy_ms / traced_ms,
+         device_busy_share_of_span=busy_ms / (busy_ms + idle_ms)
+         if events else None,
+         traced_events=events, traced_kernels=traced,
+         trace_bytes=trace_bytes, sync_sites=sites,
+         peak_device_mb=peak_mb, launches=launches)
+    shutil.rmtree(d, ignore_errors=True)
+    checks = {
+        "losses_finite": bool(torch.isfinite(loss_a).all()),
+        "b_equals_a": cmp["b"]["persistables_max_diff"] <= bound and
+            cmp["b"]["loss_max_diff"] <= loss_bound,
+        "c_equals_a": cmp["c"]["persistables_max_diff"] <= bound and
+            cmp["c"]["loss_max_diff"] <= loss_bound,
+        "k2_k3_k4_12_per_inner_step": all(launches[n] == L * inner for n in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")),
+        "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+        "no_new_plan_after_window_1": len(set(b["plans"])) == 1 and
+            len(set(c["plans"])) == 1,
+        "no_host_sync_in_a_window": not any(b["syncs"] + c["syncs"] +
+                                            b["event_syncs"]),
+        "3_window_events": b["window_events"] == c["window_events"] == 3,
+        "ring_staged_pinned": b["pinned_windows"] == 3 and
+            c["pinned_windows"] == 0,
+        "checkpoint_on_the_marker": meta.get("steps_per_run") == WIN_K and
+            meta.get("step") == saved.get("marker") == step0 + 2 + 2 * WIN_K,
+        "save_off_the_marker_raises": bool(saved.get("off_marker_raised")),
+        "trace_names_k2_k4": all(traced.values()),
+    }
+    _fail_unless("window_train", checks)
+    return launches
+
+
+def _write_multislot(path, cfg, n, seed):
+    """``n`` MultiSlot text lines (``num_fields`` sparse ids, ``dense_dim``
+    floats, a label), drawn from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.sparse_feature_dim, (n, cfg.num_fields))
+    dense = rng.rand(n, cfg.dense_dim).astype(np.float32)
+    label = rng.randint(0, 2, n)
+    head_i, head_d = "%d " % cfg.num_fields, " %d " % cfg.dense_dim
+    with open(path, "w") as f:
+        for i in range(n):
+            f.write(head_i + " ".join(map(str, ids[i])) + head_d +
+                    " ".join("%.6g" % v for v in dense[i]) +
+                    " 1 %d\n" % label[i])
+    return str(path)
+
+
+def phase_dataset_train():
+    """bench_deepfm's configuration (base_config, batch 4096, Adam 1e-3)
+    trained from MultiSlot text files: DS_BATCHES x 4096 lines written
+    under build/chip_smoke_io/ from a seed, loaded by an InMemoryDataset
+    (lines parsed per second).  From one startup state: the parsed
+    batches through exe.run, train_from_dataset(steps_per_run=4) (its
+    window losses captured), exe.run again: losses and
+    parameters bit-equal (or within twice the two exe.run runs' largest
+    difference); none of the port's kernels launched.  Then
+    preemption.install() and a real SIGTERM to this process as window 3
+    starts: the loop returns {"preempted": True, "steps": 12} after a
+    final synchronous save; a fresh scope restored from it finishes the
+    last window and equals the unbroken run; uninstall() in a finally.
+    Printed: lines/s, ms per step, data_wait_seconds, the drain's ms."""
+    import signal
+    from paddle_tpu_torch.fluid import preemption
+    cfg = _dfm_config()
+    d = _io_dir("dataset_train")
+    t0 = time.perf_counter()
+    half = DS_BATCHES * DFM_BATCH // 2
+    files = [_write_multislot(d / ("part-%d.txt" % i), cfg, half, SEED + i)
+             for i in range(2)]
+    write_s = time.perf_counter() - t0
+    main, startup, loss, _ = _dfm_program()
+    blk = main.global_block()
+    ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+    ds.set_batch_size(DFM_BATCH)
+    ds.set_filelist(files)
+    ds.set_use_var(_feed_vars(main, ["sparse_ids", "dense_value", "label"]))
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = list(ds)
+    batchify_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    init, step0 = _state_copy(main, scope0), scope0.step_counter
+    del scope0
+    params = [p.name for p in blk.all_parameters()]
+
+    def capture(e):
+        """Record the stacked losses of every run_window the loop makes."""
+        got, real = [], e.run_window
+
+        def run_window(*a, **k):
+            out = real(*a, **k)
+            got.append(out[0].reshape(-1))
+            return out
+        e.run_window = run_window
+        return got
+
+    def run_loop():
+        """The parsed batches through exe.run, one step each."""
+        scope = _scope_from(main, init, step0)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for bt in batches:
+            losses.append(exe.run(main, feed=bt, fetch_list=[loss],
+                                  scope=scope, return_numpy=False)[0]
+                          .reshape(-1))
+        torch.cuda.synchronize()
+        return (torch.cat(losses), _persistables(main, scope),
+                (time.perf_counter() - t0) * 1e3 / DS_BATCHES)
+
+    # the path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    runs = [run_loop()]
+    reg = fluid.telemetry.registry()
+    wait0 = reg.get("data_wait_seconds_total").value()
+    scope_t = _scope_from(main, init, step0)
+    exe_t = fluid.Executor(fluid.CUDAPlace(0))
+    win_losses = capture(exe_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stat = exe_t.train_from_dataset(main, ds, scope=scope_t,
+                                    fetch_list=[loss], steps_per_run=WIN_K,
+                                    print_period=10 ** 9)
+    tfd_ms = (time.perf_counter() - t0) * 1e3 / DS_BATCHES
+    data_wait = reg.get("data_wait_seconds_total").value() - wait0
+    runs.append(run_loop())
+    launches = _launches()
+    (loss_r, state_r, run_ms), (loss_r2, state_r2, run_ms2) = runs
+    bound = 2 * max(_spread(state_r, state_r2).values(), default=0.0)
+    loss_bound = 2 * float((loss_r - loss_r2).abs().max())
+    state_t = _persistables(main, scope_t)
+    tfd_diff = _spread(state_r, state_t)
+    tfd_loss = torch.cat(win_losses)
+    tfd_loss_diff = float((tfd_loss - loss_r).abs().max()) \
+        if tfd_loss.numel() == loss_r.numel() else float("inf")
+
+    # preemption: a real SIGTERM as window 3 starts
+    mgr = fluid.CheckpointManager(str(d / "ckpt"), main_program=main,
+                                  steps_per_run=WIN_K)
+    scope_p = _scope_from(main, init, step0)
+    exe_p = fluid.Executor(fluid.CUDAPlace(0))
+    real, calls = exe_p.run_window, [0]
+
+    def run_window(*a, **k):
+        calls[0] += 1
+        if calls[0] == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(*a, **k)
+    exe_p.run_window = run_window
+    ev0 = fluid.telemetry.step_events_recorded()
+    preemption.install()
+    try:
+        pstat = exe_p.train_from_dataset(main, ds, scope=scope_p,
+                                         steps_per_run=WIN_K,
+                                         checkpoint_manager=mgr)
+    finally:
+        preemption.uninstall()
+        preemption.clear()
+    drains = [e for e in _events_since(ev0) if e.get("kind") == "preemption"]
+    meta = fluid.checkpoint.checkpoint_metadata(mgr.latest_checkpoint())
+    scope_r = fluid.Scope()
+    fluid.CheckpointManager(str(d / "ckpt"), main_program=main,
+                            steps_per_run=WIN_K).resume(scope=scope_r)
+    resumed_step = scope_r.step_counter
+    last = {k: np.stack([bt[k] for bt in batches[-WIN_K:]]) for k in batches[0]}
+    fluid.Executor(fluid.CUDAPlace(0)).run_window(
+        main, feed=last, fetch_list=[loss], scope=scope_r,
+        steps_per_run=WIN_K)
+    resume_diff = _spread(state_t, _persistables(main, scope_r))
+    launches_after = _launches()
+    emit(phase="dataset_train", card=_card(), lines=DS_BATCHES * DFM_BATCH,
+         write_s=write_s, parse_s=parse_s,
+         lines_parsed_per_s=DS_BATCHES * DFM_BATCH / parse_s,
+         batchify_ms_per_batch=batchify_ms,
+         batches=len(batches), k=WIN_K, status=stat,
+         ms_per_step_train_from_dataset=tfd_ms,
+         ms_per_step_exe_run=[run_ms, run_ms2],
+         data_wait_seconds=data_wait, bound=bound, loss_bound=loss_bound,
+         tfd_vs_run=dict(persistables_differ=len(tfd_diff),
+                         persistables_max_diff=max(tfd_diff.values(),
+                                                   default=0.0),
+                         loss_max_diff=tfd_loss_diff),
+         preempted=pstat, drain_ms=drains[0]["dur_ns"] / 1e6 if drains
+         else None, checkpoint_step=meta["step"],
+         checkpoint_steps_per_run=meta["steps_per_run"],
+         resumed_step=resumed_step,
+         resumed_vs_unbroken_max_diff=max(resume_diff.values(), default=0.0),
+         launches=launches)
+    shutil.rmtree(d, ignore_errors=True)
+    checks = {
+        "status": stat == {"steps": DS_BATCHES, "preempted": False,
+                           "rollbacks": 0},
+        "losses_finite": bool(torch.isfinite(loss_r).all()),
+        "tfd_equals_run": max(tfd_diff.values(), default=0.0) <= bound and
+            tfd_loss_diff <= loss_bound,
+        "no_port_kernel": not any(launches.values()) and
+            not any(launches_after.values()),
+        "preempted_at_12": pstat == {"steps": 12, "preempted": True,
+                                     "rollbacks": 0},
+        "final_save_committed": meta["step"] == step0 + 12 and
+            meta["steps_per_run"] == WIN_K and len(drains) == 1 and
+            drains[0]["saved"],
+        "resumed_run_equals_unbroken": resumed_step == step0 + 12 and
+            max(resume_diff.values(), default=0.0) <= bound,
+        "handlers_restored": signal.getsignal(signal.SIGTERM) is not
+            preemption._handler,
+    }
+    _fail_unless("dataset_train", checks)
+    return launches
+
+
+def phase_watchdog_stall():
+    """The watchdog (timeout_s=2, abort=False) armed over BERT-base
+    pretraining (phase_train's configuration): one normal window with an
+    explicit feed gives no record; then a program-bound
+    DataLoader(steps_per_run=4) whose generator stalls once for 5 s
+    before its second window gives exactly one kind="hang" record,
+    naming the consumer's feed_wait phase."""
+    from paddle_tpu_torch.fluid import watchdog
+    cfg = bert.base_config(attn_dropout=0.0)
+    main, startup, out = _build_pretrain(cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feeds = [_train_feed(cfg, BT, SEED + 100 + i) for i in range(WIN_BATCHES)]
+    stacked = {k: np.stack([feeds[i][k] for i in range(WIN_K)])
+               for k in feeds[0]}
+    with fluid.program_guard(main):
+        loader = fluid.io.DataLoader.from_generator(
+            feed_list=_feed_vars(main, list(feeds[0])), capacity=2,
+            iterable=False, steps_per_run=WIN_K)
+
+    def gen():
+        for i in range(2 * WIN_K):
+            if i == WIN_K:
+                time.sleep(STALL_S)
+            yield feeds[i % WIN_BATCHES]
+    loader.set_batch_generator(gen, places=fluid.CUDAPlace(0))
+    ev0 = fluid.telemetry.step_events_recorded()
+    assert watchdog.arm(timeout_s=STALL_TIMEOUT_S, abort=False)
+    try:
+        exe.run_window(main, feed=stacked, fetch_list=[out["loss"]],
+                       scope=scope, steps_per_run=WIN_K)
+        torch.cuda.synchronize()
+        normal = [e for e in _events_since(ev0) if e.get("kind") == "hang"]
+        ev1 = fluid.telemetry.step_events_recorded()
+        loader.start()
+        t0 = time.perf_counter()
+        windows = 0
+        while True:
+            try:
+                exe.run(main, fetch_list=[out["loss"]], scope=scope,
+                        return_numpy=False)
+                windows += 1
+            except fluid.core.EOFException:
+                break
+        torch.cuda.synchronize()
+        stall_wall_s = time.perf_counter() - t0
+        hangs = [e for e in _events_since(ev1) if e.get("kind") == "hang"]
+        healthy = watchdog.health()["healthy"]
+    finally:
+        watchdog.disarm()
+    emit(phase="watchdog_stall", timeout_s=STALL_TIMEOUT_S, stall_s=STALL_S,
+         windows=windows, wall_s=stall_wall_s,
+         hangs=[{k: h.get(k) for k in ("phase", "age_s", "budget_s")}
+                for h in hangs], hangs_normal_window=len(normal),
+         healthy_after=healthy)
+    _fail_unless("watchdog_stall", {
+        "none_over_a_normal_window": not normal,
+        "one_hang": len(hangs) == 1,
+        "names_the_feed_phase": bool(hangs) and
+            hangs[0]["phase"] == "feed_wait",
+        "two_windows": windows == 2,
+    })
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -3114,6 +3658,9 @@ def main():
     by_path["ckpt_resume"] = phase_ckpt_resume()
     by_path["export_serve"] = phase_export_serve()
     by_path["predictor_resnet"] = phase_predictor_resnet()
+    by_path["window_train"] = phase_window_train()
+    by_path["dataset_train"] = phase_dataset_train()
+    phase_watchdog_stall()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],

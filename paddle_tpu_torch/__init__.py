@@ -12,3 +12,5 @@ never imports ``jax`` or ``paddle_tpu``.  Its layout mirrors
 
 from . import fluid  # noqa: F401
 from . import models  # noqa: F401
+from . import reader  # noqa: F401
+from .batch import batch  # noqa: F401

@@ -9,7 +9,10 @@ eleven update-rule optimizers, gradient clipping (``fluid.clip``),
 per-parameter learning rates and the eight LR schedules; checkpoints
 (``fluid.io``, ``CheckpointManager`` over ``storage``), model export
 and the inference predictor (``fluid.inference``, ``ir``), in the JAX
-package's file formats (see ROADMAP.md's port queue).
+package's file formats; the training-loop runtime (``run_window``,
+``DataLoader``/``PyReader`` over the feed ring, ``DatasetFactory`` and
+``train_from_dataset``, ``telemetry``, ``profiler``, ``preemption``,
+``watchdog``) (see ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -54,5 +57,15 @@ from . import checkpoint
 from .checkpoint import CheckpointManager
 from . import ir
 from . import inference
+from . import core
+from . import telemetry
+from . import profiler
+from . import preemption
+from . import watchdog
+from .data_feeder import DataFeeder
+from . import reader
+from .reader import DataLoader, PyReader
+from . import dataset
+from .dataset import DatasetFactory
 
 name = "paddle_tpu_torch.fluid"

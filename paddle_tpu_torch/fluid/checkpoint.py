@@ -32,12 +32,20 @@ manifest, as ``paddle_tpu`` writes it.  ``paddle_tpu`` holds a declared
 int64 (float64) variable in 32 bits and saves it so; the port widens
 such an entry on restore.
 
+- **Windows** (``steps_per_run=K``): ``Executor.run_window`` runs K
+  steps per call, so state exists only at window boundaries; a save off
+  the boundary marker the executor stamps (``scope._window_end``)
+  raises, K goes into the manifest, and a restore under another K
+  warns.
+- **Instruments**: the in-flight gauge, the background-error counter
+  and the commit-wait histogram of the JAX package, the profiler's
+  checkpoint stats, and a watchdog deadline extension
+  (``FLAGS_watchdog_checkpoint_grace_s``) around every save and restore.
+
 Not here yet, each raising ``NotImplementedError`` with its ROADMAP
 item: the multi-host save and restore and ``reshard=True`` (queue 1
-item 10), and ``steps_per_run`` windows (item 8).  The JAX package's
-telemetry gauges and watchdog deadline extensions around a save have no
-counterpart yet either (item 8); each manager keeps the numbers of its
-last save (``last_bytes``, ``last_save_s``, ``last_snapshot_ms``).
+item 10).  Each manager also keeps the numbers of its last save
+(``last_bytes``, ``last_save_s``, ``last_snapshot_ms``).
 
 Single-writer assumption: one process (one ``CheckpointManager``) saves
 into a given directory at a time.
@@ -53,16 +61,33 @@ import shutil
 import threading
 import time
 import uuid
+import warnings
 import weakref
 import zlib
 
 import numpy as np
 import torch
 
+from . import flags
+from . import profiler
 from . import storage as storage_mod
+from . import telemetry
+from . import watchdog
 from .data_types import from_host, host_dtype_name, is_bf16_host, widens
 from .executor import CUDAPlace, device_for_place, global_scope
 from .framework import default_main_program
+
+# async-save instruments (the JAX package's names, checkpoint.py:84-99);
+# the executor's step events read the in-flight gauge as ckpt_overlap
+_m_async_inflight = telemetry.gauge(
+    "checkpoint_async_in_flight",
+    "1 while an async checkpoint save is serializing/committing")
+_m_async_errors = telemetry.counter(
+    "checkpoint_async_errors_total",
+    "background save failures (re-raised on next save()/wait())")
+_m_commit_wait = telemetry.histogram(
+    "checkpoint_commit_wait_seconds",
+    "seconds a caller waited for an in-flight async save to commit")
 
 MANIFEST_NAME = "MANIFEST.json"
 MANIFEST_VERSION = 1
@@ -353,7 +378,7 @@ def _read_entry_file(path, name, info):
 
 def checkpoint_metadata(path, storage=None, check_crc=False):
     """Inspect a checkpoint WITHOUT loading tensors: ``step``,
-    ``step_counter``, ``timestamp``, ``tensor_count`` and
+    ``step_counter``, ``timestamp``, ``steps_per_run``, ``tensor_count`` and
     ``total_bytes``.  Raises ``ValueError`` with the reason when the
     checkpoint is torn, corrupt or uncommitted."""
     reason = _invalid_reason(path, check_crc=check_crc, storage=storage)
@@ -365,6 +390,7 @@ def checkpoint_metadata(path, storage=None, check_crc=False):
     return {"path": os.path.abspath(path), "step": int(body["step"]),
             "step_counter": int(body.get("step_counter", body["step"])),
             "timestamp": body.get("timestamp"),
+            "steps_per_run": body.get("steps_per_run"),
             "tensor_count": len(tensors),
             "total_bytes": sum(int(e["bytes"]) for e in tensors.values())}
 
@@ -419,10 +445,12 @@ class CheckpointManager:
                 "max_to_keep must be >= 1 (or None to keep all), got %r —"
                 " retention may never delete the only complete checkpoint"
                 % (max_to_keep,))
+        # windows (Executor.run_window): state exists only at window
+        # boundaries, so save() enforces the boundary and K is stamped
+        # into the manifest for the resumed job to check
         if steps_per_run is not None:
-            raise NotImplementedError(
-                "CheckpointManager(steps_per_run=...): the port has no "
-                "multi-step windows yet (ROADMAP queue 1 item 8)")
+            steps_per_run = flags.steps_per_run_value(steps_per_run)
+        self.steps_per_run = steps_per_run
         if (process_count is not None and int(process_count) > 1) or \
                 barrier is not None or consensus is not None:
             raise NotImplementedError(
@@ -473,27 +501,58 @@ class CheckpointManager:
         self.wait()
         scope, program = self._resolve(scope, main_program)
         step = int(scope.step_counter if step is None else step)
+        K = self.steps_per_run
+        # a windowed job checkpoints only AT a window boundary: the
+        # counter must sit where the last run_window left it (the marker
+        # the executor stamps).  The marker, not step % K, is the
+        # invariant — the startup run and per-step runs before the
+        # windows offset the counter.  No marker yet (nothing windowed
+        # ran) is trivially a boundary.
+        marker = getattr(scope, "_window_end", None)
+        if K is not None and K > 1 and marker is not None and \
+                step != int(marker):
+            raise ValueError(
+                "checkpoint step %d is not a window boundary (last "
+                "window ended at step %d): with steps_per_run=%d "
+                "(FLAGS_steps_per_run) state only exists at window "
+                "boundaries — save right after Executor.run_window "
+                "returns, before any per-step run() calls"
+                % (step, int(marker), K))
         meta = {"step": step, "step_counter": int(scope.step_counter),
                 "timestamp": time.time()}
+        if K is not None:
+            meta["steps_per_run"] = K
         final = os.path.join(self.dirname, _CKPT_PREFIX + str(step))
-        t0 = time.perf_counter()
-        snap = scope.snapshot(self._persistable_names(program))
-        self.snapshots += 1
-        self.last_snapshot_ms = (time.perf_counter() - t0) * 1e3
-        if self.async_save if sync is None else not sync:
-            self._thread = threading.Thread(
-                target=self._save_worker, args=(snap, meta, final),
-                name="checkpoint-save", daemon=True)
-            self._thread.start()
-        else:
-            self._write_and_commit(snap, meta, final)
+        # entering a save is forward progress; the snapshot (and a
+        # synchronous write) may take long on a big model
+        with watchdog.extend_deadline(
+                "checkpoint_save",
+                flags.get_flag("watchdog_checkpoint_grace_s")):
+            t0 = time.perf_counter()
+            snap = scope.snapshot(self._persistable_names(program))
+            self.snapshots += 1
+            self.last_snapshot_ms = (time.perf_counter() - t0) * 1e3
+            if self.async_save if sync is None else not sync:
+                _m_async_inflight.set(1)
+                self._thread = threading.Thread(
+                    target=self._save_worker, args=(snap, meta, final),
+                    name="checkpoint-save", daemon=True)
+                self._thread.start()
+            else:
+                self._write_and_commit(snap, meta, final)
         return final
 
     def _save_worker(self, snap, meta, final):
         try:
-            self._write_and_commit(snap, meta, final)
+            # a background uploader is invisible to the watchdog: its
+            # liveness is not training progress
+            with telemetry.suppress_progress():
+                self._write_and_commit(snap, meta, final)
         except BaseException as e:  # re-raised on next save()/wait()
+            _m_async_errors.inc()
             self._error = e
+        finally:
+            _m_async_inflight.set(0)
 
     def _write_and_commit(self, snap, meta, final):
         t0 = time.perf_counter()
@@ -514,6 +573,8 @@ class CheckpointManager:
         body = {"version": MANIFEST_VERSION, "step": meta["step"],
                 "step_counter": meta["step_counter"],
                 "timestamp": meta["timestamp"], "tensors": tensors}
+        if "steps_per_run" in meta:
+            body["steps_per_run"] = meta["steps_per_run"]
         if store.commit_via_marker:
             # a generic reader must demand the marker for this dir
             body["commit"] = "marker"
@@ -525,6 +586,8 @@ class CheckpointManager:
         self.saves += 1
         self.last_bytes = total
         self.last_save_s = time.perf_counter() - t0
+        profiler.record_checkpoint_save(self.last_save_s, total,
+                                        meta["step"])
         self.gc()
         _fault_point("after_gc:" + os.path.basename(final))
 
@@ -532,7 +595,12 @@ class CheckpointManager:
         """Join any in-flight async save; re-raise its error, if any."""
         thread, self._thread = self._thread, None
         if thread is not None:
-            thread.join()
+            t0 = time.perf_counter()
+            with watchdog.extend_deadline(
+                    "checkpoint_wait",
+                    flags.get_flag("watchdog_checkpoint_grace_s")):
+                thread.join()
+            _m_commit_wait.observe(time.perf_counter() - t0)
         err, self._error = self._error, None
         if err is not None:
             raise err
@@ -578,6 +646,12 @@ class CheckpointManager:
             raise NotImplementedError(
                 "restore(reshard=True): the port restores no resharded "
                 "checkpoint yet (ROADMAP queue 1 item 10)")
+        with watchdog.extend_deadline(
+                "checkpoint_restore",
+                flags.get_flag("watchdog_checkpoint_grace_s")):
+            return self._restore(path, scope, main_program, strict)
+
+    def _restore(self, path, scope, main_program, strict):
         scope, program = self._resolve(scope, main_program)
         if path is None:
             path = self.latest_checkpoint()
@@ -632,9 +706,21 @@ class CheckpointManager:
             scope.set_var(name, from_host(arr, self._device(scope, name),
                                           dtype))
         scope.step_counter = int(body.get("step_counter", body["step"]))
+        # the restored state IS a window boundary (save enforced it):
+        # re-stamp the marker so the job may save before its next window
+        scope._window_end = scope.step_counter
+        K = self.steps_per_run
+        saved_k = body.get("steps_per_run")
+        if K is not None and saved_k is not None and saved_k != K:
+            warnings.warn(
+                "checkpoint %r was written with steps_per_run=%d but "
+                "this manager is configured with steps_per_run=%d — "
+                "resuming is numerically fine, but window boundaries "
+                "shift" % (path, saved_k, K), stacklevel=3)
         return {"path": path, "step": int(body["step"]),
                 "step_counter": scope.step_counter,
-                "timestamp": body.get("timestamp")}
+                "timestamp": body.get("timestamp"),
+                "steps_per_run": saved_k}
 
     def _device(self, scope, name):
         held = scope.find_var(name)

@@ -31,6 +31,8 @@ from .data_types import from_host, to_numpy, widens
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         default_main_program)
 from .executor import CUDAPlace, device_for_place, global_scope
+# fluid.io.DataLoader / PyReader (reference fluid/io.py re-exports them)
+from .reader import DataLoader, PyReader  # noqa: F401
 
 # program serialization format versions this package loads (the
 # reference's framework/version.h IsProgramVersionSupported)

@@ -2,7 +2,8 @@
 
 Exports only what the port has ported: the layers that BERT, ResNet,
 LeNet, Transformer NMT and DeepFM training call, the unary layers of
-``ops.py``, the clips, and the learning-rate schedules.
+``ops.py``, the clips, the learning-rate schedules, and the in-program
+readers of ``io.py``.
 """
 
 from . import io
@@ -14,7 +15,8 @@ from . import math_op_patch
 from . import metric_op
 from . import learning_rate_scheduler
 
-from .io import data                                         # noqa: F401
+from .io import (data, py_reader, create_py_reader_by_data,  # noqa: F401
+                 double_buffer, read_file)
 from .nn import (fc, embedding, layer_norm, dropout, softmax,  # noqa: F401
                  matmul, scale, reshape, transpose, unsqueeze, slice,
                  gather, mean, softmax_with_cross_entropy, conv2d,

@@ -35,7 +35,7 @@ class ExecState:
     """Per-run execution state threaded through lowerings."""
 
     def __init__(self, blocks, step, seed, device, is_test=False,
-                 amp_dtype=None, amp_keep=False):
+                 amp_dtype=None, amp_keep=False, nan_log=None):
         self.blocks = blocks    # program blocks
         self.step = step        # host int, increments per run
         self.seed = seed        # program random seed
@@ -48,6 +48,10 @@ class ExecState:
         # tape key -> [(leaves, outputs)] of taped forward ops whose
         # _grad op has not run yet (tape_grad_lower pops them)
         self.tape = {}
+        # FLAGS_check_nan_inf=raise: a list the run appends (op type,
+        # output name, 0-d finiteness tensor) to for every float output
+        # of every op; the executor reads it back once, after the run
+        self.nan_log = nan_log
 
 
 def amp_operands(state, *vals):
@@ -130,10 +134,24 @@ def run_block(block, env, state, taped=None, release=None):
     op that names them."""
     taped = taped or {}
     release = release or {}
+    nan_log = state.nan_log
     for i, op in enumerate(block.ops):
         dispatch(op, env, state, block, taped.get(i))
+        if nan_log is not None:
+            _log_finite(op, env, nan_log)
         for n in release.get(i, ()):
             env.pop(n, None)
+
+
+def _log_finite(op, env, log):
+    """FLAGS_check_nan_inf=raise (JAX lowering.py:284): the finiteness
+    of every float output of ``op``, as 0-d tensors on the device — no
+    read-back here."""
+    for names in op.outputs.values():
+        for n in names:
+            v = env.get(n) if n else None
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                log.append((op.type, n, torch.isfinite(v).all()))
 
 
 def plan_release(block, keep):

@@ -16,11 +16,14 @@
   per-request responses out of the padded rows.  Padding rows never leak
   into real rows.
 - **Backpressure** rejects (counted) beyond ``max_queue`` queued requests.
+- **Production edges** — a preemption stop (``fluid.preemption``:
+  SIGTERM through ``install()``, or ``request_stop()``) closes admission
+  and drains like ``close()``; every idle wait of the scheduler goes
+  through ``reader.stop_aware_get``, which sees the stop.  The JAX
+  package's ``serving_*`` metrics land in the telemetry registry.
 
 :meth:`ServingExecutor.from_inference_model` serves a
-``save_inference_model`` export of either package.  Not ported yet
-(ROADMAP.md queue 1 item 8): the process-wide telemetry metrics and the
-preemption (SIGTERM drain) hooks.
+``save_inference_model`` export of either package.
 
 Usage::
 
@@ -42,10 +45,54 @@ import numpy as np
 import torch
 
 from . import flags
+from . import preemption
+from . import telemetry
 from .data_types import canonical_dtype, np_dtype, to_numpy
+from .reader import QUEUE_DRAINED, stop_aware_get
 
 __all__ = ["ServingExecutor", "ServingError", "ServingRejectedError",
            "ServingClosedError", "bucket_ladder"]
+
+# telemetry (the JAX package's names, serving.py:66-112)
+_m_requests = telemetry.counter(
+    "serving_requests_total", "requests accepted into the serving queue")
+_m_responses = telemetry.counter(
+    "serving_responses_total", "requests answered (future completed)")
+_m_rejects = telemetry.counter(
+    "serving_rejects_total",
+    "requests rejected before admission, by reason "
+    "(queue_full | too_large | closed)")
+_m_recompiles = telemetry.counter(
+    "serving_recompiles_total",
+    "dispatch plans built by a QUEUED serving dispatch — 0 forever "
+    "after warmup() is the shape-discipline contract")
+_m_batches = telemetry.counter(
+    "serving_batches_total", "padded batches dispatched, by bucket")
+_m_padded_rows = telemetry.counter(
+    "serving_padded_rows_total",
+    "padding rows dispatched (bucket minus real rows)")
+_m_errors = telemetry.counter(
+    "serving_errors_total", "batches whose dispatch/completion raised "
+    "(every affected request future carries the exception)")
+_m_cancelled = telemetry.counter(
+    "serving_cancelled_total",
+    "accepted requests dropped at dispatch because the client "
+    "cancelled the future while it was queued")
+_m_depth = telemetry.gauge(
+    "serving_queue_depth", "requests accepted but not yet dispatched")
+_m_occupancy = telemetry.gauge(
+    "serving_batch_occupancy_frac",
+    "real rows / bucket rows of the most recent dispatch (1.0 = no "
+    "padding wasted)")
+# request latency split: time WAITING for a batch to form vs dispatch to
+# outputs on the host
+_LAT_BUCKETS = (1e-4, 5e-4, 1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0, 10.0)
+_m_queue_wait = telemetry.histogram(
+    "serving_queue_wait_seconds",
+    "submit-to-dispatch wait per request", buckets=_LAT_BUCKETS)
+_m_compute = telemetry.histogram(
+    "serving_compute_seconds",
+    "dispatch-to-host-output wall per batch", buckets=_LAT_BUCKETS)
 
 
 def normalize_feed_specs(feed_specs):
@@ -63,29 +110,6 @@ def normalize_feed_specs(feed_specs):
             specs[name] = (tuple(int(d) for d in shape),
                            canonical_dtype(dtype))
     return specs
-
-
-# sentinel: the queue drained under a stop request — distinct from any
-# item a producer could legally enqueue (incl. None)
-QUEUE_DRAINED = object()
-
-
-def stop_aware_get(q, stopping, poll_s=0.1):
-    """Pull one item from ``q`` without ever parking on a queue nobody
-    will fill: poll with a bounded timeout and give up once ``stopping()``
-    is true with the queue still empty.  One final non-blocking pull
-    closes the timed-out-while-the-item-landed race.  Returns the item or
-    :data:`QUEUE_DRAINED` (private copy of ``paddle_tpu/fluid/reader.py:
-    105-108``, without the preemption flag)."""
-    while True:
-        try:
-            return q.get(timeout=poll_s)
-        except queue.Empty:
-            if stopping():
-                try:
-                    return q.get_nowait()
-                except queue.Empty:
-                    return QUEUE_DRAINED
 
 
 class ServingError(RuntimeError):
@@ -293,7 +317,7 @@ class ServingExecutor:
 
     # -- admission ---------------------------------------------------------
     def _draining(self):
-        return self._closed.is_set()
+        return self._closed.is_set() or preemption.stop_requested()
 
     def submit(self, feed):
         """Admit one request; returns a ``concurrent.futures.Future``
@@ -317,6 +341,7 @@ class ServingExecutor:
         feeds, rows = self._validate(feed)
         if rows > self.buckets[-1]:
             self._n_rejects += 1
+            _m_rejects.inc(reason="too_large")
             raise ServingRejectedError(
                 "request rows %d exceed the largest bucket %d — raise "
                 "max_batch/FLAGS_serving_buckets or split the request"
@@ -326,17 +351,21 @@ class ServingExecutor:
         with self._lock:
             if self._admission_closed or self._draining():
                 self._n_rejects += 1
+                _m_rejects.inc(reason="closed")
                 raise ServingClosedError(
-                    "serving executor is draining (close()) — admission "
-                    "is closed")
+                    "serving executor is draining (close() or a "
+                    "preemption stop) — admission is closed")
             if self._pending >= self._max_queue:
                 self._n_rejects += 1
+                _m_rejects.inc(reason="queue_full")
                 raise ServingRejectedError(
                     "serving queue full (%d queued >= max_queue=%d) — "
                     "backpressure; shed or retry"
                     % (self._pending, self._max_queue))
             self._pending += 1
             self._n_requests += 1
+            _m_requests.inc()
+            _m_depth.set(self._pending)
             # put under the lock: the scheduler's final sweep takes the
             # same lock before closing admission, so a request that
             # passed the checks above is visible to the sweep
@@ -469,8 +498,8 @@ class ServingExecutor:
                 if carry is not None:
                     req, carry = carry, None
                 else:
-                    req = stop_aware_get(self._queue, self._closed.is_set,
-                                         poll_s=0.05)
+                    req = stop_aware_get(self._queue, poll_s=0.05,
+                                         stopping=self._idle_poll)
                     if req is QUEUE_DRAINED:
                         break
                 batch, rows = [req], req.rows
@@ -545,6 +574,13 @@ class ServingExecutor:
         finally:
             self._done.put(None)     # completion thread's end sentinel
 
+    def _idle_poll(self):
+        """The scheduler's empty-queue poll (stop_aware_get consults it
+        each timeout, besides the preemption flag).  An idle server is
+        alive, not hung: stamp watchdog progress."""
+        telemetry.record_progress("serving_idle")
+        return self._closed.is_set()
+
     def _dispatch_batch(self, batch):
         """Pad to the smallest fitting bucket and dispatch ONE async
         executor call for the whole batch; hand the live fetches and the
@@ -565,12 +601,15 @@ class ServingExecutor:
             live = [r for r in batch
                     if r.future.set_running_or_notify_cancel()]
             self._n_cancelled += admitted - len(live)
+            if admitted > len(live):
+                _m_cancelled.inc(admitted - len(live))
             batch = live    # the except path must not re-handle
             #                 futures the completed fence dropped
             if not batch:
                 with self._lock:
                     self._pending -= admitted
                 released = True
+                _m_depth.set(self._pending)
                 return
             rows = sum(r.rows for r in batch)
             bucket = self._bucket_for(rows)
@@ -593,20 +632,26 @@ class ServingExecutor:
             if compiled and self._warmed:
                 # the pinned contract: stays 0 forever after warmup()
                 self._n_recompiles += compiled
+                _m_recompiles.inc(compiled)
             for r in batch:
                 r.t_dispatch = t0
             with self._lock:
                 self._pending -= admitted
             released = True
+            _m_depth.set(self._pending)
             self._n_batches += 1
             self._n_rows += rows
             self._n_padded += pad
             self._occ_sum += rows / float(bucket)
+            _m_batches.inc(bucket=bucket)
+            _m_padded_rows.inc(pad)
+            _m_occupancy.set(round(rows / float(bucket), 4))
             self._done.put(_Dispatched(batch, rows, bucket, fetches, ready))
         except BaseException as e:
             # the batch has NOT reached the completion thread —
             # _done.put is the try's last statement — so claimed and
             # still-pending futures take the exception here
+            _m_errors.inc()
             for r in batch:
                 self._fail_request(r, e)
             if not released:
@@ -628,21 +673,27 @@ class ServingExecutor:
                     item.ready.synchronize()
                 arrays = [to_numpy(f) for f in item.fetches]
             except BaseException as e:
+                _m_errors.inc()
                 for r in item.batch:
                     _resolve(r.future, e)
                 continue
+            t_done = time.perf_counter()
+            _m_compute.observe(t_done - item.batch[0].t_dispatch)
             off = 0
             for r in item.batch:
                 outs = [a[off:off + r.rows].copy() for a in arrays]
                 off += r.rows
+                _m_queue_wait.observe(r.t_dispatch - r.t_submit)
                 if _resolve(r.future, None, outs):
                     self._n_responses += 1
+                    _m_responses.inc()
 
     def _fail_request(self, req, exc):
         """Answer one request with ``exc``; a request the client
         cancelled first folds into the cancelled count instead."""
         if not _resolve(req.future, exc) and req.future.cancelled():
             self._n_cancelled += 1
+            _m_cancelled.inc()
 
     def _fail_queued(self, exc):
         drained = 0
@@ -656,16 +707,21 @@ class ServingExecutor:
         if drained:
             with self._lock:
                 self._pending -= drained
+            _m_depth.set(self._pending)
 
     # -- shutdown ----------------------------------------------------------
     def close(self, timeout=60.0):
         """Graceful drain: stop admission, answer every accepted
-        request, join both threads.  Idempotent.
+        request, join both threads, flush metrics.  Idempotent; also the
+        preemption path — a stop request flips the scheduler into drain
+        mode on its own, and ``close()`` then joins and records the
+        drain (``preemption.record_drain(source="serving")``).
 
         Raises :class:`ServingError` if the drain does not finish
         within ``timeout`` — a wedged thread must NOT be reported as a
         clean drain."""
         t0 = time.perf_counter()
+        was_stop = preemption.stop_requested()
         self._closed.set()
         sched = self._scheduler_thread
         if sched is not None:
@@ -682,6 +738,15 @@ class ServingExecutor:
                     "drain did not finish within %.1fs (%s still "
                     "alive, %d requests pending); call close() again "
                     "to retry" % (timeout, ", ".join(stuck), self._pending))
+        _m_depth.set(0)
+        if was_stop:
+            # the serving analogue of the training drain record:
+            # requests answered instead of steps, nothing to checkpoint
+            preemption.record_drain(
+                step=self._n_responses,
+                dur_ns=int((time.perf_counter() - t0) * 1e9),
+                saved=False, source="serving")
+        telemetry.close_jsonl()
         if self._failure is not None:
             raise ServingError(
                 "serving executor failed during drain: %s"

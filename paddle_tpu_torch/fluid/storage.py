@@ -20,9 +20,9 @@ hard-coded POSIX assumption:
   with bounded exponential backoff.
 
 This is the port's copy of ``paddle_tpu/fluid/storage.py``, single
-process.  Left for later: the telemetry counters and the watchdog's
-deadline extension around a retry's sleep (ROADMAP queue 1 item 8), and
-``MixedProtocolReader``, the claim lease that pod saves write first and
+process, with its retry counters (``storage_retry_total{backend}``,
+``storage_retry_exhausted_total``) and the watchdog's deadline extension
+around a retry's sleep.  Left for later: ``MixedProtocolReader``, the claim lease that pod saves write first and
 the debris reaper's minimum-age guard, all of which exist for several
 writers under one prefix (item 10).
 
@@ -45,6 +45,16 @@ import re
 import shutil
 import time
 import zlib
+
+from . import telemetry
+from . import watchdog
+
+_m_retries = telemetry.counter(
+    "storage_retry_total",
+    "transient storage I/O errors retried, by backend")
+_m_retry_exhausted = telemetry.counter(
+    "storage_retry_exhausted_total",
+    "storage operations that failed after the whole retry budget")
 
 
 MARKER_NAME = "_COMMITTED.json"
@@ -159,11 +169,15 @@ class ObjectStoreStorage(Storage):
                 last = e
                 if attempt >= self.retries:
                     break
-                # the JAX package counts the retry here and stretches
-                # the watchdog's deadline over the sleep; the port has
-                # neither yet (ROADMAP queue 1 item 8)
-                time.sleep(delay)
+                _m_retries.inc(backend=self.name)
+                # a retry backoff is the runtime coping with a flaky
+                # store, not a hang: the deadline stretches by the sleep
+                # plus headroom for the re-attempt
+                with watchdog.extend_deadline("storage_retry",
+                                              2.0 * delay + 1.0):
+                    time.sleep(delay)
                 delay *= 2
+        _m_retry_exhausted.inc(backend=self.name)
         raise last
 
     # -- write/commit protocol ---------------------------------------------

@@ -585,3 +585,69 @@ def test_lookup_gradient_repeats_bit_for_bit_on_the_card():
         0, ids.cpu(), g.cpu().double())
     assert float((grads[0].cpu().double() - want).abs().max()) < 1e-3
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+def _ring_batches(n=12, seed=0):
+    rng = np.random.RandomState(seed)
+    return [{"x": rng.randn(4, 256, 128).astype(np.float32),
+             "ids": rng.randint(0, 30522, (4, 128)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def _through_ring(batches, depth):
+    """Every feed of ``batches`` staged on the card by a CardStager
+    through ``prefetch_ahead`` at ``depth``, copied on the compute
+    stream as it arrives and read back at the end."""
+    from paddle_tpu_torch.fluid import reader as port_reader
+    from paddle_tpu_torch.fluid.executor import prefetch_ahead
+    stager = port_reader.CardStager(torch.device("cuda", 0))
+    kept = [{k: v.clone() for k, v in d.items()}
+            for d in prefetch_ahead(stager, iter(batches), depth=depth)]
+    return [{k: v.cpu().numpy() for k, v in d.items()} for d in kept]
+
+
+@pytest.mark.cuda
+def test_pinned_feed_ring_on_the_card_is_bit_equal_to_depth_0():
+    """The feed ring (pinned buffers, side-stream copies, events) and the
+    synchronous depth-0 path give the host's bits, every batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.fluid import telemetry
+    batches = _ring_batches()
+    pinned = telemetry.registry().get("feed_pinned_copies_total")
+    c0 = pinned.value()
+    ring = _through_ring(batches, 2)
+    assert pinned.value() == c0 + len(batches)
+    sync = _through_ring(batches, 0)
+    assert pinned.value() == c0 + len(batches)
+    for r, s, b in zip(ring, sync, batches):
+        for k in b:
+            np.testing.assert_array_equal(r[k], b[k])
+            np.testing.assert_array_equal(s[k], b[k])
+
+
+@pytest.mark.cuda
+def test_a_pinned_buffer_is_refilled_only_after_its_copy(monkeypatch):
+    """Each side-stream copy is held back ~25 ms behind a spin kernel, so
+    the producer comes back for a recycled pinned buffer while the copy
+    that reads it is still queued.  With the event gate the feeds are
+    right; with the gate planted away (``_gate`` a no-op) the early
+    refill overwrites a buffer before its copy ran and the check sees
+    wrong feeds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.fluid import reader as port_reader
+    real = port_reader._h2d
+
+    def slow_copy(dst, src):
+        torch.cuda._sleep(50_000_000)
+        real(dst, src)
+    monkeypatch.setattr(port_reader, "_h2d", slow_copy)
+    batches = _ring_batches(n=8, seed=1)
+
+    def matches(got):
+        return all(np.array_equal(g[k], b[k])
+                   for g, b in zip(got, batches) for k in b)
+    assert matches(_through_ring(batches, 2))
+    monkeypatch.setattr(port_reader, "_gate", lambda event: None)
+    assert not matches(_through_ring(batches, 2))
