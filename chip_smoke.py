@@ -67,6 +67,21 @@ non-zero exit (nothing is caught):
    per step, ms per step, sequences/s, tokens/s, peak memory, one
    profiled step; then fused vs composition path and card vs the port's
    CPU path (batch 2) on the step-1 loss and named gradients.
+9b. dp_train: phase 9 again as one rank of an NCCL world, a child of
+   ``python -m paddle_tpu_torch.distributed.launch``: BERT-base through
+   fleet.distributed_optimizer (fused GradAllReduce, 32 MB buckets) from
+   phase 9's initial parameters and batch, 10 steps: the NCCL backend,
+   one c_allreduce_sum per bucket a step, 12 K2/K3/K4 and 0 K5 a step,
+   losses and parameters bit-equal to phase 9's (or within twice the
+   spread of a second plain run); ms per step against phase 9's, the
+   collective bytes a step and one profiled step's NCCL device time.
+9c. dp_two_ranks: two ranks on card 0 over gloo (--selected_devices
+   0,0), BERT-base with all dropout off, 16 of phase 9's rows each, 3
+   steps, against one process on the 32 rows: the mean of the ranks'
+   losses within 1e-4, the parameters within 1e-3 relative L2 (or twice
+   the spread of the one process fed its rows in the other order), the
+   ranks' parameters bit-equal after every step, and the two ranks'
+   dropout masks different.
 10. train_bias: an attention layer whose bias is a trainable [1,H,S,S]
    parameter — the path that launches K5 — against the composition path.
 11. train_attn_dropout: BERT with attention dropout 0.1 at 2 layers, the
@@ -86,6 +101,13 @@ non-zero exit (nothing is caught):
    port's CPU path (fp32, batch 2), on the loss and chosen gradients,
    each within the larger of its fixed bound and twice the spread of a
    route that runs no K1 either.
+13b. dp_resnet: phase 12's program through
+   CompiledProgram.with_data_parallel with BuildStrategy.sync_batch_norm
+   as one NCCL rank (a child of the launcher), from phase 12's startup
+   weights, 10 steps: 53 sync_batch_norm ops with one all-reduce each
+   and 13 wgmma K1 a step, one c_allreduce_sum per bucket a step, each
+   loss within resnet_check's 1e-2 of phase 12's; ms per step against
+   phase 12's.
 14. ln_path: a fused_layer_norm program forward and backward through
    Executor: one K6 launch per run, and the gradients of the layer_norm
    op's program.
@@ -178,13 +200,16 @@ non-zero exit (nothing is caught):
    one kind="hang" record naming feed_wait.
 27. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's and ResNet-50
-   inference's).
+   inference's; the data-parallel paths' as their rank 0 counted them).
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
-no result, where torch.cuda.is_available() is false.
+no result, where torch.cuda.is_available() is false.  ``python3
+chip_smoke.py dp_child <mode> <dir>`` is a data-parallel phase's rank
+(the launcher runs it; not for direct use).
 """
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1397,11 +1422,13 @@ def phase_train():
          adam_ops=ops.count("adam"),
          fused_attention_grad_ops=ops.count("fused_attention_grad"))
     feed = _train_feed(cfg, BT, SEED)
+    init = _host_params(main, scope)        # dp_train starts from these
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts go to 0 here and are read after it
     _reset_launches()
     got, step_ms = _train_steps(exe, main, [feed], [out["loss"]], scope)
     launches = _launches()
+    final = _host_params(main, scope)
     losses = [float(g[0].item()) for g in got]
     steps = len(got)
     per_step = {n: c / steps for n, c in launches.items()}
@@ -1462,7 +1489,8 @@ def phase_train():
          loss_card_b2=card2[0], loss_cpu_b2=cpu2[0], cpu_seconds=cpu_s,
          card_vs_cpu=dict(loss_rel=cpu_loss, grads=cpu_g), checks=checks)
     _fail_unless("train", checks)
-    return dict(launches=launches, ms_per_step=step_ms)
+    return dict(launches=launches, ms_per_step=step_ms, init=init,
+                final=final, losses=losses, feed=feed)
 
 
 def _bias_program(fused, optimizer=None, B_=8):
@@ -1901,7 +1929,8 @@ def phase_resnet_train():
     checks.update(phase_resnet_check(exe, main, loss, init, feed))
     _fail_unless("resnet_train", checks)
     return dict(launches=launches, ms_per_step=step_ms,
-                k1_launches_by_variant=k1_variants)
+                k1_launches_by_variant=k1_variants, init=init,
+                losses=losses)
 
 
 def phase_resnet_check(exe, main, loss, init, feed):
@@ -3629,6 +3658,465 @@ def phase_watchdog_stall():
     })
 
 
+# ---------------------------------------------------------------------------
+# Data parallel: each rank a child of the port's launcher
+# ---------------------------------------------------------------------------
+
+DP_TWO_ROWS = 16              # dp_two_ranks: rows per rank (2 x 16 = BT)
+DP_TWO_STEPS = 3
+DP_TWO_LOSS_RTOL = 1e-4       # mean of the ranks' losses vs one process
+DP_TWO_PARAM_TOL = 1e-3       # parameters, relative L2 (or 2 x a spread)
+
+
+def _host_params(main, scope):
+    """{parameter: a host copy} of ``main``'s parameters in ``scope``."""
+    return {p.name: scope.find_var(p.name).detach().to("cpu", copy=True)
+            for p in main.global_block().all_parameters()}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _launch_ranks(mode, devices, d, timeout=900):
+    """Run this script's ``dp_child <mode> <d>`` as one rank per entry of
+    ``devices`` under ``python -m paddle_tpu_torch.distributed.launch``;
+    returns (each rank's JSON, wall seconds).  On a timeout the launcher
+    gets SIGTERM, which it forwards to every rank (SIGKILL after its
+    grace period), so no child outlives the phase."""
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(here)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--selected_devices", ",".join(map(str, devices)),
+           "--coordinator", "127.0.0.1:%d" % _free_port(),
+           "--log_dir", str(d / "logs"), "--grace_period", "10",
+           str(Path(__file__).resolve()), "dp_child", mode, str(d)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=str(here),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        out, err = proc.communicate(timeout=60)
+        err += "\n(timed out after %d s)" % timeout
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        logs = [(d / "logs" / ("workerlog.%d" % r)).read_text()[-4000:]
+                for r in range(len(devices))
+                if (d / "logs" / ("workerlog.%d" % r)).exists()]
+        raise SystemExit("%s: the launcher exited %s\n%s\n%s" % (
+            mode, proc.returncode, err[-3000:], "\n".join(logs)))
+    return [json.loads((d / ("rank%d.json" % r)).read_text())
+            for r in range(len(devices))], wall
+
+
+def _nccl_profile(exe, prog, feed, fetch, scope):
+    """One profiled step: wall ms, kernel ms and the NCCL kernels' ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                return_numpy=False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in kern if "nccl" in e.key.lower()]
+    return dict(wall_ms=wall,
+                kernel_ms=sum(e.self_device_time_total for e in kern) / 1e3,
+                nccl_ms=sum(e.self_device_time_total for e in nccl) / 1e3,
+                nccl_kernels=sorted({e.key[:60] for e in nccl}))
+
+
+def _comm_per_step(steps):
+    """Collective bytes of the last ``steps`` dispatches' step events."""
+    from paddle_tpu_torch.fluid import telemetry
+    ev = telemetry.step_events()[-steps:]
+    return dict(bytes=[e["comm_bytes"] for e in ev],
+                by=ev[-1]["comm_by"] if ev else None,
+                buckets=[e["comm_buckets"] for e in ev])
+
+
+def _rank_feed(feed, rank, rows=DP_TWO_ROWS):
+    """Rank ``rank``'s rows of a pretraining batch, its masked positions
+    re-based onto its own rows."""
+    S_ = feed["src_ids"].shape[1]
+    r0 = rank * rows
+    out = {k: feed[k][r0:r0 + rows] for k in
+           ("src_ids", "pos_ids", "sent_ids", "input_mask", "nsp_label")}
+    p0 = r0 * MAX_PRED
+    out["mask_pos"] = feed["mask_pos"][p0:p0 + rows * MAX_PRED] - r0 * S_
+    out["mask_label"] = feed["mask_label"][p0:p0 + rows * MAX_PRED]
+    return out
+
+
+def _digest(tensors):
+    """One int64 per tensor: the sum of its float32 bits, so two ranks
+    whose tensors differ in any bit almost surely differ here."""
+    return [int(t.detach().float().view(torch.int32).sum(dtype=torch.int64))
+            for t in tensors]
+
+
+def _child_world(backend):
+    from paddle_tpu_torch.fluid import distributed as dist
+    from paddle_tpu_torch.fluid.incubate.fleet.base import role_maker
+    from paddle_tpu_torch.fluid.incubate.fleet.collective import fleet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, n = dist.init(backend=backend)
+    fleet.init(role_maker.PaddleCloudRoleMaker(is_collective=True))
+    exe = fluid.Executor(fluid.CUDAPlace(dist.local_device_index()))
+    return rank, n, fleet, exe
+
+
+def _child_train(d, mode):
+    """A rank of dp_train (NCCL, one rank, phase train's batch) or of
+    dp_two_ranks (gloo, dropout off, its rows of the batch): BERT-base
+    through fleet.distributed_optimizer from phase train's initial
+    parameters."""
+    from paddle_tpu_torch.fluid.ops import collective_ops
+    two = mode == "two_ranks"
+    rank, n, fleet, exe = _child_world("gloo" if two else "nccl")
+    cfg = bert.base_config(attn_dropout=0.0, **(
+        dict(hidden_dropout=0.0) if two else {}))
+    main, startup, out = _build_pretrain(cfg, fleet.distributed_optimizer(
+        fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR)))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for name, t in torch.load(d / "init.pt").items():
+        scope.set_var(name, t.to(exe.device))
+    feed = dict(np.load(d / "feed.npz"))
+    if two:
+        feed = _rank_feed(feed, rank)
+    ops = [op.type for op in main.global_block().ops]
+    res = dict(rank=rank, world=n,
+               backend=torch.distributed.get_backend(),
+               buckets=ops.count("c_allreduce_sum"))
+    collective_ops.reset_calls()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    if two:
+        losses, digests = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TWO_STEPS):
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[out["loss"]],
+                                        scope=scope)[0].reshape(-1)[0]))
+            params = [scope.find_var(p.name) for p in
+                      main.global_block().all_parameters()]
+            digests.append(_digest(params))
+        torch.cuda.synchronize()
+        res.update(ms_per_step=(time.perf_counter() - t0) * 1e3 /
+                   DP_TWO_STEPS, digests=digests)
+        steps = DP_TWO_STEPS
+    else:
+        got, step_ms = _train_steps(exe, main, [feed], [out["loss"]], scope)
+        losses = [float(g[0].item()) for g in got]
+        steps = len(got)
+        res.update(ms_per_step=step_ms)
+    res.update(losses=losses, launches=_launches(),
+               calls=dict(collective_ops.calls),
+               comm=_comm_per_step(steps))
+    if rank == 0:
+        torch.save(_host_params(main, scope), d / "final.pt")
+    if two:
+        # hidden dropout as BERT draws it: ranks fold their rank into
+        # the seed, so their masks differ
+        dmain = fluid.Program()
+        dmain.random_seed = SEED
+        with fluid.program_guard(dmain, fluid.Program()):
+            x = fluid.layers.data(name="x", shape=[768], dtype="float32")
+            y = fluid.layers.dropout(x, dropout_prob=0.1)
+        mask = exe.run(dmain, feed={"x": np.ones((8, 768), np.float32)},
+                       fetch_list=[y], scope=fluid.Scope())[0] == 0
+        res["dropout_mask"] = hashlib.sha1(np.packbits(mask)).hexdigest()
+        res["dropout_kept"] = float(1 - mask.mean())
+    else:
+        res["profile"] = _nccl_profile(exe, main, feed, [out["loss"]], scope)
+        # the plain program in this process, for the step time alone
+        pmain, pstartup, pout = _build_pretrain(cfg)
+        res["plain_ms_per_step"] = _plain_ms(
+            exe, pmain, pstartup, pout["loss"], feed, d / "init.pt")
+    return res
+
+
+def _plain_ms(exe, main, startup, loss, feed, init_path):
+    """ms per timed step of ``main`` (no collectives) from the state in
+    ``init_path``, in the calling rank's process."""
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for name, t in torch.load(init_path).items():
+        scope.set_var(name, t.to(exe.device))
+    return _train_steps(exe, main, [feed], [loss], scope)[1]
+
+
+def _child_resnet(d):
+    """The rank of dp_resnet: bench_resnet's program (FLAGS_conv_pallas=1)
+    through CompiledProgram.with_data_parallel with sync batch norm, from
+    resnet_train's startup weights, on one rank over NCCL."""
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.fluid.ops import collective_ops
+    rank, n, _fleet, exe = _child_world("nccl")
+    flags.set_flag("conv_pallas", True)
+    main, startup, loss = _resnet_program()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for name, t in torch.load(d / "init.pt").items():
+        scope.set_var(name, t.to(exe.device))
+    bs = fluid.BuildStrategy()
+    bs.sync_batch_norm = True
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, build_strategy=bs)
+    feed = {k: torch.from_numpy(v).to(exe.device)
+            for k, v in _resnet_feed(RN_BATCH, SEED).items()}
+    collective_ops.reset_calls()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    got, step_ms = _train_steps(exe, compiled, [feed], [loss], scope)
+    launches = _launches()
+    k1_variants = dict(conv3x3_bn_relu.launches_by_variant)
+    calls = dict(collective_ops.calls)
+    ops = [op.type for op in compiled._dp[1].global_block().ops]
+    comm = _comm_per_step(len(got))
+    profile = _nccl_profile(exe, compiled, feed, [loss], scope)
+    return dict(rank=rank, world=n, backend=torch.distributed.get_backend(),
+                losses=[float(g[0].float().item()) for g in got],
+                ms_per_step=step_ms, launches=launches,
+                k1_launches_by_variant=k1_variants,
+                sync_batch_norm=ops.count("sync_batch_norm"),
+                batch_norm=ops.count("batch_norm"),
+                buckets=ops.count("c_allreduce_sum"),
+                calls=calls, comm=comm, profile=profile,
+                plain_ms_per_step=_plain_ms(exe, main, startup, loss, feed,
+                                            d / "init.pt"))
+
+
+def dp_child(mode, d):
+    d = Path(d)
+    res = _child_resnet(d) if mode == "resnet" else _child_train(d, mode)
+    (d / ("rank%d.json" % res["rank"])).write_text(json.dumps(res))
+    from paddle_tpu_torch.fluid import distributed as dist
+    dist.shutdown()
+    return 0
+
+
+def _params_equal(a, b):
+    return all(torch.equal(a[n], b[n]) for n in b)
+
+
+def _max_diff(a, b):
+    return {n: float((a[n].double() - b[n].double()).abs().max()) for n in b}
+
+
+def phase_dp_train(train):
+    """BERT-base as phase train runs it, through fleet.distributed_optimizer
+    (fused GradAllReduce, 32 MB buckets) as one rank of an NCCL world
+    under the launcher, from train's initial parameters and batch: the
+    losses and parameters after the 10 steps bit-equal to train's, or
+    within twice the spread of two plain runs."""
+    d = _io_dir("dp_train")
+    torch.save(train["init"], d / "init.pt")
+    np.savez(d / "feed.npz", **train["feed"])
+    torch.cuda.empty_cache()
+    (r,), wall = _launch_ranks("train", [0], d)
+    final = torch.load(d / "final.pt")
+    steps = len(r["losses"])
+    launches = r["launches"]
+    bit_equal = r["losses"] == train["losses"] and \
+        _params_equal(final, train["final"])
+    held = "bit_equal"
+    spread = None
+    if not bit_equal:
+        # a second plain run from the same state: its distance to the
+        # first is the spread the DP run is held to
+        cfg = bert.base_config(attn_dropout=0.0)
+        main, startup, out = _build_pretrain(cfg)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        for name, t in train["init"].items():
+            scope.set_var(name, t.to("cuda"))
+        got, _ms = _train_steps(exe, main, [train["feed"]], [out["loss"]],
+                                scope)
+        again = _host_params(main, scope)
+        p_spread = _max_diff(again, train["final"])
+        l_spread = max(abs(float(g[0].item()) - w)
+                       for g, w in zip(got, train["losses"]))
+        p_err = _max_diff(final, train["final"])
+        l_err = max(abs(a - b) for a, b in zip(r["losses"],
+                                                train["losses"]))
+        held = "spread" if l_err <= 2 * l_spread and all(
+            p_err[n] <= 2 * p_spread[n] for n in p_err) else "neither"
+        spread = dict(loss_err=l_err, loss_spread=l_spread,
+                      param_err_max=max(p_err.values()),
+                      param_spread_max=max(p_spread.values()))
+    L = 12
+    checks = {
+        "backend_nccl": r["backend"] == "nccl",
+        "world_of_one": r["world"] == 1,
+        "allreduce_calls_equal_buckets": r["calls"].get(
+            "c_allreduce_sum") == r["buckets"] * steps,
+        "k2_k3_k4_12_per_step": all(launches[k] == L * steps for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")),
+        "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+        "matches_train": held in ("bit_equal", "spread"),
+    }
+    emit(phase="dp_train", seconds=wall, steps=steps, losses=r["losses"],
+         ms_per_step=r["ms_per_step"], train_ms_per_step=train["ms_per_step"],
+         ratio_to_train=r["ms_per_step"] / train["ms_per_step"],
+         plain_ms_per_step_same_process=r["plain_ms_per_step"],
+         ratio_to_plain_same_process=r["ms_per_step"] /
+         r["plain_ms_per_step"],
+         backend=r["backend"], buckets=r["buckets"], calls=r["calls"],
+         calls_per_step={k: v / steps for k, v in r["calls"].items()},
+         comm_bytes_per_step=r["comm"]["bytes"], comm_by=r["comm"]["by"],
+         profile=r["profile"], launches=launches, held=held, spread=spread,
+         checks=checks)
+    _fail_unless("dp_train", checks)
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def phase_dp_two_ranks(train):
+    """BERT-base with all dropout off as two ranks on card 0 over gloo
+    (--selected_devices 0,0), 16 rows each, 3 steps, against one process
+    on the 32 rows: the mean of the ranks' losses within 1e-4, the
+    parameters within 1e-3 relative L2 (or twice the spread of the one
+    process fed its rows in the other order), the ranks' parameters
+    bit-equal after every step, and two ranks' dropout masks different."""
+    d = _io_dir("dp_two_ranks")
+    torch.save(train["init"], d / "init.pt")
+    np.savez(d / "feed.npz", **train["feed"])
+    torch.cuda.empty_cache()
+    ranks, wall = _launch_ranks("two_ranks", [0, 0], d)
+    final = torch.load(d / "final.pt")
+
+    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
+    main, startup, out = _build_pretrain(cfg)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+
+    def one_process(feed):
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        for name, t in train["init"].items():
+            scope.set_var(name, t.to("cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main, feed=feed, fetch_list=[out["loss"]],
+                                scope=scope)[0].reshape(-1)[0])
+                  for _ in range(DP_TWO_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DP_TWO_STEPS
+        return losses, _host_params(main, scope), ms
+
+    def l2(a, b):
+        num = sum(float(((a[n].double() - b[n].double()) ** 2).sum())
+                  for n in b)
+        den = sum(float((b[n].double() ** 2).sum()) for n in b)
+        return math.sqrt(num / den)
+
+    ref_losses, ref, ref_ms = one_process(train["feed"])
+    mean = [(a + b) / 2 for a, b in zip(ranks[0]["losses"],
+                                        ranks[1]["losses"])]
+    loss_err = max(abs(m - w) / abs(w) for m, w in zip(mean, ref_losses))
+    param_err = l2(final, ref)
+    bound = DP_TWO_PARAM_TOL
+    spread = None
+    if param_err > bound:
+        swapped = {k: np.concatenate([_rank_feed(train["feed"], 1)[k],
+                                      _rank_feed(train["feed"], 0)[k] +
+                                      (DP_TWO_ROWS * cfg.max_seq_len
+                                       if k == "mask_pos" else 0)])
+                   for k in train["feed"]}
+        _l, other, _ms = one_process(swapped)
+        spread = l2(other, ref)
+        bound = max(bound, 2 * spread)
+    checks = {
+        "backend_gloo": all(r["backend"] == "gloo" for r in ranks),
+        "two_ranks": [r["rank"] for r in ranks] == [0, 1],
+        "losses_match_one_process": loss_err <= DP_TWO_LOSS_RTOL,
+        "params_match_one_process": param_err <= bound,
+        "ranks_bit_equal_every_step":
+            ranks[0]["digests"] == ranks[1]["digests"],
+        "dropout_masks_differ": ranks[0]["dropout_mask"] !=
+            ranks[1]["dropout_mask"],
+        "allreduce_calls_equal_buckets": all(
+            r["calls"].get("c_allreduce_sum") == r["buckets"] * DP_TWO_STEPS
+            for r in ranks),
+    }
+    emit(phase="dp_two_ranks", seconds=wall,
+         losses=[r["losses"] for r in ranks], mean_losses=mean,
+         one_process_losses=ref_losses, loss_rel_err=loss_err,
+         param_l2_rel_err=param_err, param_bound=bound, spread=spread,
+         ms_per_step=[r["ms_per_step"] for r in ranks],
+         one_process_ms_per_step=ref_ms, buckets=ranks[0]["buckets"],
+         calls=ranks[0]["calls"],
+         comm_bytes_per_step=ranks[0]["comm"]["bytes"],
+         dropout_kept=[r["dropout_kept"] for r in ranks],
+         launches=ranks[0]["launches"], checks=checks)
+    _fail_unless("dp_two_ranks", checks)
+    shutil.rmtree(d, ignore_errors=True)
+    return ranks[0]["launches"]
+
+
+def phase_dp_resnet(resnet_run):
+    """bench_resnet's program through CompiledProgram.with_data_parallel
+    with BuildStrategy.sync_batch_norm on one NCCL rank, from
+    resnet_train's startup weights: 53 sync_batch_norm ops with one
+    all-reduce each, 13 wgmma K1 a step, and each loss within
+    resnet_check's bound (RN_LOSS_RTOL) of resnet_train's."""
+    d = _io_dir("dp_resnet")
+    torch.save({n: t.detach().cpu()
+                for n, t in resnet_run["init"].vars.items()}, d / "init.pt")
+    torch.cuda.empty_cache()
+    (r,), wall = _launch_ranks("resnet", [0], d)
+    steps = len(r["losses"])
+    want = resnet_run["losses"]
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(r["losses"], want))
+    launches = r["launches"]
+    checks = {
+        "backend_nccl": r["backend"] == "nccl",
+        "sync_batch_norm_53": r["sync_batch_norm"] == 53 and
+            r["batch_norm"] == 0,
+        "k1_13_per_step": launches["conv3x3_bn_relu"] == 13 * steps,
+        "k1_all_wgmma": r["k1_launches_by_variant"]["wgmma"] == 13 * steps,
+        "losses_match_resnet_train": loss_err <= RN_LOSS_RTOL,
+        "allreduce_calls_equal_buckets": r["calls"].get(
+            "c_allreduce_sum") == r["buckets"] * steps,
+        "one_allreduce_per_sync_batch_norm": r["calls"].get(
+            "sync_batch_norm") == r["sync_batch_norm"] * steps,
+    }
+    emit(phase="dp_resnet", seconds=wall, steps=steps, losses=r["losses"],
+         resnet_train_losses=want, loss_rel_err=loss_err,
+         bit_equal=r["losses"] == want, ms_per_step=r["ms_per_step"],
+         resnet_train_ms_per_step=resnet_run["ms_per_step"],
+         ratio_to_resnet_train=r["ms_per_step"] / resnet_run["ms_per_step"],
+         plain_ms_per_step_same_process=r["plain_ms_per_step"],
+         ratio_to_plain_same_process=r["ms_per_step"] /
+         r["plain_ms_per_step"],
+         sync_batch_norm=r["sync_batch_norm"], buckets=r["buckets"],
+         calls_per_step={k: v / steps for k, v in r["calls"].items()},
+         comm_bytes_per_step=r["comm"]["bytes"], comm_by=r["comm"]["by"],
+         profile=r["profile"], launches=launches, checks=checks)
+    _fail_unless("dp_resnet", checks)
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -3643,11 +4131,16 @@ def main():
     k1 = phase_kernel_conv(bounds)
     k6 = phase_kernel_ln(bounds)
     by_path = {"serve": phase_slice()}
-    by_path["train"] = phase_train()["launches"]
+    train = phase_train()
+    by_path["train"] = train["launches"]
+    by_path["dp_train"] = phase_dp_train(train)
+    by_path["dp_two_ranks"] = phase_dp_two_ranks(train)
+    del train
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
     resnet = phase_resnet_train()
     by_path["resnet_train"] = resnet["launches"]
+    by_path["dp_resnet"] = phase_dp_resnet(resnet)
     by_path["ln_path"] = phase_ln_path()
     by_path["nmt_train"] = phase_nmt_train()
     by_path["nmt_train_flash"] = phase_nmt_train_flash()
@@ -3720,4 +4213,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dp_child"]:
+        sys.exit(dp_child(*sys.argv[2:4]))
     sys.exit(main())

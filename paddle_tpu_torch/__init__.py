@@ -8,9 +8,23 @@ TPU's Pallas kernels become CUDA C++ kernels written for Hopper
 The package imports ``torch``, numpy and the standard library only; it
 never imports ``jax`` or ``paddle_tpu``.  Its layout mirrors
 ``paddle_tpu`` so each module's counterpart is found by name.
+
+Subpackages load on first use (``paddle_tpu_torch.fluid``, ``.models``,
+``.reader``, ``.batch``), so ``python -m paddle_tpu_torch.distributed.
+launch`` supervises its ranks without importing torch.
 """
 
-from . import fluid  # noqa: F401
-from . import models  # noqa: F401
-from . import reader  # noqa: F401
-from .batch import batch  # noqa: F401
+import importlib
+
+_SUBPACKAGES = ("fluid", "models", "reader", "distributed")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        return importlib.import_module("." + name, __name__)
+    if name == "batch":
+        # the function, not its module (``paddle.batch``)
+        fn = importlib.import_module(".batch", __name__).batch
+        globals()["batch"] = fn
+        return fn
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

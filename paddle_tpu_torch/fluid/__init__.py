@@ -12,7 +12,12 @@ and the inference predictor (``fluid.inference``, ``ir``), in the JAX
 package's file formats; the training-loop runtime (``run_window``,
 ``DataLoader``/``PyReader`` over the feed ring, ``DatasetFactory`` and
 ``train_from_dataset``, ``telemetry``, ``profiler``, ``preemption``,
-``watchdog``) (see ROADMAP.md's port queue).
+``watchdog``); synchronous data parallel over ``torch.distributed``, one
+process per rank (``distributed``, the c_* collective ops,
+``transpiler.GradAllReduce``/``LocalSGD``, ``CompiledProgram.
+with_data_parallel`` with sync batch norm, ``ParallelExecutor``, the
+collective ``incubate.fleet`` and ``python -m paddle_tpu_torch.
+distributed.launch``) (see ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -67,5 +72,12 @@ from . import reader
 from .reader import DataLoader, PyReader
 from . import dataset
 from .dataset import DatasetFactory
+from . import distributed
+from . import mesh_utils
+from . import transpiler
+from . import compiler
+from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
+from .parallel_executor import ParallelExecutor
+from . import incubate
 
 name = "paddle_tpu_torch.fluid"

@@ -44,7 +44,7 @@ such an entry on restore.
 
 Not here yet, each raising ``NotImplementedError`` with its ROADMAP
 item: the multi-host save and restore and ``reshard=True`` (queue 1
-item 10).  Each manager also keeps the numbers of its last save
+item 10b).  Each manager also keeps the numbers of its last save
 (``last_bytes``, ``last_save_s``, ``last_snapshot_ms``).
 
 Single-writer assumption: one process (one ``CheckpointManager``) saves
@@ -319,7 +319,7 @@ def _invalid_reason(ckpt_dir, check_crc=True, storage=None):
         return "marker-committed checkpoint without its commit marker"
     if body.get("multihost"):
         return ("multi-host checkpoint: the port restores none yet "
-                "(ROADMAP queue 1 item 10)")
+                "(ROADMAP queue 1 item 10b)")
     for name, entry in body.get("tensors", {}).items():
         path = os.path.join(ckpt_dir, entry["file"])
         if not os.path.isfile(path):
@@ -455,7 +455,7 @@ class CheckpointManager:
                 barrier is not None or consensus is not None:
             raise NotImplementedError(
                 "the multi-host checkpoint save is not ported yet "
-                "(ROADMAP queue 1 item 10)")
+                "(ROADMAP queue 1 item 10b)")
         self.dirname = os.path.abspath(dirname)
         self.max_to_keep = max_to_keep
         self.async_save = bool(async_save)
@@ -645,7 +645,7 @@ class CheckpointManager:
         if reshard:
             raise NotImplementedError(
                 "restore(reshard=True): the port restores no resharded "
-                "checkpoint yet (ROADMAP queue 1 item 10)")
+                "checkpoint yet (ROADMAP queue 1 item 10b)")
         with watchdog.extend_deadline(
                 "checkpoint_restore",
                 flags.get_flag("watchdog_checkpoint_grace_s")):
@@ -662,7 +662,7 @@ class CheckpointManager:
         if body.get("multihost") or body.get("shard_degree"):
             raise NotImplementedError(
                 "checkpoint %r was saved by a multi-host or sharded job: "
-                "the port restores neither yet (ROADMAP queue 1 item 10)"
+                "the port restores neither yet (ROADMAP queue 1 item 10b)"
                 % path)
         tensors = body.get("tensors", {})
         from .io import _is_persistable

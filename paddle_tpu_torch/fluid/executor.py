@@ -14,12 +14,12 @@ when PyTorch sees no CUDA device instead of falling back to the host.
 """
 
 import contextlib
-import sys
 import time
 
 import numpy as np
 import torch
 
+from . import distributed
 from . import flags
 from . import framework
 from . import preemption
@@ -56,6 +56,12 @@ _m_device_mem = telemetry.gauge(
     "(FLAGS_metrics_device_memory): kind=live now, kind=peak the most "
     "since the process started")
 _mem_peak = [0]
+_m_comm_bytes = telemetry.counter(
+    "collective_bytes_total",
+    "collective wire payload bytes per rank, by species, wire precision "
+    "and axis — always dp, one process per rank (an all-reduce counted "
+    "as its two phases, reduce-scatter and all-gather; "
+    "ops/collective_ops.py)")
 
 
 class Place:
@@ -315,14 +321,38 @@ def _raise_non_finite(log):
                        % (op_type, name))
 
 
-def _world_size():
-    """Processes in the torch.distributed world; 1 without one (a world
-    exists only if the caller imported torch.distributed and initialized
-    it, so this never imports it)."""
-    dist = sys.modules.get("torch.distributed")
-    if dist is not None and dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def _comm_fields(comm_log):
+    """The step event's collective fields from the dispatch's comm log,
+    counted into ``collective_bytes_total`` (JAX executor.py:1500-1523)."""
+    if not comm_log:
+        return dict(comm_bytes=0, comm_by=None, comm_by_axis=None,
+                    comm_buckets=0)
+    by, total, buckets = {}, 0, 0
+    for species, precision, nb, bucket in comm_log:
+        _m_comm_bytes.inc(nb, species=species, precision=precision,
+                          axis="dp")
+        key = "%s_%s" % (species, precision)
+        by[key] = by.get(key, 0) + nb
+        total += nb
+        buckets += bucket
+    return dict(comm_bytes=total, comm_by=by, comm_by_axis={"dp": total},
+                comm_buckets=buckets)
+
+
+def _stop_consensus(world):
+    """The stream-end stop check (JAX executor.py:685): the local stop
+    request, or in a world of several ranks the OR over every rank
+    (each rank's stream ended at the same count, so all arrive here)."""
+    local = preemption.stop_requested()
+    if world <= 1:
+        return local
+    return distributed.any_process(local)
+
+
+class _CompiledProgramProxy:
+    """Marker base of ``compiler.CompiledProgram``: ``Executor.run`` and
+    ``run_window`` hand such a program its own ``_run``/``_run_window``
+    (JAX executor.py has the same marker)."""
 
 
 class _DispatchPlan:
@@ -433,6 +463,8 @@ class Executor:
         end raises ``fluid.core.EOFException``."""
         program = program or framework.default_main_program()
         scope = scope if scope is not None else global_scope()
+        if isinstance(program, _CompiledProgramProxy):
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         if not feed and getattr(program, "_loader", None) is not None:
             return self._loader_fed_run(
                 program._loader,
@@ -471,6 +503,9 @@ class Executor:
         K = flags.steps_per_run_value(steps_per_run)
         program = program or framework.default_main_program()
         scope = scope if scope is not None else global_scope()
+        if isinstance(program, _CompiledProgramProxy):
+            return program._run_window(self, feed, fetch_list, scope, K,
+                                       return_numpy)
         feed = dict(feed or {})
         for n, v in feed.items():
             shape = tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
@@ -522,7 +557,8 @@ class Executor:
         K = plan.steps_per_run
         policy = flags.nan_inf_policy()
         nan_log = [] if policy == "raise" else None
-        carry, fetches, oks = {}, [], []
+        carry, fetches, oks, comm = {}, [], [], []
+        rank = distributed.process_index()
         for i in range(K):
             env = {n: carry.get(n, v) for n, v in state_vals.items()}
             if plan.is_window:
@@ -534,7 +570,8 @@ class Executor:
             state = ExecState(program.blocks, step0 + i, program.random_seed,
                               self.device, is_test=program._is_test,
                               amp_dtype=program._amp_dtype,
-                              amp_keep=program._amp_keep, nan_log=nan_log)
+                              amp_keep=program._amp_keep, nan_log=nan_log,
+                              rank=rank)
             # only taped forward ops turn autograd on, inside run_block
             try:
                 with torch.no_grad():
@@ -542,6 +579,7 @@ class Executor:
                               plan.release)
             finally:
                 state.tape.clear()
+            comm.extend(state.comm_log)
             missing = [n for n in plan.fetch_names if n not in env]
             if missing:
                 raise KeyError("fetch targets %s were not produced by the "
@@ -566,7 +604,28 @@ class Executor:
         verdicts = None
         if oks:
             verdicts = torch.stack(oks) if plan.is_window else oks[0]
-        return fetches, carry, verdicts
+        return fetches, carry, verdicts, comm
+
+    def _check_collective(self, program):
+        """A transpiled program runs only in a world of exactly the ranks
+        it was transpiled for (JAX executor.py:2281), and under NCCL only
+        on this rank's card."""
+        nranks = getattr(program, "_collective_nranks", None)
+        world = distributed.process_count()
+        if nranks and nranks != world:
+            raise RuntimeError(
+                "the program was transpiled for nranks=%d but this process "
+                "is in a world of %d rank(s): launch %d processes "
+                "(python -m paddle_tpu_torch.distributed.launch) and call "
+                "fluid.distributed.init() before running it"
+                % (nranks, world, nranks))
+        if distributed.backend() == "nccl":
+            card = torch.device("cuda", torch.cuda.current_device())
+            if self.device != card:
+                raise RuntimeError(
+                    "this rank's NCCL world runs on %s but the executor "
+                    "runs on %s: use Executor(CUDAPlace(%d))"
+                    % (card, self.device, card.index))
 
     def _dispatch(self, program, plan, scope, feed, return_numpy):
         k = plan.steps_per_run
@@ -576,6 +635,8 @@ class Executor:
                 "numpy fetches would put a host sync back inside the "
                 "window — pass return_numpy=False and read the stacked "
                 "[K, ...] fetches when you need the numbers" % (k, k))
+        if getattr(program, "_use_collective", False):
+            self._check_collective(program)
         feeds = {n: coerce(feed[n]) for n, coerce in plan.bind}
         step = scope.step_counter
         scope.step_counter += k
@@ -593,7 +654,7 @@ class Executor:
         with watchdog.extend_deadline(
                 "compile", flags.get_flag("watchdog_compile_grace_s")) \
                 if fresh else _NULL_CTX:
-            per_step, new_state, verdicts = self._execute(
+            per_step, new_state, verdicts, comm = self._execute(
                 program, plan, scope, feeds, step)
         t1 = time.perf_counter_ns()
         profiler.device_profile_end(k)
@@ -623,7 +684,7 @@ class Executor:
         _m_dispatch_s.observe((t1 - t0) / 1e9,
                               kind="window" if plan.is_window else "step")
         # the JAX package's step-event schema, field for field; the
-        # collective and optimizer-sharding fields are 0 on one card
+        # optimizer-sharding field is 0 (no weight-update sharding)
         telemetry.record_step_event(
             ts_ns=t0, dur_ns=t1 - t0, step=int(step), k=k,
             window=plan.is_window, plan_hit=self._last_plan_hit,
@@ -633,8 +694,7 @@ class Executor:
             verdicts=k if verdicts is not None else 0,
             ckpt_overlap=bool(_m_ckpt_inflight.value()),
             data_wait_s=telemetry.take_pending_data_wait(),
-            comm_bytes=0, comm_by=None, comm_by_axis=None,
-            comm_buckets=0, opt_state_bytes=0)
+            opt_state_bytes=0, **_comm_fields(comm))
         telemetry.record_span("dispatch", t0, t1 - t0, step=int(step),
                               k=k, window=plan.is_window)
         if flags.get_flag("metrics_device_memory") and \
@@ -675,15 +735,25 @@ class Executor:
         resume (``rollback_reseed=True`` also derives a fresh program
         seed), at most ``FLAGS_rollback_limit`` times.
 
-        Returns ``{"steps", "preempted", "rollbacks"}``.  A world of more
-        than one process (its stop consensus) is not ported yet."""
+        In a world of several ranks (``fluid.distributed``) the stop and
+        rollback verdicts are the world's (JAX executor.py:1700-1760):
+        ONE all-reduce of both flags at every ``16 // K``-th window
+        boundary and after the stream ends, so a stop requested on one
+        rank drains every rank at the same window and nobody parks in a
+        collective whose peer has left.  Batches are then staged on the
+        consumer's thread (the depth-0 lookahead): the feed ring drains
+        itself on a local stop, which would end one rank's stream early.
+        Every rank must feed the same number of batches.
+
+        Returns ``{"steps", "preempted", "rollbacks"}``."""
         if dataset is None:
             raise RuntimeError("dataset is need and should be initialized")
-        if _world_size() > 1:
+        world = distributed.process_count()
+        if world > 1 and checkpoint_manager is not None:
             raise NotImplementedError(
-                "train_from_dataset in a world of %d processes needs the "
-                "multi-process stop consensus, which is not ported yet "
-                "(ROADMAP queue 1 item 10)" % _world_size())
+                "train_from_dataset(checkpoint_manager=) in a world of %d "
+                "ranks needs the multi-host checkpoint save, which is not "
+                "ported yet (ROADMAP queue 1 item 10b)" % world)
         K = flags.steps_per_run_value(steps_per_run)
         program = program or framework.default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -714,7 +784,10 @@ class Executor:
         from .reader import stager_for
         # the dataset yields the declared dtypes; the dispatch coerces
         # anything else on the device
-        batches = prefetch_ahead(stager_for(self.device), source)
+        batches = prefetch_ahead(stager_for(self.device), source,
+                                 depth=0 if world > 1 else None)
+        consensus_every = max(1, 16 // K)
+        boundary = 0
         n = 0
         try:
             t0 = time.perf_counter()
@@ -732,23 +805,33 @@ class Executor:
                                    fetch_list=fetch_names, scope=scope,
                                    return_numpy=False)
                 prev, n = n, n + k
+                boundary += 1
                 save_due = (manager is not None and checkpoint_period and
                             n // checkpoint_period !=
                             prev // checkpoint_period)
                 stop = preemption.stop_requested()
-                streak = 0
+                streak, roll_hit = 0, False
                 rolled = False
                 if roll_k:
                     # reading the streak reads the pending verdicts (the
                     # one device read of the policy, per boundary), BEFORE
                     # the periodic save: a poisoned streak is never saved
                     streak = profiler.bad_step_streak()
-                    if streak >= roll_k:
-                        rollbacks += 1
-                        self._rollback_restore(manager, scope, program,
-                                               streak, rollbacks,
-                                               roll_limit, rollback_reseed)
-                        rolled = True
+                    roll_hit = streak >= roll_k
+                if world > 1:
+                    # the world's verdict, at boundaries every rank
+                    # counts the same
+                    if save_due or boundary % consensus_every == 0:
+                        stop, roll_hit = distributed.consensus_flags(
+                            stop, roll_hit)
+                    else:
+                        stop = roll_hit = False
+                if roll_hit:
+                    rollbacks += 1
+                    self._rollback_restore(manager, scope, program,
+                                           streak, rollbacks,
+                                           roll_limit, rollback_reseed)
+                    rolled = True
                 if save_due and not rolled:
                     # right after a dispatch, so windowed jobs are at
                     # their boundary marker; snapshot sync, I/O async
@@ -774,7 +857,7 @@ class Executor:
             if self.device.type == "cuda":
                 profiler.record_host_sync("drain")
                 torch.cuda.synchronize(self.device)
-            if not preempted and preemption.stop_requested():
+            if not preempted and _stop_consensus(world):
                 # a stop that landed while the consumer waited on the
                 # (drained) feed ring ends the stream without reaching
                 # the per-batch check: it still drains and saves

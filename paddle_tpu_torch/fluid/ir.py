@@ -4,12 +4,12 @@ counterpart ``paddle_tpu/fluid/ir.py``).
 
 The semantic rewrites of an inference program: folding trained BatchNorm
 statistics into conv weights and stripping train-only ops, plus the
-registry/apply plumbing.  Passes operate on (Program, Scope): unlike the
+registry/apply plumbing; and ``sync_batch_norm_pass`` for data
+parallel.  Passes operate on (Program, Scope): unlike the
 reference's ir::Graph they rewrite parameter *values* too (conv-bn
 folding changes weights), on the device the scope holds them on.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``sync_batch_norm_pass`` (queue 1 item 10, data parallel) and
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
 ``int8_execute_pass`` (item 13, the quant ops).
 """
 
@@ -164,9 +164,18 @@ def conv_bn_fuse_pass(program, scope):
 
 @register_pass("sync_batch_norm_pass")
 def sync_batch_norm_pass(program, scope=None):
-    raise NotImplementedError(
-        "sync_batch_norm_pass needs data parallel over NCCL, which the "
-        "port has not yet (ROADMAP queue 1 item 10)")
+    """Every batch_norm becomes sync_batch_norm (reference
+    ``ir/sync_batch_norm_pass.cc``), so its moments are all-reduced over
+    the ranks (ops/nn_ops.py).  The grad ops are renamed too: a grad op
+    names its forward by its type's stem."""
+    for block in program.blocks:
+        for op in block.ops:
+            if op.type == "batch_norm":
+                op.type = "sync_batch_norm"
+            elif op.type == "batch_norm_grad":
+                op.type = "sync_batch_norm_grad"
+    program._bump_version()
+    return program
 
 
 @register_pass("int8_execute_pass")

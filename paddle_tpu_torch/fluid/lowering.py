@@ -35,7 +35,7 @@ class ExecState:
     """Per-run execution state threaded through lowerings."""
 
     def __init__(self, blocks, step, seed, device, is_test=False,
-                 amp_dtype=None, amp_keep=False, nan_log=None):
+                 amp_dtype=None, amp_keep=False, nan_log=None, rank=0):
         self.blocks = blocks    # program blocks
         self.step = step        # host int, increments per run
         self.seed = seed        # program random seed
@@ -52,6 +52,21 @@ class ExecState:
         # output name, 0-d finiteness tensor) to for every float output
         # of every op; the executor reads it back once, after the run
         self.nan_log = nan_log
+        # this process's rank in a torch.distributed world (0 without
+        # one): folded into every random op's seed, so replicas draw
+        # different dropout masks and rank 0 keeps the world-of-one
+        # stream
+        self.rank = int(rank)
+        # (species, precision, bytes, grad bucket) of every collective
+        # the run issued (ops/collective_ops.py)
+        self.comm_log = []
+
+    def record_comm(self, species, precision, nbytes, grad_bucket=False):
+        """Log one collective's per-rank wire bytes (JAX
+        ``ExecState.record_comm``, lowering.py:80); ``grad_bucket`` marks
+        a transpiled gradient exchange (the ``__grad_bucket__`` attr)."""
+        self.comm_log.append((species, precision, int(nbytes),
+                              bool(grad_bucket)))
 
 
 def amp_operands(state, *vals):
@@ -110,8 +125,10 @@ class LowerCtx:
     def generator(self):
         """Explicit per-op ``torch.Generator`` on the run's device (Philox
         on the card): deterministic given (op ``seed`` attr, also 0 when
-        ``fix_seed`` is set) or else (program seed, op seed, step).  The
-        streams differ from JAX's ``jax.random`` keys (paddle_tpu/fluid/
+        ``fix_seed`` is set) or else (program seed, op seed, step), with
+        the rank folded in on ranks other than 0 (the JAX package folds
+        the replica's axis index into every per-op key,
+        paddle_tpu/fluid/lowering.py:193-205).  The streams differ from JAX's ``jax.random`` keys (paddle_tpu/fluid/
         lowering.py), so the two packages' random draws never match;
         tests carry weights across instead (convert.py) and compare
         random ops by statistics."""
@@ -120,6 +137,8 @@ class LowerCtx:
             seed = ((int(self.state.seed) * 1000003 +
                      int(self.op.attr("__op_seed__", 0))) * 1000003 +
                     int(self.state.step)) % (2 ** 63)
+        if self.state.rank:
+            seed = (seed * 1000003 + self.state.rank) % (2 ** 63)
         gen = torch.Generator(device=self.state.device)
         gen.manual_seed(seed)
         return gen

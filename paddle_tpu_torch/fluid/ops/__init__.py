@@ -9,3 +9,4 @@ from . import conv_ops       # noqa: F401
 from . import norm_ops       # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import io_ops         # noqa: F401
+from . import collective_ops  # noqa: F401

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import distributed
 from ..registry import register_op
 from ..flags import matmul_precision
 from ..lowering import amp_operands
@@ -57,6 +58,13 @@ def _scale(ctx, op):
     x = ctx.i("X")
     scale = ctx.attr("scale", 1.0)
     bias = ctx.attr("bias", 0.0)
+    if ctx.attr("__dp_mean__", False):
+        # the gradient mean the collective transpiler inserts: divide by
+        # the world this rank runs in (1 without one), as the JAX rule
+        # divides by its mapped axis's size, whatever nranks the program
+        # was transpiled for (0 means any world)
+        ctx.set("Out", x / distributed.process_count())
+        return
     if ctx.attr("bias_after_scale", True):
         out = x * scale + bias
     else:

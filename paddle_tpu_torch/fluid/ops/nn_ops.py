@@ -125,12 +125,17 @@ def _pool2d(ctx, op):
     ctx.set("Out", out)
 
 
-@register_op("batch_norm", nondiff_inputs=("Mean", "Variance"))
-def _batch_norm(ctx, op):
-    """nn_ops.py:232, the same formula: single-pass float32 statistics
-    ``E[x²] − E[x]²`` clamped at 0; the running update
-    ``running·m + batch·(1 − m)`` with the biased batch variance;
-    ``SavedVariance = 1/sqrt(var + eps)``; ``y = x·a + b`` with
+def _local_moments(xm, axes):
+    """E[x] and E[x²] over ``axes``, float32."""
+    return xm.mean(axes), torch.square(xm).mean(axes)
+
+
+def _batch_norm_rule(ctx, moments):
+    """batch_norm and sync_batch_norm: ``moments(xm, axes)`` gives the
+    batch's E[x] and E[x²]; the rest is nn_ops.py:232's formula — the
+    variance ``E[x²] − E[x]²`` clamped at 0, the running update
+    ``running·m + batch·(1 − m)`` with the biased batch variance,
+    ``SavedVariance = 1/sqrt(var + eps)``, ``y = x·a + b`` with
     ``a = scale·inv`` and ``b = bias − mean·a``, cast to x's dtype.  The
     gradient flows through the batch statistics.  MeanOut/VarianceOut
     name the Mean/Variance variables (the in-place update)."""
@@ -155,9 +160,8 @@ def _batch_norm(ctx, op):
         ctx.set("MeanOut", mean)
         ctx.set("VarianceOut", var)
     else:
-        use_mean = xm.mean(axes)
-        use_var = torch.clamp_min(
-            torch.square(xm).mean(axes) - torch.square(use_mean), 0.0)
+        use_mean, mean_sq = moments(xm, axes)
+        use_var = torch.clamp_min(mean_sq - torch.square(use_mean), 0.0)
         ctx.set("MeanOut", (mean.float() * momentum + use_mean.detach() *
                             (1 - momentum)).to(mean.dtype))
         ctx.set("VarianceOut", (var.float() * momentum + use_var.detach() *
@@ -169,6 +173,51 @@ def _batch_norm(ctx, op):
     ctx.set("Y", y.to(x.dtype))
     ctx.set("SavedMean", use_mean)
     ctx.set("SavedVariance", inv)
+
+
+@register_op("batch_norm", nondiff_inputs=("Mean", "Variance"))
+def _batch_norm(ctx, op):
+    """nn_ops.py:232 (see ``_batch_norm_rule``)."""
+    _batch_norm_rule(ctx, _local_moments)
+
+
+@register_op("sync_batch_norm", nondiff_inputs=("Mean", "Variance"))
+def _sync_batch_norm(ctx, op):
+    """Cross-rank batch norm (nn_ops.py:593; reference
+    operators/sync_batch_norm_op.cu): the moments of the GLOBAL batch.
+    As in the JAX rule, one all-reduce of each rank's [Σx, Σx², row
+    count] gives the global sums, and E[x], E[x²] are those over the
+    summed count, which stays on the device.  The payload is float64:
+    a rank's sums are its float32 moments times its count, a product
+    float64 holds exactly, so beside the local means' rounding the
+    global moments carry only float64's and the one cast back (in a
+    world of one they are batch_norm's bit for bit).  The all-reduce is
+    differentiable (``collective_ops.all_reduce_sum``: its backward
+    all-reduces the gradient), so the grad op, which pulls back through
+    this op's own autograd graph, gets the global statistics' gradient.
+    With no process group it is batch_norm."""
+    from . import collective_ops
+    w = collective_ops._world(ctx)
+    if w is None:
+        _batch_norm_rule(ctx, _local_moments)
+        return
+    _d, group, _n = w
+
+    def moments(xm, axes):
+        m, msq = _local_moments(xm, axes)
+        c = m.numel()
+        rows = float(np.prod([xm.shape[a] for a in axes]))
+        count = torch.full((1,), rows, dtype=torch.float64,
+                           device=xm.device)
+        sums = collective_ops.all_reduce_sum(
+            torch.cat([m.double(), msq.double(), torch.ones_like(count)])
+            * count, group)
+        collective_ops.calls[ctx.op.type] += 1
+        ctx.state.record_comm("allreduce", "fp64", 2 * 8 * (2 * c + 1))
+        n = sums[2 * c:]
+        return (sums[:c] / n).float(), (sums[c:2 * c] / n).float()
+
+    _batch_norm_rule(ctx, moments)
 
 
 @register_op("layer_norm")

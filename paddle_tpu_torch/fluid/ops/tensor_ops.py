@@ -82,6 +82,30 @@ def _reshape2(ctx, op):
     ctx.set("XShape", _empty_xshape(ctx))
 
 
+# reshape (v1): the same rule; it has no XShape output (tensor_ops.py:80)
+register_op("reshape")(_reshape2)
+
+
+@register_op("split")
+def _split(ctx, op):
+    """tensor_ops.py:139: X cut along ``axis`` into ``sections`` (sizes)
+    or ``num`` equal parts; the parts are views of X."""
+    x = ctx.i("X")
+    axis = ctx.attr("axis", 0)
+    sections = ctx.attr("sections", [])
+    if sections:
+        outs = torch.split(x, [int(s) for s in sections], dim=axis)
+    else:
+        num = int(ctx.attr("num", 0))
+        if not num or x.shape[axis] % num:
+            raise ValueError("split: dim %d of size %d does not divide "
+                             "into num=%d equal parts"
+                             % (axis, x.shape[axis], num))
+        outs = torch.split(x, x.shape[axis] // num, dim=axis)
+    for i, o in enumerate(outs):
+        ctx.set("Out", o, idx=i)
+
+
 @register_op("transpose2")
 def _transpose2(ctx, op):
     ctx.set("Out", ctx.i("X").permute(*ctx.attr("axis")))

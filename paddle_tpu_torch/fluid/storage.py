@@ -24,7 +24,7 @@ process, with its retry counters (``storage_retry_total{backend}``,
 ``storage_retry_exhausted_total``) and the watchdog's deadline extension
 around a retry's sleep.  Left for later: ``MixedProtocolReader``, the claim lease that pod saves write first and
 the debris reaper's minimum-age guard, all of which exist for several
-writers under one prefix (item 10).
+writers under one prefix (item 10b).
 
 The object-store backend here SIMULATES that contract over a local
 directory — uploads may be torn mid-write by a kill (strictly weaker
@@ -263,7 +263,7 @@ class ObjectStoreStorage(Storage):
         waits out its save in flight before it starts another, and runs
         this after its commit.  (The JAX package's pod saves spare young
         prefixes behind a claim lease; that waits for ROADMAP queue 1
-        item 10.)"""
+        item 10b.)"""
         if not os.path.isdir(dirname):
             return
         for entry in os.listdir(dirname):

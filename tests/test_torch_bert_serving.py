@@ -23,6 +23,7 @@ from paddle_tpu.models import bert as jbert
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import serving
 from paddle_tpu_torch.models import bert
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask")

@@ -27,6 +27,7 @@ from paddle_tpu.models import bert as jbert
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid.ops import attention_ops as port_attn
 from paddle_tpu_torch.models import bert
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 B, P, LR, STEPS = 4, 4, 1e-3, 3
 

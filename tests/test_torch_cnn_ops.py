@@ -24,6 +24,7 @@ from paddle_tpu.fluid import flags as jflags
 
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import flags as pflags
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -26,6 +26,7 @@ from paddle_tpu.models import deepfm as jdeepfm
 
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.models import deepfm
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 BATCH, STEPS, LR = 16, 3, 1e-3
 

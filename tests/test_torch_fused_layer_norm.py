@@ -23,6 +23,7 @@ from paddle_tpu.fluid.ops.pallas_ops import (_pallas_layer_norm,
 
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid.ops import norm_ops
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 
 def _inputs(M, D, seed):

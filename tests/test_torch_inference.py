@@ -33,6 +33,7 @@ import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import ir
 from paddle_tpu_torch.fluid.inference import (
     AnalysisConfig, Config, PaddleTensor, create_paddle_predictor)
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 CPU = fluid.CPUPlace()
 
@@ -229,8 +230,9 @@ def test_unported_passes_and_int8_raise_naming_their_item():
         Config("m").enable_int8()
     with pytest.raises(NotImplementedError, match="item 13"):
         ir.get_pass("int8_execute_pass")(fluid.Program(), fluid.Scope())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ir.get_pass("sync_batch_norm_pass")(fluid.Program())
+    # sync_batch_norm_pass is ported (data parallel): it runs
+    prog = fluid.Program()
+    assert ir.get_pass("sync_batch_norm_pass")(prog) is prog
     with pytest.raises(KeyError):
         ir.get_pass("no_such_pass")
     c = Config("m")

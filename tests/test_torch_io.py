@@ -38,6 +38,7 @@ from paddle_tpu_torch.fluid import proto_compat
 from paddle_tpu_torch.models import bert
 
 from test_torch_checkpoint import SimulatedCrash, crash_at, record_points
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 CPU = fluid.CPUPlace()
 FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask")

@@ -38,6 +38,7 @@ from paddle_tpu_torch.fluid import flags, profiler
 from paddle_tpu_torch.models import bert
 
 from test_torch_bert_training import make_feed
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 K, LR = 4, 1e-3
 

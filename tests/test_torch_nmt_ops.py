@@ -26,6 +26,7 @@ import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import executor as port_executor
 from paddle_tpu_torch.fluid import lowering
 from paddle_tpu_torch.fluid.framework import OpRole
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7
 

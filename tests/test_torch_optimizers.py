@@ -37,6 +37,7 @@ from paddle_tpu.models import deepfm as jdeepfm
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid.framework import OpRole
 from paddle_tpu_torch.models import deepfm
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 RTOL, ATOL = 1e-6, 1e-7
 BATCH, STEPS = 16, 3

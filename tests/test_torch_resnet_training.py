@@ -51,6 +51,7 @@ import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import flags as pflags
 from paddle_tpu_torch.fluid.ops import conv_ops
 from paddle_tpu_torch.models import resnet
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 STEPS, LR, CLASSES = 3, 0.01, 10
 

@@ -37,6 +37,7 @@ from paddle_tpu.fluid import telemetry as jtelemetry
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid import (flags, preemption, profiler, telemetry,
                                     watchdog)
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -30,6 +30,7 @@ from paddle_tpu_torch.models import transformer
 
 from test_torch_transformer_training import (COUNTER, LR, STEPS, WARMUP,
                                              build, make_feed, persistables)
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 
 def _bf16_program(pkg, mod, fused):

@@ -52,6 +52,7 @@ from paddle_tpu.models import transformer as jtransformer
 import paddle_tpu_torch.fluid as fluid
 from paddle_tpu_torch.fluid.ops import attention_ops as port_attn
 from paddle_tpu_torch.models import transformer
+from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
 
 B, STEPS, LR, WARMUP = 4, 3, 2.0, 4
 COUNTER = "@LR_DECAY_COUNTER@"
