@@ -25,9 +25,19 @@ rank whose file goes stale for S seconds is SIGKILLed and handled as a
 crash.  A rank whose own watchdog aborts exits with code 117
 (``HANG_EXIT_CODE``), and the post-mortem line names it as hung.
 
-Restarts (``--max_restarts``) and the elastic shrink
-(``--elastic_min_nproc``) are ROADMAP queue 1 item 10b and raise.
-This module imports no torch.
+Restarts (``--max_restarts N``): when a rank exits nonzero and the
+budget allows, the whole pack is torn down (as above) and launched again
+at a fresh rendezvous port (the ``--coordinator`` port plus the attempt
+number): a ``torch.distributed`` world cannot take back a member that
+died, and a straggler of the old world must never join the new one.
+With ``--elastic_min_nproc M`` each relaunch shrinks the world by ONE
+rank, never below M (exit codes cannot tell a rank that failed from one
+that a collective's abort took down with it, so a larger loss converges
+over successive relaunches); the fresh ranks reshard-restore the last
+checkpoint (``fluid.elastic``).  Relaunched ranks see
+``PADDLE_ELASTIC_ATTEMPT`` (relaunches so far) and
+``PADDLE_ELASTIC_PREV_NPROC`` (the previous world's size); every restart
+is logged on the launcher's stderr.  This module imports no torch.
 """
 
 import argparse
@@ -67,21 +77,32 @@ def parse_args(argv=None):
                         "by its armed watchdog) is stale this many "
                         "seconds, and tear down the pack; 0 = off")
     p.add_argument("--max_restarts", type=int, default=0,
-                   help="relaunching failed ranks: ROADMAP queue 1 item "
-                        "10b (only 0 is accepted)")
+                   help="relaunch the pack at a fresh rendezvous port when "
+                        "a rank exits nonzero, up to this many times "
+                        "(default 0: fail fast)")
     p.add_argument("--elastic_min_nproc", type=int, default=None,
-                   help="the elastic shrink: ROADMAP queue 1 item 10b")
+                   help="with --max_restarts: relaunch a crashed pack one "
+                        "rank SMALLER, never below this floor (the ranks "
+                        "reshard-restore the last checkpoint)")
     p.add_argument("training_script")
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
-    if args.max_restarts:
-        raise NotImplementedError(
-            "--max_restarts %d: relaunching ranks is not ported yet "
-            "(ROADMAP queue 1 item 10b)" % args.max_restarts)
-    if args.elastic_min_nproc is not None:
-        raise NotImplementedError(
-            "--elastic_min_nproc: the elastic relaunch is not ported yet "
-            "(ROADMAP queue 1 item 10b)")
+    if args.max_restarts < 0:
+        p.error("--max_restarts must be >= 0")
+    if args.elastic_min_nproc is not None and args.elastic_min_nproc < 1:
+        p.error("--elastic_min_nproc must be >= 1: a floor of 0 would "
+                "let successive relaunches shrink the job to no rank and "
+                "report success")
+    if args.elastic_min_nproc is not None and args.max_restarts < 1:
+        p.error("--elastic_min_nproc needs --max_restarts >= 1: without a "
+                "restart budget a crash fails fast and no relaunch at a "
+                "smaller world ever happens")
+    n_nodes = len([ip for ip in args.cluster_node_ips.split(",")
+                   if ip.strip()])
+    if args.max_restarts > 0 and n_nodes > 1:
+        p.error("--max_restarts is single-node only: each node's launcher "
+                "would decide the relaunch (and its rendezvous port) on "
+                "its own")
     if args.heartbeat_timeout < 0:
         p.error("--heartbeat_timeout must be >= 0")
     return args
@@ -156,13 +177,22 @@ def get_cluster_endpoints(args, nproc):
     return ips, eps
 
 
-def _supervise(args, nproc, devices, stop_seen):
-    """Spawn the pack and supervise it to its end; returns the exit
-    code."""
+def _supervise(args, nproc, devices, stop_seen, attempt=0, prev_nproc=None,
+               restarts=None):
+    """Spawn one incarnation of the pack and supervise it to its end.
+    Returns the exit code, or ``(rank, code, failed ranks)`` when a rank
+    failed and the restart budget (``restarts["used"]`` of
+    ``--max_restarts``) allows a relaunch, which the caller makes."""
+    restarts = restarts if restarts is not None else {"used": 0}
     ips, cluster_eps = get_cluster_endpoints(args, nproc)
     node_rank = ips.index(args.node_ip)
     coordinator = args.coordinator or \
         "%s:%d" % (ips[0], args.started_port + 1017)
+    if attempt:
+        # a fresh port for every relaunch: the old rendezvous socket may
+        # linger, and no straggler of the old world may join the new one
+        host, port = coordinator.rsplit(":", 1)
+        coordinator = "%s:%d" % (host, int(port) + attempt)
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
     hb_dir = None
@@ -183,7 +213,10 @@ def _supervise(args, nproc, devices, stop_seen):
             "PADDLE_DIST_COORDINATOR": coordinator,
             "PADDLE_LOCAL_DEVICE_IDS": devices[local_rank],
             "FLAGS_selected_gpus": devices[local_rank],
+            "PADDLE_ELASTIC_ATTEMPT": str(attempt),
         })
+        if prev_nproc is not None:
+            env["PADDLE_ELASTIC_PREV_NPROC"] = str(prev_nproc)
         if hb_dir is not None:
             try:
                 os.unlink(hb_path(rank))
@@ -192,8 +225,8 @@ def _supervise(args, nproc, devices, stop_seen):
             env["PADDLE_HEARTBEAT_FILE"] = hb_path(rank)
         cmd = [sys.executable, "-u", args.training_script] + \
             args.training_script_args
-        log = open(os.path.join(args.log_dir, "workerlog.%d" % rank), "w") \
-            if args.log_dir else None
+        log = open(os.path.join(args.log_dir, "workerlog.%d" % rank),
+                   "a" if attempt else "w") if args.log_dir else None
         return (subprocess.Popen(cmd, env=env, stdout=log,
                                  stderr=subprocess.STDOUT if log else None,
                                  start_new_session=True), log, rank)
@@ -239,12 +272,25 @@ def _supervise(args, nproc, devices, stop_seen):
                     raise ChildProcessError()
             time.sleep(0.1)
     except (ChildProcessError, KeyboardInterrupt, _LauncherStop) as e:
-        terminate_pack(procs + done, args.grace_period, hung=hung)
+        # ranks already dead nonzero before the teardown failed on their
+        # own; those that exit nonzero after its SIGTERM are victims of
+        # the same failure and do not count
+        failed = {r for p, _l, r in procs + done if p.poll() is not None
+                  and p.returncode not in (0, -signal.SIGTERM,
+                                           -signal.SIGKILL)}
+        failed.update(hung)
         if fail_rank is not None:
+            failed.add(fail_rank)
+        terminate_pack(procs + done, args.grace_period, hung=hung)
+        stopped = isinstance(e, _LauncherStop) or bool(stop_seen)
+        if fail_rank is not None:
+            if not stopped and restarts["used"] < args.max_restarts:
+                restarts["used"] += 1
+                return fail_rank, code, failed
             sys.stderr.write("rank %d failed with exit code %d; pack "
                              "terminated\n" % (fail_rank, code))
             return code if code > 0 else 1
-        if isinstance(e, _LauncherStop) or stop_seen:
+        if stopped:
             # a drain: children that exited 0 after their final save
             # (or died of the forwarded SIGTERM) make the job clean
             bad = sorted(r for p, _l, r in procs + done
@@ -276,14 +322,43 @@ def launch(args):
         if not stop_seen:
             stop_seen.append(signal.Signals(signum).name)
 
+    if args.elastic_min_nproc is not None and \
+            args.elastic_min_nproc > nproc:
+        # a floor above the launched world would GROW the pack
+        sys.stderr.write("--elastic_min_nproc %d exceeds the launched "
+                         "world size %d\n" % (args.elastic_min_nproc, nproc))
+        return 2
     prev = {}
     for sig in (signal.SIGTERM, signal.SIGINT):
         try:
             prev[sig] = signal.signal(sig, on_stop)
         except ValueError:
             pass   # not the main thread
+    restarts = {"used": 0}
+    attempt, prev_nproc = 0, None
     try:
-        return _supervise(args, nproc, devices, stop_seen)
+        while True:
+            out = _supervise(args, nproc, devices, stop_seen, attempt,
+                             prev_nproc, restarts)
+            if not isinstance(out, tuple):
+                return out
+            fail_rank, code, failed = out
+            attempt += 1
+            new_nproc = nproc
+            if args.elastic_min_nproc is not None:
+                new_nproc = max(int(args.elastic_min_nproc), nproc - 1)
+            _log("rank %d exited %d (nonzero ranks %s); relaunching pack "
+                 "(restart %d/%d, attempt %d, world %d -> %d)"
+                 % (fail_rank, code, sorted(failed), restarts["used"],
+                    args.max_restarts, attempt, nproc, new_nproc))
+            prev_nproc, nproc = nproc, new_nproc
+            devices = devices[:nproc]
+            if stop_seen:
+                # a stop between two incarnations: the crash stands
+                sys.stderr.write("rank %d failed with exit code %d; stop "
+                                 "requested — not relaunching\n"
+                                 % (fail_rank, code))
+                return code if code > 0 else 1
     finally:
         for sig, handler in prev.items():
             signal.signal(sig, handler)

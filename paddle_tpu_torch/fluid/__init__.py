@@ -12,12 +12,14 @@ and the inference predictor (``fluid.inference``, ``ir``), in the JAX
 package's file formats; the training-loop runtime (``run_window``,
 ``DataLoader``/``PyReader`` over the feed ring, ``DatasetFactory`` and
 ``train_from_dataset``, ``telemetry``, ``profiler``, ``preemption``,
-``watchdog``); synchronous data parallel over ``torch.distributed``, one
-process per rank (``distributed``, the c_* collective ops,
-``transpiler.GradAllReduce``/``LocalSGD``, ``CompiledProgram.
-with_data_parallel`` with sync batch norm, ``ParallelExecutor``, the
-collective ``incubate.fleet`` and ``python -m paddle_tpu_torch.
-distributed.launch``) (see ROADMAP.md's port queue).
+``watchdog``); data parallel over ``torch.distributed``, one process per
+rank (``distributed``, the c_* collective ops with the int8 wire of
+``quantized_collectives``, ``transpiler.GradAllReduce`` with
+weight-update sharding and hierarchical allreduce, ``LocalSGD``,
+``CompiledProgram.with_data_parallel`` with sync batch norm and ZeRO-1,
+``ParallelExecutor``, the collective ``incubate.fleet``, pod checkpoints,
+``elastic`` and ``python -m paddle_tpu_torch.distributed.launch`` with
+its relaunches) (see ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -73,6 +75,7 @@ from .reader import DataLoader, PyReader
 from . import dataset
 from .dataset import DatasetFactory
 from . import distributed
+from . import elastic
 from . import mesh_utils
 from . import transpiler
 from . import compiler

@@ -23,6 +23,12 @@ a transpiled copy of the program —
   and every parameter broadcast from rank 0 (the reference
   ParallelExecutor's BCastParamsToDevices), so the ranks start equal
   whatever their initializers drew.  The scope's step counter is kept.
+- ``BuildStrategy.zero_shard_optimizer_state`` (ZeRO-1): the copy is
+  transpiled with ``weight_update_sharding=True``, so each rank updates
+  and holds 1/N of the optimizer state (the JAX package shards the
+  moments' storage under GSPMD; both equal the replicated update).  The
+  scope's per-parameter accumulators are carried into the rank's shards
+  and then dropped from the scope, which is the memory the option saves.
 
 With no process group (a world of one) the plain program runs.
 Concatenating the ranks' fetches gives the JAX package's one fetch.
@@ -46,8 +52,8 @@ class BuildStrategy:
     of one rank with a process group (a larger world always does, see
     the module docstring).  The other knobs are accepted for scripts
     that set them: the eager executor fuses nothing and frees each
-    temporary after its last op.  ``zero_shard_optimizer_state`` (the
-    JAX package's sharded optimizer state) is ROADMAP queue 1 item 10b."""
+    temporary after its last op.  ``zero_shard_optimizer_state`` shards
+    the optimizer state over the ranks (see the module docstring)."""
 
     ReduceStrategy = ReduceStrategy
 
@@ -77,6 +83,23 @@ class ExecutionStrategy:
         self.use_experimental_executor = False
 
 
+def _carry_into_shards(scope, sources, rank):
+    """Each sharded state var takes rank ``rank``'s slice of its replaced
+    per-parameter accumulators in ``scope`` (flattened, concatenated in
+    bucket order, zero-padded to ``Bp``), which then leave the scope."""
+    import torch
+    for sname, (names, padded, shard) in sources.items():
+        vals = [scope.find_var(n) for n in names]
+        if any(v is None for v in vals):
+            continue
+        flat = torch.cat([v.reshape(-1) for v in vals])
+        if padded > flat.numel():
+            flat = torch.cat([flat, flat.new_zeros(padded - flat.numel())])
+        scope.set_var(sname, flat[rank * shard:(rank + 1) * shard].clone())
+        for n in names:
+            scope.vars.pop(n, None)
+
+
 class CompiledProgram(_CompiledProgramProxy):
     def __init__(self, program_or_graph):
         self._program = program_or_graph
@@ -92,11 +115,6 @@ class CompiledProgram(_CompiledProgramProxy):
                            exec_strategy=None, share_vars_from=None,
                            places=None):
         build_strategy = build_strategy or BuildStrategy()
-        if getattr(build_strategy, "zero_shard_optimizer_state", False):
-            raise NotImplementedError(
-                "BuildStrategy.zero_shard_optimizer_state (sharded "
-                "optimizer state) is not ported yet (ROADMAP queue 1 "
-                "item 10b)")
         if places is not None and len(places) > 1:
             raise ValueError(
                 "with_data_parallel(places=%r): the port runs one process "
@@ -131,18 +149,21 @@ class CompiledProgram(_CompiledProgramProxy):
                 startup.global_block().create_var(
                     name=p.name, shape=p.shape, dtype=p.dtype,
                     persistable=True)
-            GradAllReduce(
+            t = GradAllReduce(
                 fuse_grad_size_mb=32 if bs.fuse_all_reduce_ops else 0,
                 sync_batch_norm=world > 1 or bool(bs.sync_batch_norm),
-            ).transpile(startup_program=startup, main_program=main,
+                weight_update_sharding=bool(
+                    getattr(bs, "zero_shard_optimizer_state", False)))
+            t.transpile(startup_program=startup, main_program=main,
                         rank=dist.get_rank(), endpoints=[], nranks=world)
-            self._dp = (key, main, startup)
+            self._dp = (key, main, startup, t.wus_state_sources)
             self._synced = weakref.WeakSet()
-        _key, main, startup = self._dp
+        _key, main, startup, sources = self._dp
         if scope not in self._synced:
             step = scope.step_counter
             exe.run(startup, scope=scope)
             scope.step_counter = step
+            _carry_into_shards(scope, sources, dist.get_rank())
             self._synced.add(scope)
         return main
 

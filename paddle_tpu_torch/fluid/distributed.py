@@ -24,6 +24,8 @@ program are ``torch.distributed`` calls on a process group.
 - :func:`ring_group` / :func:`register_ring`: ``ring_id`` → process
   group.  Ring 0 is the world; further rings are groups that the
   ``c_comm_init`` op builds (ops/collective_ops.py).
+  :func:`ring_levels`: a ring's two levels (node groups and the group of
+  node roots) for hierarchical allreduce.
 
 The JAX module's ``ensure_cpu_collectives`` and
 ``cpu_collectives_supported`` choose XLA's CPU transport; torch's gloo
@@ -33,6 +35,7 @@ backend needs no such switch, so the port has neither.
 import datetime
 import os
 import sys
+import warnings
 
 import torch
 
@@ -49,6 +52,8 @@ _state = {
 }
 # ring_id -> ProcessGroup (ring 0, the world, is None: the default group)
 _rings = {}
+# (ring_id, nnodes) -> the ring's two levels (hierarchical allreduce)
+_levels = {}
 
 # rendezvous and collective timeout of the process group
 TIMEOUT_S = 600
@@ -140,16 +145,35 @@ def init(coordinator_address=None, num_processes=None, process_id=None,
     _state.update(connected=True, process_id=dist.get_rank(),
                   num_processes=dist.get_world_size())
     _rings.clear()
+    _levels.clear()
     telemetry.set_process_index(_state["process_id"],
                                 _state["num_processes"])
     return _state["process_id"], _state["num_processes"]
 
 
 def shutdown():
-    """Destroy the process group this module created (idempotent)."""
+    """Destroy the process group this module created (idempotent), so a
+    later :func:`init` can join another world (``fluid/elastic.py``).
+
+    Every checkpoint manager's save in flight is joined first
+    (``checkpoint.wait_all``): its commit polls storage only, so the
+    fence needs no collective.  A failed save becomes a warning here —
+    teardown does not raise."""
+    ckpt = sys.modules.get(__name__.rsplit(".", 1)[0] + ".checkpoint")
+    if ckpt is not None:
+        try:
+            ckpt.wait_all()
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:   # noqa: BLE001 — teardown goes on
+            warnings.warn(
+                "in-flight checkpoint save failed during shutdown (%s: "
+                "%s) — the last committed checkpoint remains the latest"
+                % (type(e).__name__, e), stacklevel=2)
     was = _state["connected"]
     _state.update(connected=False, process_id=0, num_processes=1)
     _rings.clear()
+    _levels.clear()
     telemetry.set_process_index(None)
     d = _dist()
     if was and d is not None:
@@ -203,6 +227,56 @@ def ring_group(ring_id):
             "ring_id %d has no process group: run the startup program "
             "(its c_comm_init ops build the rings) first" % ring_id)
     return _rings[ring_id]
+
+
+class Levels:
+    """The two levels of a hierarchical ring (reference nccl_helper.h:246;
+    the JAX package's ("dcn", "ici") mesh): ``nnodes`` nodes of
+    ``per_node`` consecutive ranks.  ``intra`` is this rank's node group,
+    ``inter`` the group of every node's first rank (None on the other
+    ranks), ``root`` the global rank of this node's first rank."""
+
+    def __init__(self, world, nnodes, intra, inter, root):
+        self.world = world
+        self.nnodes = nnodes
+        self.per_node = world // nnodes
+        self.intra = intra
+        self.inter = inter
+        self.root = root
+
+
+def ring_levels(ring_id, nnodes):
+    """The two levels of ring ``ring_id`` over ``nnodes`` nodes, built on
+    first use.  Building calls ``new_group`` once per node and once for
+    the node roots, on every rank in the same order, so every rank must
+    reach its first two-level collective (or the startup's
+    ``c_comm_init``) together — as the ops of one program do."""
+    key = (int(ring_id or 0), int(nnodes))
+    if key in _levels:
+        return _levels[key]
+    d = _dist()
+    base = ring_group(ring_id)
+    ranks = list(range(d.get_world_size())) if base is None else \
+        sorted(d.get_process_group_ranks(base))
+    world = len(ranks)
+    if world % nnodes:
+        raise RuntimeError(
+            "hierarchical allreduce: %d ranks not divisible by nnodes=%d"
+            % (world, nnodes))
+    per = world // nnodes
+    me = d.get_rank()
+    intra = inter = None
+    for n in range(nnodes):
+        g = d.new_group(ranks=ranks[n * per:(n + 1) * per])
+        if me in ranks[n * per:(n + 1) * per]:
+            intra = g
+    g = d.new_group(ranks=ranks[::per])
+    if me in ranks[::per]:
+        inter = g
+    pos = ranks.index(me)
+    levels = Levels(world, nnodes, intra, inter, ranks[pos - pos % per])
+    _levels[key] = levels
+    return levels
 
 
 def barrier(name="fluid-barrier"):

@@ -15,6 +15,7 @@ when PyTorch sees no CUDA device instead of falling back to the host.
 
 import contextlib
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -56,12 +57,17 @@ _m_device_mem = telemetry.gauge(
     "(FLAGS_metrics_device_memory): kind=live now, kind=peak the most "
     "since the process started")
 _mem_peak = [0]
+_m_opt_state_bytes = telemetry.gauge(
+    "optimizer_state_bytes",
+    "this rank's bytes of optimizer state (accumulators and moments) in "
+    "the scope of the most recent training dispatch — under weight-update "
+    "sharding each rank holds 1/N")
 _m_comm_bytes = telemetry.counter(
     "collective_bytes_total",
     "collective wire payload bytes per rank, by species, wire precision "
-    "and axis — always dp, one process per rank (an all-reduce counted "
-    "as its two phases, reduce-scatter and all-gather; "
-    "ops/collective_ops.py)")
+    "and axis — dp, or per level (dcn, ici) of a hierarchical ring (an "
+    "all-reduce counted as its two phases, reduce-scatter and "
+    "all-gather; ops/collective_ops.py)")
 
 
 class Place:
@@ -327,16 +333,29 @@ def _comm_fields(comm_log):
     if not comm_log:
         return dict(comm_bytes=0, comm_by=None, comm_by_axis=None,
                     comm_buckets=0)
-    by, total, buckets = {}, 0, 0
-    for species, precision, nb, bucket in comm_log:
+    by, by_axis, total, buckets = {}, {}, 0, 0
+    for species, precision, nb, bucket, axis in comm_log:
         _m_comm_bytes.inc(nb, species=species, precision=precision,
-                          axis="dp")
+                          axis=axis)
         key = "%s_%s" % (species, precision)
         by[key] = by.get(key, 0) + nb
+        by_axis[axis] = by_axis.get(axis, 0) + nb
         total += nb
         buckets += bucket
-    return dict(comm_bytes=total, comm_by=by, comm_by_axis={"dp": total},
+    return dict(comm_bytes=total, comm_by=by, comm_by_axis=by_axis,
                 comm_buckets=buckets)
+
+
+def _opt_state_bytes(program, scope):
+    """Bytes of the program's optimizer state (its ``_opt_state_of``
+    links) as this rank's scope holds it: a sharded state var holds the
+    rank's 1/N slice, so it counts 1/N (JAX executor.py:933)."""
+    total = 0
+    for n in program._opt_state_of:
+        v = scope.find_var(n)
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+    return total
 
 
 def _stop_consensus(world):
@@ -404,6 +423,8 @@ class _DispatchPlan:
         # the first dispatch of a plan carries its first-call costs; the
         # step event stamps its wall time as compile_s, then clears this
         self.fresh = True
+        # scope -> its bytes of the program's optimizer state
+        self.opt_bytes = weakref.WeakKeyDictionary()
 
 
 class Executor:
@@ -571,7 +592,9 @@ class Executor:
                               self.device, is_test=program._is_test,
                               amp_dtype=program._amp_dtype,
                               amp_keep=program._amp_keep, nan_log=nan_log,
-                              rank=rank)
+                              rank=rank, hierarchical=getattr(
+                                  program, "_collective_hierarchical",
+                                  None))
             # only taped forward ops turn autograd on, inside run_block
             try:
                 with torch.no_grad():
@@ -683,8 +706,14 @@ class Executor:
         feed_bytes = int(sum(_nbytes(v) for v in feeds.values()))
         _m_dispatch_s.observe((t1 - t0) / 1e9,
                               kind="window" if plan.is_window else "step")
-        # the JAX package's step-event schema, field for field; the
-        # optimizer-sharding field is 0 (no weight-update sharding)
+        opt_bytes = plan.opt_bytes.get(scope)
+        if opt_bytes is None:
+            # state sizes are fixed for the life of a plan on a scope
+            opt_bytes = plan.opt_bytes[scope] = \
+                _opt_state_bytes(program, scope)
+        if opt_bytes:
+            _m_opt_state_bytes.set(opt_bytes)
+        # the JAX package's step-event schema, field for field
         telemetry.record_step_event(
             ts_ns=t0, dur_ns=t1 - t0, step=int(step), k=k,
             window=plan.is_window, plan_hit=self._last_plan_hit,
@@ -694,7 +723,7 @@ class Executor:
             verdicts=k if verdicts is not None else 0,
             ckpt_overlap=bool(_m_ckpt_inflight.value()),
             data_wait_s=telemetry.take_pending_data_wait(),
-            opt_state_bytes=0, **_comm_fields(comm))
+            opt_state_bytes=opt_bytes, **_comm_fields(comm))
         telemetry.record_span("dispatch", t0, t1 - t0, step=int(step),
                               k=k, window=plan.is_window)
         if flags.get_flag("metrics_device_memory") and \
@@ -727,7 +756,8 @@ class Executor:
 
         With a ``checkpoint_manager`` the loop saves every
         ``checkpoint_period`` steps (on window boundaries by
-        construction); a preemption stop request
+        construction; in a world of several ranks every rank saves, a pod
+        checkpoint of its own shards, checkpoint.py); a preemption stop request
         (``fluid.preemption.install()`` / ``request_stop()``) drains the
         window in flight, takes a final synchronous save and returns;
         under ``FLAGS_check_nan_inf=skip`` with ``FLAGS_bad_step_rollback
@@ -749,11 +779,6 @@ class Executor:
         if dataset is None:
             raise RuntimeError("dataset is need and should be initialized")
         world = distributed.process_count()
-        if world > 1 and checkpoint_manager is not None:
-            raise NotImplementedError(
-                "train_from_dataset(checkpoint_manager=) in a world of %d "
-                "ranks needs the multi-host checkpoint save, which is not "
-                "ported yet (ROADMAP queue 1 item 10b)" % world)
         K = flags.steps_per_run_value(steps_per_run)
         program = program or framework.default_main_program()
         scope = scope if scope is not None else global_scope()

@@ -25,6 +25,9 @@ overridden in-process with :func:`set_flag`.
   ``metrics_device_memory``, ``bad_step_rollback`` / ``rollback_limit``,
   the watchdog's ``watchdog_*`` and the device trace
   ``device_profile`` / ``device_profile_dir``.
+- The pod checkpoints (``checkpoint.py``, ``storage.py``):
+  ``checkpoint_commit_timeout_s`` bounds the async pod save's commit poll,
+  ``checkpoint_reap_min_age_s`` is the debris reaper's minimum age.
 """
 
 import os
@@ -87,6 +90,16 @@ _DEFS = {
                                      # hang but never os._exit()
     "watchdog_checkpoint_grace_s": 300.0,  # deadline extension while a
                                      # checkpoint save/restore runs
+    "checkpoint_commit_timeout_s": 120.0,  # async pod save: how long the
+                                     # chief polls storage for the other
+                                     # ranks' manifests (and a rank for
+                                     # the chief's marker) before it
+                                     # abandons the prefix
+    "checkpoint_reap_min_age_s": 600.0,  # the debris reaper spares an
+                                     # unmarked step-* prefix younger
+                                     # than this (its claim lease, else
+                                     # the dir mtime): it may be a pod
+                                     # save still uploading
     "watchdog_compile_grace_s": 600.0,  # deadline extension around a
                                      # fresh plan's first dispatch
     "device_profile": 0,             # N>0: torch.profiler trace (CPU and

@@ -274,6 +274,10 @@ class Block:
         self.program._bump_version()
         return op
 
+    def _remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
+
     def _sig(self):
         return (self.idx, self.parent_idx,
                 tuple(v._sig() for v in self.vars.values()),
@@ -297,6 +301,14 @@ class Program:
         # dtype of conv/matmul, and whether their outputs stay in it
         self._amp_dtype = None
         self._amp_keep = False
+        # optimizer state -> its parameter (optimizer._add_accumulator)
+        self._opt_state_of = {}
+        # weight-update sharding (transpiler/collective.py): state vars
+        # each rank holds 1/N of, N, and {padded flat buffer: logical
+        # bucket numel} (the elastic restore's layout identity)
+        self._dp_sharded_state = set()
+        self._wus_degree = None
+        self._wus_padded_numel = {}
 
     # -- structure ---------------------------------------------------------
     def global_block(self):
@@ -388,6 +400,10 @@ class Program:
         p._is_test = for_test
         p._amp_dtype = self._amp_dtype
         p._amp_keep = self._amp_keep
+        p._opt_state_of = dict(self._opt_state_of)
+        p._dp_sharded_state = set(self._dp_sharded_state)
+        p._wus_degree = self._wus_degree
+        p._wus_padded_numel = dict(self._wus_padded_numel)
         p.current_block_idx = 0
         p._bump_version()
         return p

@@ -12,9 +12,12 @@ the program pair — the BERT-style synchronous path.  The chief (rank 0)
 alone writes ``save_persistables`` and ``save_inference_model``, and every
 rank waits for it at a barrier.
 
-Model parallelism (``mp_degree``/``sp_degree``/``ep_degree`` > 1) is
-ROADMAP queue 1 item 11; weight-update sharding, the int8 wire and
-hierarchical allreduce are item 10b.  Each raises naming its item.
+The strategy's ``weight_update_sharding``, ``allreduce_precision`` (with
+``quant_block_size`` and ``error_feedback``) and
+``use_hierarchical_allreduce`` (with ``hierarchical_allreduce_inter_nranks``,
+the node count) go to the transpile, as in the JAX package.  Model
+parallelism (``mp_degree``/``sp_degree``/``ep_degree`` > 1) is ROADMAP
+queue 1 item 11 and raises naming it.
 """
 
 from ..base.fleet_base import Fleet, DistributedOptimizer
@@ -101,17 +104,12 @@ class CollectiveOptimizer(DistributedOptimizer):
                 "parallelism are not ported yet (ROADMAP queue 1 item 11)"
                 % ", ".join("%s=%d" % kv for kv in sorted(degrees.items())
                             if kv[1] > 1))
-        if getattr(strategy, "use_hierarchical_allreduce", False) and \
-                not getattr(strategy, "local_sgd", False):
-            raise NotImplementedError(
-                "DistributedStrategy(use_hierarchical_allreduce=True) is "
-                "not ported yet (ROADMAP queue 1 item 10b)")
         if getattr(strategy, "local_sgd", False):
             t = LocalSGD(nrings=strategy.nrings,
                          k_steps=strategy.local_sgd_steps)
         else:
-            # built before minimize, so an option of item 10b raises
-            # before the program is touched
+            # built before minimize, so a bad option raises before the
+            # program is touched
             t = GradAllReduce(
                 nrings=getattr(strategy, "nrings", 1),
                 fuse_grad_size_mb=getattr(strategy,
@@ -134,8 +132,16 @@ class CollectiveOptimizer(DistributedOptimizer):
         rank = fleet_obj.worker_index() if init else 0
         nranks = fleet_obj.worker_num() if init else 0
         endpoints = fleet_obj.worker_endpoints() if init else []
+        kwargs = {}
+        if getattr(strategy, "use_hierarchical_allreduce", False) and \
+                not getattr(strategy, "local_sgd", False):
+            nnodes = getattr(strategy, "hierarchical_allreduce_inter_nranks",
+                             0) or None
+            if nnodes:
+                kwargs["hierarchical_allreduce_nnodes"] = nnodes
         t.transpile(startup_program=startup, main_program=main, rank=rank,
-                    endpoints=endpoints, nranks=nranks if endpoints else 0)
+                    endpoints=endpoints, nranks=nranks if endpoints else 0,
+                    **kwargs)
         return optimize_ops, params_grads
 
 

@@ -21,6 +21,7 @@ loader is strict by default — see checkpoint.py.
 
 import json
 import os
+import warnings
 import pickle
 
 import numpy as np
@@ -120,8 +121,23 @@ def save_params(executor, dirname, main_program=None, filename=None):
 
 
 def save_persistables(executor, dirname, main_program=None, filename=None):
+    """Every persistable of the program but the state that weight-update
+    sharding splits over N > 1 ranks (``_dp_sharded_state``): this rank
+    holds only its 1/N slice of it, which only a pod checkpoint
+    (``CheckpointManager`` in the world of ranks) writes, with its index
+    range.  Those are left out with a warning."""
+    main_program = main_program or default_main_program()
+    sharded = main_program._dp_sharded_state \
+        if (main_program._wus_degree or 1) > 1 else ()
+    if sharded:
+        warnings.warn(
+            "save_persistables leaves out %d var(s) sharded over %d ranks "
+            "(%s, ...): save them with fluid.CheckpointManager (a pod "
+            "checkpoint)" % (len(sharded), main_program._wus_degree,
+                             sorted(sharded)[0]), stacklevel=2)
     save_vars(executor, dirname, main_program,
-              predicate=_is_persistable, filename=filename)
+              predicate=lambda v: _is_persistable(v) and
+              v.name not in sharded, filename=filename)
 
 
 def load_vars(executor, dirname, main_program=None, vars=None,

@@ -35,7 +35,8 @@ class ExecState:
     """Per-run execution state threaded through lowerings."""
 
     def __init__(self, blocks, step, seed, device, is_test=False,
-                 amp_dtype=None, amp_keep=False, nan_log=None, rank=0):
+                 amp_dtype=None, amp_keep=False, nan_log=None, rank=0,
+                 hierarchical=None):
         self.blocks = blocks    # program blocks
         self.step = step        # host int, increments per run
         self.seed = seed        # program random seed
@@ -57,16 +58,45 @@ class ExecState:
         # different dropout masks and rank 0 keeps the world-of-one
         # stream
         self.rank = int(rank)
-        # (species, precision, bytes, grad bucket) of every collective
-        # the run issued (ops/collective_ops.py)
+        # the program's hierarchical_allreduce_nnodes (the transpiler's
+        # _collective_hierarchical): > 1 makes every ring two-level
+        self.hierarchical = int(hierarchical or 0)
+        # (species, precision, bytes, grad bucket, axis) of every
+        # collective the run issued (ops/collective_ops.py)
         self.comm_log = []
 
-    def record_comm(self, species, precision, nbytes, grad_bucket=False):
+    def record_comm(self, species, precision, nbytes, grad_bucket=False,
+                    axis="dp", sizes=None):
         """Log one collective's per-rank wire bytes (JAX
         ``ExecState.record_comm``, lowering.py:80); ``grad_bucket`` marks
-        a transpiled gradient exchange (the ``__grad_bucket__`` attr)."""
-        self.comm_log.append((species, precision, int(nbytes),
-                              bool(grad_bucket)))
+        a transpiled gradient exchange (the ``__grad_bucket__`` attr).
+
+        A tuple ``axis`` is the hierarchical two-level ring, ``("dcn",
+        "ici")`` with the level ``sizes`` (nodes, ranks per node): the
+        bytes are split per level as the JAX package splits them — the
+        inner level moves the full payload, each outer level the 1/n
+        shard the levels inside it leave, the shares normalized to sum to
+        ``nbytes``; a level of size 1 moves nothing and gets no entry."""
+        total = int(nbytes)
+        if not isinstance(axis, tuple):
+            self.comm_log.append((species, precision, total,
+                                  bool(grad_bucket), axis))
+            return
+        weights, shard = [], 1.0
+        for ax, n in zip(reversed(axis), reversed(sizes)):
+            if n > 1:
+                weights.append((ax, shard))
+            shard /= max(n, 1)
+        if not weights:
+            weights = [(axis[-1], 1.0)]
+        wsum = sum(w for _ax, w in weights)
+        acc = 0
+        for i, (ax, w) in enumerate(weights):
+            b = total - acc if i == len(weights) - 1 \
+                else int(round(total * w / wsum))
+            acc += b
+            self.comm_log.append((species, precision, b,
+                                  bool(grad_bucket), ax))
 
 
 def amp_operands(state, *vals):

@@ -13,9 +13,26 @@ mapped context.
 Wire precision (the ``precision`` attr, or the older ``use_bf16`` bool):
 ``fp32`` is exact; ``bf16`` casts the payload to bf16 and back, and the
 prod all-reduce sends bf16 logs (fp32 ``log``/``exp``), as the JAX ops
-do; ``int8`` and a ``Residual`` input (error feedback) are ROADMAP queue
-1 item 10b and raise.  max/min all-reduces and broadcasts stay exact at
-every precision.
+do; ``int8`` runs the block-scaled two-phase exchange of
+``quantized_collectives`` on ``c_allreduce_sum``, and its standalone
+halves on a 1-D ``c_reducescatter`` (numel a multiple of N x block) and
+``c_allgather`` (numel a multiple of the block), with an optional
+error-feedback residual through the ``Residual``/``ResidualOut`` slots.
+Every other int8 request (another shape, a hierarchical ring) becomes
+the bf16 cast, and a non-float payload stays exact, as in the JAX ops.
+max/min all-reduces and broadcasts stay exact at every precision.
+
+Hierarchical rings (``hierarchical_allreduce_nnodes`` > 1 on the
+program, the JAX package's ("dcn", "ici") mesh): an all-reduce sums
+within each node onto the node's first rank, all-reduces across those
+first ranks and broadcasts back within the node (reference
+nccl_helper.h:246); the other ops run on the whole ring.  Their wire
+bytes are split per level under the JAX package's level names.
+
+A card tensor on a gloo group goes through host memory for every
+collective gloo does not run on the card (reduce-scatter, all-gather,
+all-to-all, reduce): the group's backend chooses the route
+(``quantized_collectives.staged``), and under NCCL nothing is staged.
 
 Streams: every call is synchronous (``async_op=False``).  torch enqueues
 an NCCL collective on its own stream behind an event of the current
@@ -37,44 +54,23 @@ import collections
 import torch
 
 from .. import distributed
+from ..quantized_collectives import (DEFAULT_BLOCK_SIZE,
+                                     allreduce_wire_bytes, exchange,
+                                     phase_wire_bytes, quantized_all_gather,
+                                     quantized_psum,
+                                     quantized_reduce_scatter,
+                                     resolve_precision, staged)
 from ..registry import register_op
-
-PRECISIONS = ("fp32", "bf16", "int8")
 
 # op type -> collectives issued on a process group (identity runs and
 # worlds of one do not count)
 calls = collections.Counter()
 
-# the tiled collectives under the names both torch 2.11 and 2.13 have,
-# chosen once (2.13 deprecates the *_tensor names for *_single)
-_ALL_GATHER = None
-_REDUCE_SCATTER = None
+LEVELS = ("dcn", "ici")
 
 
 def reset_calls():
     calls.clear()
-
-
-def resolve_precision(precision=None, use_bf16=False):
-    """Wire precision from the ``precision`` knob, with the older
-    ``use_bf16`` bool as fallback (JAX quantized_collectives.py:59)."""
-    if precision in (None, "", False):
-        return "bf16" if use_bf16 else "fp32"
-    if precision not in PRECISIONS:
-        raise ValueError("allreduce_precision must be one of %s, got %r"
-                         % (PRECISIONS, precision))
-    return precision
-
-
-def _tiled():
-    global _ALL_GATHER, _REDUCE_SCATTER
-    if _ALL_GATHER is None:
-        import torch.distributed as dist
-        _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
-            dist.all_gather_into_tensor
-        _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
-            dist.reduce_scatter_tensor
-    return _ALL_GATHER, _REDUCE_SCATTER
 
 
 def _world(ctx):
@@ -87,21 +83,28 @@ def _world(ctx):
     return d, group, d.get_world_size(group)
 
 
+def _levels(ctx):
+    """The ring's two levels when the program runs hierarchical
+    allreduce, else None."""
+    nnodes = ctx.state.hierarchical
+    if nnodes <= 1:
+        return None
+    return distributed.ring_levels(ctx.attr("ring_id", 0), nnodes)
+
+
 def _precision(ctx):
-    p = resolve_precision(ctx.attr("precision", None),
-                          ctx.attr("use_bf16", False))
-    if p == "int8":
-        raise NotImplementedError(
-            "%s: the int8 wire (block-scaled quantized collectives) is not "
-            "ported yet (ROADMAP queue 1 item 10b)" % ctx.op.type)
-    return p
+    return resolve_precision(ctx.attr("precision", None),
+                             ctx.attr("use_bf16", False))
 
 
-def _no_residual(ctx):
-    if ctx.op.input("Residual"):
-        raise NotImplementedError(
-            "%s: error-feedback residuals are not ported yet (ROADMAP "
-            "queue 1 item 10b)" % ctx.op.type)
+def _block_size(ctx):
+    return int(ctx.attr("quant_block_size", 0) or DEFAULT_BLOCK_SIZE)
+
+
+def _pass_residual(ctx):
+    residual = ctx.i_opt("Residual")
+    if residual is not None:
+        ctx.set("ResidualOut", residual)
 
 
 def _castable(x, precision):
@@ -118,10 +121,31 @@ def _payload(x, precision):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _count(ctx, species, precision, nbytes, grad_bucket=False):
+def _count(ctx, species, precision, nbytes, grad_bucket=False, lv=None):
     calls[ctx.op.type] += 1
-    ctx.state.record_comm(species, precision, nbytes,
-                          grad_bucket=grad_bucket)
+    if lv is None:
+        ctx.state.record_comm(species, precision, nbytes,
+                              grad_bucket=grad_bucket)
+    else:
+        ctx.state.record_comm(species, precision, nbytes,
+                              grad_bucket=grad_bucket, axis=LEVELS,
+                              sizes=(lv.nnodes, lv.per_node))
+
+
+def _two_level_sum(d, y, group, lv):
+    """``y`` summed over the ring in place, level by level: a reduce onto
+    the node's first rank, an all-reduce across the first ranks, a
+    broadcast within the node."""
+    t = y.cpu() if staged(group, y) else y
+    if lv.per_node > 1:
+        d.reduce(t, dst=lv.root, group=lv.intra)
+    if lv.inter is not None and lv.nnodes > 1:
+        d.all_reduce(t, group=lv.inter)
+    if lv.per_node > 1:
+        d.broadcast(t, src=lv.root, group=lv.intra)
+    if t is not y:
+        y.copy_(t)
+    return y
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -154,24 +178,49 @@ def all_reduce_sum(x, group):
 
 @register_op("c_allreduce_sum")
 def _c_allreduce_sum(ctx, op):
+    """Gradient all-reduce at the op's wire precision: fp32 exact, bf16
+    the payload cast, int8 the quantized two-phase exchange with its
+    error-feedback residual (JAX ops/collective_ops.py:60)."""
     x = ctx.i("X")
-    _no_residual(ctx)
-    precision = _precision(ctx)
     w = _world(ctx)
     if w is None:
         ctx.set("Out", x)
+        _pass_residual(ctx)
         return
-    d, group, _n = w
+    d, group, n = w
+    lv = _levels(ctx)
+    precision = _precision(ctx)
     bucket = bool(ctx.attr("__grad_bucket__", False))
+    if precision == "int8" and x.is_floating_point() and lv is None:
+        bs = _block_size(ctx)
+        residual = ctx.i_opt("Residual")
+        out, new_res = quantized_psum(x, group, block_size=bs,
+                                      residual=residual)
+        ctx.set("Out", out)
+        if residual is not None:
+            ctx.set("ResidualOut", new_res)
+        _count(ctx, "allreduce", "int8",
+               allreduce_wire_bytes(x.numel(), "int8", bs, world_size=n),
+               bucket)
+        return
+    # a hierarchical ring and a non-float payload turn an int8 request
+    # into the bf16 cast and the exact sum respectively
+    _pass_residual(ctx)
     if _castable(x, precision):
         y = x.to(torch.bfloat16).contiguous()
-        d.all_reduce(y, group=group)
+        if lv is None:
+            d.all_reduce(y, group=group)
+        else:
+            _two_level_sum(d, y, group, lv)
         ctx.set("Out", y.to(x.dtype))
-        _count(ctx, "allreduce", "bf16", 2 * 2 * x.numel(), bucket)
+        _count(ctx, "allreduce", "bf16", 2 * 2 * x.numel(), bucket, lv)
         return
-    ctx.set("Out", all_reduce_sum(x, group))
+    if lv is None:
+        ctx.set("Out", all_reduce_sum(x, group))
+    else:
+        ctx.set("Out", _two_level_sum(d, _payload(x, "fp32"), group, lv))
     _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel(),
-           bucket)
+           bucket, lv)
 
 
 def _minmax(ctx, which):
@@ -186,7 +235,8 @@ def _minmax(ctx, which):
     y = _payload(x, "fp32")
     d.all_reduce(y, op=getattr(d.ReduceOp, which), group=group)
     ctx.set("Out", y)
-    _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel())
+    _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel(),
+           lv=_levels(ctx))
 
 
 @register_op("c_allreduce_max")
@@ -216,12 +266,14 @@ def _c_allreduce_prod(ctx, op):
         logs = torch.log(x.float()).to(torch.bfloat16)
         d.all_reduce(logs, group=group)
         ctx.set("Out", torch.exp(logs.float()).to(x.dtype))
-        _count(ctx, "allreduce", "bf16", 2 * 2 * x.numel())
+        _count(ctx, "allreduce", "bf16", 2 * 2 * x.numel(),
+               lv=_levels(ctx))
         return
     y = _payload(x, "fp32")
     d.all_reduce(y, op=d.ReduceOp.PRODUCT, group=group)
     ctx.set("Out", y)
-    _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel())
+    _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel(),
+           lv=_levels(ctx))
 
 
 def _broadcast(ctx, op):
@@ -239,7 +291,8 @@ def _broadcast(ctx, op):
     src = root if group is None else d.get_global_rank(group, root)
     d.broadcast(y, src=src, group=group)
     ctx.set("Out", y)
-    _count(ctx, "broadcast", "fp32", 2 * x.element_size() * x.numel())
+    _count(ctx, "broadcast", "fp32", 2 * x.element_size() * x.numel(),
+           lv=_levels(ctx))
 
 
 register_op("c_broadcast")(_broadcast)
@@ -248,48 +301,80 @@ register_op("c_broadcast")(_broadcast)
 @register_op("c_allgather")
 def _c_allgather(ctx, op):
     """The ranks' X stacked along dim 0 ([N * d0, ...]), in rank order.
+    int8 on a 1-D X whose numel divides by the block size is the
+    quantized gather (weight-update sharding's parameter delta, with an
+    optional sharded residual); other int8 requests are the bf16 cast.
     Its wire bytes count the gathered size, as the JAX op does."""
     x = ctx.i("X")
-    _no_residual(ctx)
-    precision = _precision(ctx)
     w = _world(ctx)
     if w is None:
         ctx.set("Out", x)
+        _pass_residual(ctx)
         return
     _d, group, n = w
-    src = _payload(x, precision)
-    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    _tiled()[0](out, src, group=group)
+    lv = _levels(ctx)
+    precision = _precision(ctx)
+    bs = _block_size(ctx)
+    if precision == "int8" and x.is_floating_point() and lv is None and \
+            x.dim() == 1 and x.numel() % bs == 0:
+        residual = ctx.i_opt("Residual")
+        out, new_res = quantized_all_gather(x, group, block_size=bs,
+                                            residual=residual)
+        ctx.set("Out", out)
+        if residual is not None:
+            ctx.set("ResidualOut", new_res)
+        _count(ctx, "allgather", "int8",
+               phase_wire_bytes(x.numel() * n, "int8", bs))
+        return
+    _pass_residual(ctx)
+    src = x.to(torch.bfloat16) if _castable(x, precision) else x
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    exchange("all_gather", out, src, group)
     ctx.set("Out", out.to(x.dtype))
     _count(ctx, "allgather", "bf16" if _castable(x, precision) else "fp32",
-           n * x.numel() * src.element_size())
+           n * x.numel() * src.element_size(), lv=lv)
 
 
 @register_op("c_reducescatter")
 def _c_reducescatter(ctx, op):
     """The sum over the ranks of X, split along dim 0: rank r keeps the
-    r-th of N equal parts."""
+    r-th of N equal parts.  int8 on a 1-D X whose numel divides by N x
+    the block size is phase 1 of the quantized exchange (the gradient
+    half of weight-update sharding, with an optional residual); other
+    int8 requests are the bf16 cast."""
     x = ctx.i("X")
-    _no_residual(ctx)
-    precision = _precision(ctx)
     w = _world(ctx)
     if w is None:
         ctx.set("Out", x)
+        _pass_residual(ctx)
         return
     _d, group, n = w
+    lv = _levels(ctx)
+    precision = _precision(ctx)
+    bs = _block_size(ctx)
+    bucket = bool(ctx.attr("__grad_bucket__", False))
+    if precision == "int8" and x.is_floating_point() and lv is None and \
+            x.dim() == 1 and x.numel() % (bs * n) == 0:
+        residual = ctx.i_opt("Residual")
+        out, new_res = quantized_reduce_scatter(x, group, block_size=bs,
+                                                residual=residual)
+        ctx.set("Out", out)
+        if residual is not None:
+            ctx.set("ResidualOut", new_res)
+        _count(ctx, "reducescatter", "int8",
+               phase_wire_bytes(x.numel(), "int8", bs), bucket)
+        return
     if x.shape[0] % n:
         raise ValueError("c_reducescatter: dim0=%d not divisible by world "
                          "size %d" % (x.shape[0], n))
-    src = _payload(x, precision)
-    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    _tiled()[1](out, src, group=group)
+    _pass_residual(ctx)
+    src = x.to(torch.bfloat16) if _castable(x, precision) else x
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    exchange("reduce_scatter", out, src, group)
     ctx.set("Out", out.to(x.dtype))
     _count(ctx, "reducescatter",
            "bf16" if _castable(x, precision) else "fp32",
-           x.numel() * src.element_size(),
-           bool(ctx.attr("__grad_bucket__", False)))
+           x.numel() * src.element_size(), bucket, lv)
 
 
 @register_op("c_shard_slice", stop_gradient=True)
@@ -345,6 +430,9 @@ def _c_comm_init(ctx, op):
     ring = int(ctx.attr("ring_id", 0))
     if d is not None and ring and ring not in distributed._rings:
         distributed.register_ring(ring, d.new_group(ranks=list(range(world))))
+    if d is not None and ctx.state.hierarchical > 1:
+        # the ring's two levels, built here with every rank present
+        distributed.ring_levels(ring, ctx.state.hierarchical)
 
 
 @register_op("barrier", stop_gradient=True)
@@ -375,7 +463,8 @@ def _local_sgd_sync(ctx, op):
     y = _payload(x, "fp32")
     d.all_reduce(y, group=group)
     ctx.set("Out", y / torch.tensor(n, dtype=y.dtype, device=y.device))
-    _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel())
+    _count(ctx, "allreduce", "fp32", 2 * x.element_size() * x.numel(),
+           lv=_levels(ctx))
 
 
 # the legacy single-op collectives (operators/distributed_ops/

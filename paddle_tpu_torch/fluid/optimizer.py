@@ -27,6 +27,32 @@ from .layer_helper import LayerHelper
 from . import unique_name
 
 
+# vector-state slots (input -> output) of the optimizer ops whose update
+# is elementwise, so that a 1/N shard of a coalesced parameter bucket can
+# be updated alone (weight-update sharding, transpiler/collective.py;
+# JAX optimizer.py:35).  Lamb and LarsMomentum need the whole parameter.
+ELEMENTWISE_OPTIMIZER_STATE = {
+    "sgd": {},
+    "momentum": {"Velocity": "VelocityOut"},
+    "adam": {"Moment1": "Moment1Out", "Moment2": "Moment2Out"},
+    "adamax": {"Moment": "MomentOut", "InfNorm": "InfNormOut"},
+    "adagrad": {"Moment": "MomentOut"},
+    "decayed_adagrad": {"Moment": "MomentOut"},
+    "adadelta": {"AvgSquaredGrad": "AvgSquaredGradOut",
+                 "AvgSquaredUpdate": "AvgSquaredUpdateOut"},
+    "rmsprop": {"Moment": "MomentOut", "MeanSquare": "MeanSquareOut",
+                "MeanGrad": "MeanGradOut"},
+    "ftrl": {"SquaredAccumulator": "SquaredAccumOut",
+             "LinearAccumulator": "LinearAccumOut"},
+}
+
+
+def elementwise_state_slots(op_type):
+    """The vector-state slot map of an optimizer op whose update shards
+    elementwise, or None when the op cannot update a shard."""
+    return ELEMENTWISE_OPTIMIZER_STATE.get(op_type)
+
+
 def _not_ported(what, item):
     return NotImplementedError(
         "%s is not ported yet (ROADMAP.md, port queue 1: %s)" % (what, item))
@@ -101,6 +127,13 @@ class Optimizer:
         helper.set_variable_initializer(
             var, ConstantInitializer(float(fill_value)))
         self._accumulators[key] = var
+        # the state -> parameter link, on both programs (JAX
+        # optimizer.py:131): the step event's optimizer_state_bytes and
+        # weight-update sharding read it
+        for prog in (helper.main_program, helper.startup_program):
+            links = dict(prog._opt_state_of)
+            links[var.name] = param.name
+            prog._opt_state_of = links
         return var
 
     def _get_accumulator(self, name, param):

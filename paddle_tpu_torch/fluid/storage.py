@@ -19,12 +19,17 @@ hard-coded POSIX assumption:
   selected.  Transient I/O errors (the HTTP 429/5xx class) are retried
   with bounded exponential backoff.
 
-This is the port's copy of ``paddle_tpu/fluid/storage.py``, single
-process, with its retry counters (``storage_retry_total{backend}``,
+This is the port's copy of ``paddle_tpu/fluid/storage.py``, with its
+retry counters (``storage_retry_total{backend}``,
 ``storage_retry_exhausted_total``) and the watchdog's deadline extension
-around a retry's sleep.  Left for later: ``MixedProtocolReader``, the claim lease that pod saves write first and
-the debris reaper's minimum-age guard, all of which exist for several
-writers under one prefix (item 10b).
+around a retry's sleep.  For several writers under one prefix (the pod
+checkpoints of ``checkpoint.py``): the object store takes every rank's
+objects under one ``step-<N>/`` prefix (``supports_shared_prefix``), the
+chief's ``begin()`` writes a claim lease (``_LEASE.json``) before any
+shard lands, the debris reaper spares a markerless prefix younger than
+``FLAGS_checkpoint_reap_min_age_s`` (it may be a save still uploading),
+and :class:`MixedProtocolReader` reads a directory holding both commit
+dialects.
 
 The object-store backend here SIMULATES that contract over a local
 directory — uploads may be torn mid-write by a kill (strictly weaker
@@ -46,6 +51,7 @@ import shutil
 import time
 import zlib
 
+from . import flags
 from . import telemetry
 from . import watchdog
 
@@ -56,9 +62,10 @@ _m_retry_exhausted = telemetry.counter(
     "storage_retry_exhausted_total",
     "storage operations that failed after the whole retry budget")
 
-
 MARKER_NAME = "_COMMITTED.json"
 MARKER_VERSION = 1
+LEASE_NAME = "_LEASE.json"
+LEASE_VERSION = 1
 _STEP_RE = re.compile(r"^step-(\d+)$")
 
 
@@ -81,11 +88,18 @@ class Storage:
     left behind, never anything committed."""
 
     name = "abstract"
+    # True when several writers may put objects under one final prefix
+    # concurrently (no staging dir / whole-dir rename): the multi-host
+    # checkpoint protocol needs this — every process uploads its own
+    # shards under ``step-N/`` and the chief's marker object is the one
+    # commit point (checkpoint.py ``_save_multihost``)
+    supports_shared_prefix = False
     # True when commitment is the marker object, not an atomic rename.
     # Writers stamp it into the manifest (``"commit": "marker"``) so a
-    # reader demands the marker for dirs this backend wrote instead of
-    # guessing the dialect from file presence — a markerless dir is only
-    # trustable when a RENAME-committed writer made it visible
+    # generic reader (MixedProtocolReader) can demand the marker for
+    # dirs this backend wrote instead of guessing the dialect from
+    # file presence — a markerless dir is only trustable when a
+    # RENAME-committed writer made it visible
     commit_via_marker = False
 
     def begin(self, final):
@@ -148,6 +162,7 @@ class ObjectStoreStorage(Storage):
     errors: ``retries`` retries, the first after ``backoff_s`` seconds."""
 
     name = "object_store"
+    supports_shared_prefix = True
     commit_via_marker = True
 
     def __init__(self, retries=3, backoff_s=0.05):
@@ -170,9 +185,10 @@ class ObjectStoreStorage(Storage):
                 if attempt >= self.retries:
                     break
                 _m_retries.inc(backend=self.name)
-                # a retry backoff is the runtime coping with a flaky
-                # store, not a hang: the deadline stretches by the sleep
-                # plus headroom for the re-attempt
+                # phase-aware watchdog grace: a retry backoff is the
+                # runtime coping with a flaky store, not a hang — the
+                # deadline stretches by the sleep plus headroom for the
+                # re-attempt, and the exit stamp restarts the age clock
                 with watchdog.extend_deadline("storage_retry",
                                               2.0 * delay + 1.0):
                     time.sleep(delay)
@@ -198,6 +214,26 @@ class ObjectStoreStorage(Storage):
                 self._retrying(lambda: os.unlink(marker))
             shutil.rmtree(final, ignore_errors=True)
         os.makedirs(final, exist_ok=True)
+        # claim lease: written FIRST, before any shard lands.  Two jobs:
+        # (1) the debris reaper's age clock — an in-flight async pod
+        # save has no marker yet and must not be reaped out from under
+        # its uploaders (gc_stale honors FLAGS_checkpoint_reap_min_age_s
+        # against the lease timestamp); (2) the async pod protocol's
+        # start signal — worker ranks poll for a lease whose step
+        # matches theirs before uploading, so they can never race this
+        # method's rmtree on a reused prefix.  The lease outlives the
+        # commit (the marker supersedes it; validation ignores extras).
+        base = os.path.basename(final)
+        m = _STEP_RE.match(base)
+        body = {"version": LEASE_VERSION,
+                "step": int(m.group(1)) if m else None,
+                "ts": time.time(), "pid": os.getpid()}
+        doc = dict(body, crc32=_marker_crc(body))
+        data = json.dumps(doc, sort_keys=True).encode("utf-8")
+        from .checkpoint import write_file
+        self._retrying(
+            lambda: write_file(os.path.join(final, LEASE_NAME), data,
+                               "lease:" + base))
         return final   # no staging area: objects land under their prefix
 
     def put(self, stage, fname, data, point):
@@ -259,23 +295,94 @@ class ObjectStoreStorage(Storage):
         A marker that exists but fails validation is KEPT for
         post-mortem (bit-rot after commit is evidence, not debris).
 
-        No markerless prefix here can be a live upload: the one writer
-        waits out its save in flight before it starts another, and runs
-        this after its commit.  (The JAX package's pod saves spare young
-        prefixes behind a claim lease; that waits for ROADMAP queue 1
-        item 10b.)"""
+        Minimum-age guard: with async pod saves a markerless prefix may
+        be a LIVE upload (shards landing from background threads on
+        several hosts, commit marker still minutes away) — byte-for-byte
+        indistinguishable from debris.  The chief's claim lease
+        (``begin()``) timestamps the prefix; markerless prefixes younger
+        than ``FLAGS_checkpoint_reap_min_age_s`` (lease ts, else dir
+        mtime for debris without a lease) are skipped.  Truly abandoned
+        prefixes age past the guard and are reaped on a later pass."""
         if not os.path.isdir(dirname):
             return
+        min_age = float(flags.get_flag("checkpoint_reap_min_age_s"))
+        now = time.time()
         for entry in os.listdir(dirname):
             path = os.path.join(dirname, entry)
             if not (_STEP_RE.match(entry) and os.path.isdir(path)):
                 continue
             if os.path.isfile(os.path.join(path, MARKER_NAME)):
                 continue
+            if prefix_age_s(path, now=now) < min_age:
+                continue    # possibly a live in-flight async save
             shutil.rmtree(path, ignore_errors=True)
+
+
+class MixedProtocolReader(Storage):
+    """Read-side storage for a directory holding BOTH commit dialects —
+    rename-committed single-host checkpoints beside marker-committed
+    pod/object-store checkpoints (a LocalStorage job upgraded to the
+    pod protocol, or an elastic job whose world size changed between
+    saves): a dir carrying a marker object is judged by the
+    object-store rules; a markerless dir is a rename-committed
+    checkpoint and is trusted as such (pod manifests still demand their
+    marker via ``checkpoint._invalid_reason`` independently).  GC reaps
+    only ``.tmp-*`` staging debris — unmarked step prefixes may be
+    legacy rename-committed checkpoints, never deletable as crashed
+    uploads.  This is the honest default for READERS that cannot know
+    which backend wrote a directory (``checkpoint_metadata``)."""
+
+    name = "mixed"
+    supports_shared_prefix = True
+
+    def __init__(self, object_store=None):
+        self._object = object_store or ObjectStoreStorage()
+
+    def commit_invalid_reason(self, ckpt_dir):
+        if os.path.isfile(os.path.join(ckpt_dir, MARKER_NAME)):
+            return self._object.commit_invalid_reason(ckpt_dir)
+        return None     # rename-committed (markerless) dir
+
+    def gc_stale(self, dirname):
+        from .checkpoint import gc_stale_tmp
+        gc_stale_tmp(dirname)
 
 
 def _marker_crc(body):
     return zlib.crc32(
         json.dumps(body, sort_keys=True).encode("utf-8")) & 0xFFFFFFFF
 
+
+def lease_info(prefix):
+    """The parsed, self-CRC-verified claim lease of one step prefix, or
+    None (no lease / torn / corrupt — pre-lease writers and debris)."""
+    path = os.path.join(prefix, LEASE_NAME)
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            doc = json.load(f)
+    except (ValueError, UnicodeDecodeError, OSError):
+        return None
+    if not isinstance(doc, dict) or "crc32" not in doc:
+        return None
+    body = {k: v for k, v in doc.items() if k != "crc32"}
+    if _marker_crc(body) != doc["crc32"]:
+        return None
+    if body.get("version") != LEASE_VERSION:
+        return None
+    return body
+
+
+def prefix_age_s(prefix, now=None):
+    """Age of a step prefix for reap/inspect decisions: wall-clock
+    seconds since the claim lease was written, falling back to the
+    directory mtime when no valid lease exists.  Clamped at 0 (clock
+    skew between writer and reaper must not make a prefix 'old')."""
+    if now is None:
+        now = time.time()
+    lease = lease_info(prefix)
+    if lease is not None and isinstance(lease.get("ts"), (int, float)):
+        return max(0.0, now - float(lease["ts"]))
+    try:
+        return max(0.0, now - os.stat(prefix).st_mtime)
+    except OSError:
+        return 0.0

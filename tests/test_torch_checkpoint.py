@@ -41,7 +41,7 @@ from paddle_tpu.fluid import checkpoint as jcheckpoint
 from paddle_tpu.models import bert as jbert
 
 import paddle_tpu_torch.fluid as fluid
-from paddle_tpu_torch.fluid import checkpoint, storage
+from paddle_tpu_torch.fluid import checkpoint, flags, storage
 from paddle_tpu_torch.fluid.checkpoint import CheckpointManager
 from paddle_tpu_torch.models import bert
 from test_torch_common import _empty_jax_step_event_ring  # noqa: F401
@@ -659,24 +659,43 @@ def test_object_store_gc_reaps_markerless_prefixes_only(tmp_path):
     # not debris: GC keeps it
     rotten = mgr.save(scope=_scope_with(3, 3), main_program=prog)
     flip_byte(os.path.join(rotten, storage.MARKER_NAME), 5)
-    # the next save's GC runs after its commit and reaps the torn
-    # upload at once, however young
+    # the next save's GC spares the torn upload while it is younger than
+    # FLAGS_checkpoint_reap_min_age_s (it could be a pod save still
+    # uploading) ...
     newest = mgr.save(scope=_scope_with(4, 8), main_program=prog)
+    assert os.path.isdir(torn)
+    assert checkpoint.latest_checkpoint(d, storage=store) == newest
+    # ... and reaps it once it is older
+    old = flags.get_flag("checkpoint_reap_min_age_s")
+    flags.set_flag("checkpoint_reap_min_age_s", 0.0)
+    try:
+        mgr.gc()
+    finally:
+        flags.set_flag("checkpoint_reap_min_age_s", old)
     assert not os.path.exists(torn)
     assert all(os.path.isdir(p) for p in (kept, rotten, newest))
     assert checkpoint.latest_checkpoint(d, storage=store) == newest
 
 
-def test_unported_options_raise_naming_their_item(tmp_path):
+def test_manager_options_windows_pod_identity_and_reshard(tmp_path):
     # steps_per_run windows are ported (test_torch_multi_step.py)
     assert CheckpointManager(str(tmp_path), steps_per_run=4) \
         .steps_per_run == 4
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        CheckpointManager(str(tmp_path), process_count=2, process_index=0)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        _mgr(str(tmp_path)).restore(scope=fluid.Scope(),
-                                    main_program=_state_program(),
-                                    reshard=True)
+    # a pinned pod identity (tests/test_torch_pod_checkpoint.py drives
+    # such simulated worlds)
+    mgr = CheckpointManager(str(tmp_path), process_count=2, process_index=1)
+    assert mgr._world()[:2] == (1, 2)
+    # reshard=True on a checkpoint of the program's own (unsharded)
+    # layout restores it as it is
+    prog = _state_program()
+    path = _mgr(str(tmp_path)).save(scope=_scope_with(1, 3),
+                                    main_program=prog)
+    fresh = fluid.Scope()
+    meta = _mgr(str(tmp_path)).restore(path, scope=fresh,
+                                       main_program=prog, reshard=True)
+    assert (meta["step"], meta["resharded"], meta["shard_degree"]) == \
+        (3, False, None)
+    assert fresh.step_counter == 3
 
 
 # ---------------------------------------------------------------------------

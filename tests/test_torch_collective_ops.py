@@ -17,9 +17,12 @@ The pack also checks what only a world of ranks has: a second ring
 built by ``c_comm_init``, the calls and wire bytes each op counts, the
 executor's refusal of a program transpiled for another rank count, and
 ``fluid.distributed``'s consensus helpers.  In this process (a world of
-one, no process group) every op is the identity, and the item-10b and
-item-11 options raise.  The pytest process never creates a process
-group: all world > 1 work runs in the pack's processes.
+one, no process group) every op is the identity, the int8 wire and an
+error-feedback residual included (the residual passes through), and the
+item-11 ops raise.  The int8 wire over two ranks is
+tests/test_torch_quantized_collectives.py.  The pytest process never
+creates a process group: all world > 1 work runs in the pack's
+processes.
 """
 
 import json
@@ -310,9 +313,6 @@ def test_world_of_one_ops_are_identity():
 
 
 @pytest.mark.parametrize("op_type,attrs,item", [
-    ("c_allreduce_sum", {"precision": "int8"}, "item 10b"),
-    ("c_allgather", {"precision": "int8"}, "item 10b"),
-    ("c_reducescatter", {"precision": "int8"}, "item 10b"),
     ("c_alltoall", {}, "item 11"),
     ("ring_attention", {}, "item 11"),
 ])
@@ -324,17 +324,25 @@ def test_unported_collectives_raise_naming_their_item(op_type, attrs, item):
             fetch_list=["out"], scope=fluid.Scope())
 
 
-def test_error_feedback_residual_raises_naming_item_10b():
-    main = one_op_program(fluid, "c_allreduce_sum", {})
+@pytest.mark.parametrize("op_type", ["c_allreduce_sum", "c_allgather",
+                                     "c_reducescatter"])
+def test_world_of_one_int8_with_residual_is_identity(op_type):
+    """With no process group the int8 wire is the identity and the
+    error-feedback residual passes through unchanged, as the JAX ops do
+    outside a mapped context."""
+    main = one_op_program(fluid, op_type, {"precision": "int8"})
     block = main.global_block()
     block.create_var(name="res", dtype="float32", persistable=True)
     block.ops[-1].inputs["Residual"] = ["res"]
+    block.ops[-1].outputs["ResidualOut"] = ["res"]
     scope = fluid.Scope()
-    scope.set_var("res", torch.zeros(ROWS, COLS))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        fluid.Executor(fluid.CPUPlace()).run(
-            main, feed={"x": np.ones((ROWS, COLS), np.float32)},
-            fetch_list=["out"], scope=scope)
+    res = torch.from_numpy(global_input("randn", 9)[:ROWS])
+    scope.set_var("res", res.clone())
+    x = global_input("randn", 8)[:ROWS]
+    out, got_res = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={"x": x}, fetch_list=["out", "res"], scope=scope)
+    np.testing.assert_array_equal(out, x)
+    np.testing.assert_array_equal(got_res, res.numpy())
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["worker"]:

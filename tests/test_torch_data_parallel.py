@@ -34,11 +34,15 @@ rank feeds and fetches its local rows).
   K ``run`` calls and issues K times the collectives; ranks draw
   different dropout masks and rank 0 the world-of-one mask;
   ``train_from_dataset`` with a stop requested on rank 1 only ends both
-  ranks at the same step; ``ParallelExecutor``.
+  ranks at the same step, and with a ``checkpoint_manager`` commits
+  async pod checkpoints of the world of two; ``ParallelExecutor``.
 
 In this process (no process group): the transpiled programs equal the
-JAX package's op for op, and the options of ROADMAP items 10b, 11 and
-13b raise naming them.
+JAX package's op for op (weight-update sharding, the int8 wire and
+hierarchical allreduce included), the fleet and ``BuildStrategy`` knobs
+of those options reach the transpile, and the options of ROADMAP items
+11 and 13b raise naming them.  Weight-update sharding over two ranks is
+tests/test_torch_weight_update_sharding.py.
 """
 
 import json
@@ -367,12 +371,21 @@ def worker(out_dir):
     preemption.clear()
     res["dataset_step"] = int(scope.step_counter)
     res["dataset_w"] = scope.find_var("fc_0.w_0").numpy().tolist()
-    try:
-        exe.train_from_dataset(main, ds, scope=scope,
-                               checkpoint_manager=object())
-        res["dataset_ckpt"] = None
-    except NotImplementedError as e:
-        res["dataset_ckpt"] = str(e)
+    # ... and with a checkpoint manager: async pod saves every 8 steps
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    mgr = fluid.CheckpointManager(str(out_dir / "ds_ckpt"),
+                                  main_program=main, place=place)
+    status = exe.train_from_dataset(main, ds, scope=scope,
+                                    steps_per_run=DS_K,
+                                    checkpoint_manager=mgr,
+                                    checkpoint_period=8)
+    mgr.wait()
+    latest = mgr.latest_checkpoint()
+    res["dataset_ckpt"] = dict(
+        status=status, last_step=mgr.last_step,
+        latest=os.path.basename(latest),
+        meta=fluid.checkpoint.checkpoint_metadata(latest))
 
     res["torch_threads"] = torch.get_num_threads()
     np.savez(out_dir / ("rank%d.npz" % rank), **arrays)
@@ -665,24 +678,46 @@ def test_train_from_dataset_stop_on_one_rank_drains_both(dp):
     assert r0["dataset"] == r1["dataset"] == want
     assert r0["dataset_step"] == r1["dataset_step"]
     assert r0["dataset_w"] == r1["dataset_w"]
-    assert "item 10b" in r0["dataset_ckpt"]
+
+
+def test_train_from_dataset_commits_pod_checkpoints_in_a_world_of_two(dp):
+    """train_from_dataset(checkpoint_manager=) in a world of two: every
+    rank saves after the 8th and the 16th step (async pod saves; the
+    startup run is step 1, so the checkpoints are steps 9 and 17), and
+    both see the same committed checkpoint, written by a world of two."""
+    r0, r1 = (r["dataset_ckpt"] for r in dp["ranks"])
+    assert r0["status"] == r1["status"] == {
+        "steps": DS_LINES // DS_BATCH, "preempted": False, "rollbacks": 0}
+    assert r0["last_step"] == r1["last_step"] == 17
+    assert r0["latest"] == r1["latest"] == "step-17"
+    meta = r0["meta"]
+    assert meta["multihost"] and meta["process_count"] == 2
+    assert meta["step"] == 17 and meta["tensor_count"] == 3
 
 
 # ---------------------------------------------------------------------------
 # In-process tests (a world of one; no process group)
 # ---------------------------------------------------------------------------
 
-def _transpile_both(net, make_port, make_jax):
+def _transpile_both(net, make_port, make_jax, **transpile_kw):
     import paddle_tpu.fluid as jfluid
     out = []
     for pkg, make in ((fluid, make_port), (jfluid, make_jax)):
         main, startup, _l = programs(pkg, net)
         make().transpile(startup_program=startup, main_program=main,
-                         rank=0, endpoints=["e"] * NPROC)
-        out.append([[(op.type, {k: op.attr(k) for k in (
-            "ring_id", "scale", "sections", "shape", "root", "nranks",
-            "k_steps", "__grad_bucket__")})
-            for op in p.global_block().ops] for p in (main, startup)])
+                         rank=0, endpoints=["e"] * NPROC, **transpile_kw)
+        out.append([[(op.type, sorted(op.inputs.items()),
+                      sorted(op.outputs.items()), {k: op.attr(k) for k in (
+                          "ring_id", "scale", "sections", "shape", "root",
+                          "nranks", "k_steps", "__grad_bucket__",
+                          "precision", "quant_block_size", "value")})
+                     for op in p.global_block().ops] for p in (main, startup)]
+                   + [sorted((n, tuple(v.shape or ()), v.persistable)
+                             for n, v in main.global_block().vars.items())]
+                   + [getattr(main, a, d) for a, d in (
+                       ("_dp_sharded_state", set()), ("_wus_degree", None),
+                       ("_wus_padded_numel", {}),
+                       ("_collective_hierarchical", None))])
     return out
 
 
@@ -690,7 +725,12 @@ def _transpile_both(net, make_port, make_jax):
     (fc_net, "per_grad"), (fc_net, "fused"), (conv_net, "per_grad"),
     (conv_net, "fused"), (conv_net, "fused_sync_bn"),
     (conv_net, "per_grad_sync_bn"), (conv_net, "two_rings"),
-    (fc_net, "local_sgd"), (conv_net, "bucket_per_grad_size")])
+    (fc_net, "local_sgd"), (conv_net, "bucket_per_grad_size"),
+    (conv_net, "int8"), (conv_net, "int8_per_grad"),
+    (conv_net, "int8_no_error_feedback"), (conv_net, "hierarchical"),
+    (conv_net, "wus"), (conv_net, "wus_per_grad"),
+    (conv_net, "wus_int8"), (conv_net, "wus_bf16"),
+    (conv_net, "wus_two_rings")])
 def test_transpiled_programs_equal_paddle_tpu(net, kind):
     from paddle_tpu.fluid import transpiler as jt
     from paddle_tpu_torch.fluid import transpiler as pt
@@ -700,13 +740,31 @@ def test_transpiled_programs_equal_paddle_tpu(net, kind):
                                    fuse_grad_size_mb=0),
           "two_rings": dict(nrings=2, fuse_grad_size_mb=0),
           # 1 kB buckets: the gradients split over two buckets
-          "bucket_per_grad_size": dict(fuse_grad_size_mb=1e-3)}.get(kind)
+          "bucket_per_grad_size": dict(fuse_grad_size_mb=1e-3),
+          "int8": dict(allreduce_precision="int8"),
+          "int8_per_grad": dict(allreduce_precision="int8",
+                                fuse_grad_size_mb=0, quant_block_size=64),
+          "int8_no_error_feedback": dict(allreduce_precision="int8",
+                                         error_feedback=False),
+          "hierarchical": {},
+          "wus": dict(weight_update_sharding=True),
+          "wus_per_grad": dict(weight_update_sharding=True,
+                               fuse_grad_size_mb=0),
+          "wus_int8": dict(weight_update_sharding=True,
+                           allreduce_precision="int8", quant_block_size=64),
+          "wus_bf16": dict(weight_update_sharding=True,
+                           allreduce_precision="bf16"),
+          "wus_two_rings": dict(weight_update_sharding=True, nrings=2,
+                                fuse_grad_size_mb=1e-3)}.get(kind)
+    transpile_kw = dict(hierarchical_allreduce_nnodes=2) \
+        if kind == "hierarchical" else {}
     if kind == "local_sgd":
         port, jax_ = _transpile_both(net, lambda: pt.LocalSGD(k_steps=2),
                                      lambda: jt.LocalSGD(k_steps=2))
     else:
         port, jax_ = _transpile_both(net, lambda: pt.GradAllReduce(**kw),
-                                     lambda: jt.GradAllReduce(**kw))
+                                     lambda: jt.GradAllReduce(**kw),
+                                     **transpile_kw)
     assert port == jax_
 
 
@@ -781,48 +839,88 @@ def test_compiled_program_in_a_world_of_one_is_the_plain_program():
 
 
 @pytest.mark.parametrize("what", [
-    "weight_update_sharding", "int8", "hierarchical", "fleet_mp",
-    "fleet_hierarchical", "fleet_wus", "zero_shard", "places",
-    "parameter_server"])
+    "int8", "hierarchical", "weight_update_sharding", "int8_and_wus"])
+def test_fleet_strategy_knobs_reach_the_transpile(what):
+    """DistributedStrategy's data-parallel options transpile the program
+    as GradAllReduce does them (tests/test_weight_update_sharding.py::
+    test_wus_fleet_strategy_knob, tests/test_collective.py::
+    test_fleet_hierarchical_strategy_wires_through)."""
+    from paddle_tpu_torch.fluid.incubate.fleet.collective import (
+        CollectiveOptimizer, DistributedStrategy)
+    strategy = {
+        "int8": DistributedStrategy(allreduce_precision="int8",
+                                    quant_block_size=64),
+        "hierarchical": DistributedStrategy(
+            use_hierarchical_allreduce=True,
+            hierarchical_allreduce_inter_nranks=2),
+        "weight_update_sharding": DistributedStrategy(
+            weight_update_sharding=True),
+        "int8_and_wus": DistributedStrategy(
+            weight_update_sharding=True, allreduce_precision="int8")}[what]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data(name="x", shape=[6], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        d = fluid.layers.fc(x, size=1) - y
+        CollectiveOptimizer(fluid.optimizer.SGDOptimizer(0.1),
+                            strategy).minimize(fluid.layers.mean(d * d))
+    ops = [op.type for op in main.global_block().ops]
+    ar = [op for op in main.global_block().ops
+          if op.type == "c_allreduce_sum"]
+    if what == "int8":
+        assert [op.attr("precision") for op in ar] == ["int8"]
+        assert ar[0].attr("quant_block_size") == 64
+        assert ar[0].input("Residual") == ["coalesced_grad_0@EF_RESIDUAL"]
+    elif what == "hierarchical":
+        assert main._collective_hierarchical == 2
+        assert startup._collective_hierarchical == 2
+    else:
+        assert not ar and "c_reducescatter" in ops and "c_allgather" in ops
+        # no endpoints: the world this process is in
+        assert main._wus_degree == 1
+        if what == "int8_and_wus":
+            assert "wus_param_0@EF_RESIDUAL" in main._dp_sharded_state
+
+
+def test_zero_shard_in_a_world_of_one_is_the_plain_program():
+    main, startup, loss = programs(fluid, conv_net)
+    exe = fluid.Executor(fluid.CPUPlace())
+    got = {}
+    for tag in ("plain", "zero"):
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        bs = fluid.BuildStrategy()
+        bs.zero_shard_optimizer_state = tag == "zero"
+        prog = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, build_strategy=bs)
+        got[tag] = [float(exe.run(prog, feed=conv_feed(s, 0),
+                                  fetch_list=[loss],
+                                  scope=scope)[0].reshape(-1)[0])
+                    for s in range(2)]
+    assert got["zero"] == got["plain"]
+
+
+@pytest.mark.parametrize("what", ["fleet_mp", "places", "parameter_server"])
 def test_unported_options_raise_naming_their_item(what):
     from paddle_tpu_torch.fluid.incubate.fleet.collective import (
         CollectiveOptimizer, DistributedStrategy)
     from paddle_tpu_torch.fluid.incubate.fleet.parameter_server import \
         fleet as ps_fleet
-    from paddle_tpu_torch.fluid.transpiler import GradAllReduce
     main, startup, loss = programs(fluid, fc_net)
-    item, err = "item 10b", NotImplementedError
-    if what == "weight_update_sharding":
-        call = lambda: GradAllReduce(weight_update_sharding=True)  # noqa
-    elif what == "int8":
-        call = lambda: GradAllReduce(allreduce_precision="int8")  # noqa
-    elif what == "hierarchical":
-        call = lambda: GradAllReduce().transpile(  # noqa
-            startup, main, endpoints=["e"] * 4,
-            hierarchical_allreduce_nnodes=2)
-    elif what.startswith("fleet_"):
-        strategy = {"fleet_mp": DistributedStrategy(mp_degree=2),
-                    "fleet_hierarchical": DistributedStrategy(
-                        use_hierarchical_allreduce=True),
-                    "fleet_wus": DistributedStrategy(
-                        weight_update_sharding=True)}[what]
-        item = "item 11" if what == "fleet_mp" else item
+    if what == "fleet_mp":
+        item, err = "item 11", NotImplementedError
         with fluid.program_guard(fluid.Program(), fluid.Program()):
             x = fluid.layers.data(name="x", shape=[6], dtype="float32")
             lo = fluid.layers.mean(fluid.layers.fc(x, size=1))
         call = lambda: CollectiveOptimizer(  # noqa
-            fluid.optimizer.SGDOptimizer(0.1), strategy).minimize(lo)
-    elif what == "zero_shard":
-        bs = fluid.BuildStrategy()
-        bs.zero_shard_optimizer_state = True
-        call = lambda: fluid.CompiledProgram(main).with_data_parallel(  # noqa
-            loss_name=loss.name, build_strategy=bs)
+            fluid.optimizer.SGDOptimizer(0.1),
+            DistributedStrategy(mp_degree=2)).minimize(lo)
     elif what == "places":
         item, err = "paddle_tpu_torch.distributed.launch", ValueError
         call = lambda: fluid.CompiledProgram(main).with_data_parallel(  # noqa
             loss_name=loss.name, places=fluid.cpu_places(2))
     else:
-        item = "item 13b"
+        item, err = "item 13b", NotImplementedError
         call = lambda: ps_fleet.distributed_optimizer(  # noqa
             fluid.optimizer.SGDOptimizer(0.1))
     with pytest.raises(err, match=item):

@@ -8,8 +8,12 @@ the children wrote: the ``PADDLE_*`` environment of each rank
 the whole pack when one child exits nonzero, its forked grandchild
 included; SIGTERM forwarded to every child, then SIGKILL after
 ``--grace_period``; a stale heartbeat file killing its rank; the hang
-exit code 117 named in the post-mortem; ``--max_restarts`` and
-``--elastic_min_nproc`` raising naming ROADMAP item 10b.  In this
+exit code 117 named in the post-mortem; the relaunch matrix of
+``--max_restarts`` (tests/test_launch_relaunch_matrix.py: a crash within
+the budget, one that spends it, a hang exit, a stale heartbeat — each
+relaunching the whole pack at a fresh rendezvous port, the port's only
+mode) and the shrink of ``--elastic_min_nproc``, with the launcher's
+argument checks.  In this
 process: ``fluid.distributed`` in a world of one, its argument checks,
 and an NCCL init with no card raising instead of falling back to gloo.
 No test here creates a process group.
@@ -89,6 +93,31 @@ def worker(mode, out_dir):
         return 0
     if mode == "hang":
         return launch.HANG_EXIT_CODE if rank == 0 else 0
+    if mode.startswith("again_"):
+        # one line per attempt of this rank: what the launcher told it
+        with open(out / ("attempts%d" % rank), "a") as f:
+            f.write(json.dumps({k: os.environ.get(k) for k in (
+                "PADDLE_ELASTIC_ATTEMPT", "PADDLE_ELASTIC_PREV_NPROC",
+                "PADDLE_TRAINERS_NUM", "PADDLE_DIST_COORDINATOR")}) + "\n")
+        attempt = int(os.environ["PADDLE_ELASTIC_ATTEMPT"])
+        world = int(os.environ["PADDLE_TRAINERS_NUM"])
+
+        def other_ran():
+            # the failing rank fails once the other rank has written its
+            # line of this attempt (a teardown may not race it)
+            p = out / ("attempts%d" % (1 - rank))
+            return world == 1 or (p.exists() and len(
+                p.read_text().splitlines()) > attempt)
+        if mode == "again_crash" and rank == 1 and attempt < 2:
+            _wait_for(other_ran, 60)
+            return 7
+        if mode == "again_hang" and rank == 0 and attempt == 0:
+            _wait_for(other_ran, 60)
+            return launch.HANG_EXIT_CODE
+        if mode == "again_wedge" and rank == 0 and attempt == 0:
+            Path(os.environ["PADDLE_HEARTBEAT_FILE"]).write_text("beat")
+            time.sleep(120)
+        return 0
     raise ValueError(mode)
 
 
@@ -185,11 +214,78 @@ def test_hang_exit_code_is_named_in_the_post_mortem(tmp_path):
     assert "rank 0 HUNG (watchdog self-abort, exit 117)" in proc.stderr
 
 
-@pytest.mark.parametrize("argv", [["--max_restarts", "1"],
-                                  ["--elastic_min_nproc", "1"]])
-def test_restarts_and_elastic_shrink_raise_naming_item_10b(argv):
-    with pytest.raises(NotImplementedError, match="item 10b"):
+# (mode, launcher arguments, exit code, attempts of rank 0 and rank 1,
+#  stderr lines, {stderr line: count})
+RELAUNCH = [
+    pytest.param("again_crash", ["--max_restarts", "3"], 0, (3, 3),
+                 ["relaunching pack (restart 2/3, attempt 2, world 2 -> 2)"],
+                 {"relaunching pack (restart": 2},
+                 id="crash-within-budget-relaunches"),
+    pytest.param("again_crash", ["--max_restarts", "1"], 7, (2, 2),
+                 ["relaunching pack (restart 1/1",
+                  "rank 1 failed with exit code 7"], {},
+                 id="crash-exhausts-budget-caps"),
+    pytest.param("again_hang", ["--max_restarts", "1"], 0, (2, 2),
+                 ["rank 0 HUNG (watchdog self-abort, exit 117)",
+                  "relaunching pack (restart 1/1"], {},
+                 id="exit-hang-classified-and-relaunched"),
+    pytest.param("again_wedge", ["--max_restarts", "1",
+                                 "--heartbeat_timeout", "2"], 0, (2, 2),
+                 ["heartbeat stale", "HUNG (heartbeat stale",
+                  "relaunching pack (restart 1/1"], {},
+                 id="heartbeat-stale-killed-and-relaunched"),
+    pytest.param("again_crash", ["--max_restarts", "2",
+                                 "--elastic_min_nproc", "1"], 0, (2, 1),
+                 ["world 2 -> 1"], {"relaunching pack (restart": 1},
+                 id="elastic-shrinks-by-one"),
+]
+
+
+@pytest.mark.parametrize("mode,argv,rc,attempts,lines,counts", RELAUNCH)
+def test_relaunch_matrix(tmp_path, mode, argv, rc, attempts, lines,
+                         counts):
+    """tests/test_launch_relaunch_matrix.py's scenarios: the port
+    relaunches the WHOLE pack (a torch world cannot take back a dead
+    member), each time at the next rendezvous port, and tells the ranks
+    the attempt and the previous world's size."""
+    proc = _run(mode, tmp_path, "--grace_period", "1",
+                "--coordinator", "127.0.0.1:7300", *argv, timeout=120)
+    assert proc.returncode == rc, proc.stderr
+    for line in lines:
+        assert line in proc.stderr, (line, proc.stderr)
+    for line, n in counts.items():
+        assert proc.stderr.count(line) == n, proc.stderr
+    seen = [[json.loads(x) for x in (tmp_path / ("attempts%d" % r))
+             .read_text().splitlines()] for r in range(2)]
+    assert tuple(len(s) for s in seen) == attempts
+    for a, env in enumerate(seen[0]):
+        assert env["PADDLE_ELASTIC_ATTEMPT"] == str(a)
+        assert env["PADDLE_DIST_COORDINATOR"] == "127.0.0.1:%d" % (7300 + a)
+    if mode == "again_crash" and "--elastic_min_nproc" in argv:
+        assert [e["PADDLE_TRAINERS_NUM"] for e in seen[0]] == ["2", "1"]
+        assert seen[0][1]["PADDLE_ELASTIC_PREV_NPROC"] == "2"
+    else:
+        assert seen[0][0]["PADDLE_ELASTIC_PREV_NPROC"] is None
+        assert all(e["PADDLE_TRAINERS_NUM"] == "2" for e in seen[0])
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--elastic_min_nproc", "1"], "needs --max_restarts"),
+    (["--max_restarts", "1", "--elastic_min_nproc", "0"], "must be >= 1"),
+    (["--max_restarts", "-1"], "must be >= 0"),
+    (["--max_restarts", "1", "--cluster_node_ips", "a,b"],
+     "single-node only")])
+def test_relaunch_arguments_are_checked(capsys, argv, why):
+    with pytest.raises(SystemExit):
         launch.parse_args(argv + ["train.py"])
+    assert why in capsys.readouterr().err
+
+
+def test_elastic_floor_above_the_world_is_refused(capsys):
+    args = launch.parse_args(["--nproc_per_node", "2", "--max_restarts",
+                              "1", "--elastic_min_nproc", "3", "train.py"])
+    assert launch.launch(args) == 2
+    assert "exceeds the launched world size 2" in capsys.readouterr().err
 
 
 def test_distributed_world_of_one(monkeypatch):
