@@ -231,10 +231,34 @@ non-zero exit (nothing is caught):
 26. watchdog_stall: the watchdog (2 s, no abort) over BERT-base: a
    normal window gives no record, a loader stalled once for 5 s gives
    one kind="hang" record naming feed_wait.
-27. kernels: one JSON line listing every ported kernel, with its
-   launches on every main path (0 on DeepFM's and ResNet-50
-   inference's; the data-parallel paths' as their rank 0 counted them,
-   the elastic path's as its world of one counted them).
+27. book_train: the reference's book models (Fluid 1.5 tests/book/,
+   ``models/book.py``) through Executor at the reference tests' widths
+   on the port's synthetic datasets: fit_a_line (13 -> fc 1, batch 20),
+   image classification (resnet_cifar10 depth 32 and vgg16_bn_drop on
+   3 x 32 x 32, batch 128), word2vec (softmax and nce, N 5, embedding
+   32, hidden 256), understand_sentiment (conv net, embedding 32, hidden
+   32; 3-layer stacked LSTM, embedding 128, hidden 512; T 64),
+   recommender_system (embeddings 32, towers fc 200, a title
+   sequence_conv_pool of 32 filters), label_semantic_roles (word 32,
+   mark 5, hidden 512, depth 8), rnn_encoder_decoder (a StaticRNN
+   decoder; dictionary 30,000, word 16, hidden 32, T 8) and
+   machine_translation (a DynamicRNN decoder; the same widths), each
+   20 steps (2 warm-up) over its first 4 batches: finite losses, no port
+   kernel launched; ms per step, one profiled step's launches and busy
+   share, peak memory; then machine_translation's beam decode (beam 2,
+   8 steps) from the trained weights.
+28. book_check: each book program's step 1 from its startup weights on
+   the card (twice, and with the batch's examples reversed) and on the
+   port's CPU path (as fed and reversed), the CNNs at batch 16 and VGG
+   without dropout: the loss within 1e-4, each parameter within max(2 x
+   (card spread + CPU spread), 1e-6); word2vec nce's card loss equal to
+   its formula on the card's own samples (1e-5); the beam decode from
+   the trained weights on the card and the CPU: SentenceIds equal, the
+   scores within max(1e-5 relative, 2 x the reversed-batch spreads).
+29. kernels: one JSON line listing every ported kernel, with its
+   launches on every main path (0 on DeepFM's, ResNet-50 inference's
+   and the book models'; the data-parallel paths' as their rank 0
+   counted them, the elastic path's as its world of one counted them).
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.  ``python3
@@ -243,7 +267,9 @@ chip_smoke.py dp_child <mode> <dir>`` is a data-parallel phase's rank
 the build and phase 9, whose weights and batch they take): ``python3 -c
 'import chip_smoke as c; c.phase_device(); c.phase_build(); t =
 c.phase_train(); c.phase_dp_wus(t); c.phase_dp_two_ranks_sharded(t);
-c.phase_elastic_shrink()'``.
+c.phase_elastic_shrink()'``.  The book phases alone (no build needed):
+``python3 -c 'import chip_smoke as c; c.phase_device(); p, mt =
+c.phase_book_train(); c.phase_book_check(mt)'``.
 """
 
 import contextlib
@@ -270,7 +296,8 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
     K1_VARIANTS, conv3x3_bn_relu, conv3x3_bn_relu_reference, k1_plan)
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
-from paddle_tpu_torch.models import bert, deepfm, lenet, resnet, transformer
+from paddle_tpu_torch.models import (bert, book, deepfm, lenet, resnet,
+                                     transformer)
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -708,10 +735,9 @@ def _train_steps(exe, main, feeds, fetch, scope):
     return got, (time.perf_counter() - t0) / TIMED_STEPS * 1e3
 
 
-def _profile_step(name, exe, main, feed, fetch, scope):
-    """One profiled step: kernel time against wall, the device timeline's
-    busy share, device events, launch calls, top kernels and the kernel
-    time by kind, which it returns."""
+def _profile_record(exe, main, feed, fetch, scope):
+    """One profiled step: ({wall ms, kernel ms, device busy ms and share,
+    device events, CUDA kernel launch calls, top kernels}, the profile)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -725,11 +751,19 @@ def _profile_step(name, exe, main, feed, fetch, scope):
     busy_ms, _, events = _timeline(prof)
     launch = [e for e in prof.key_averages()
               if e.key.startswith("cudaLaunchKernel")]
+    return dict(wall_ms=wall_ms, kernel_ms=dev_ms, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall_ms, device_events=events,
+                launch_calls=sum(e.count for e in launch),
+                top_kernels=top), prof
+
+
+def _profile_step(name, exe, main, feed, fetch, scope):
+    """One profiled step: kernel time against wall, the device timeline's
+    busy share, device events, launch calls, top kernels and the kernel
+    time by kind, which it returns."""
+    rec, prof = _profile_record(exe, main, feed, fetch, scope)
     kinds = _kernel_kinds(prof)
-    emit(phase=name, wall_ms=wall_ms, kernel_ms=dev_ms,
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-         device_events=events, launch_calls=sum(e.count for e in launch),
-         kernel_ms_by_kind=kinds, top_kernels=top)
+    emit(phase=name, kernel_ms_by_kind=kinds, **rec)
     return kinds
 
 
@@ -4767,6 +4801,342 @@ def phase_elastic_shrink():
 
 
 
+BOOK_STEPS = 20               # book_train: 2 warm-up + 18 timed steps
+BOOK_FEEDS = 4                # distinct batches of each program, in turn
+BOOK_CHECK_BATCH = {          # book_check: the CNNs' CPU side stays cheap
+    "image_classification_resnet": 16, "image_classification_vgg": 16}
+BOOK_LOSS_RTOL = 1e-4         # step-1 loss, card vs CPU
+BOOK_GRAD_L2 = 1e-2           # step-1 gradients, card vs CPU, relative L2:
+                              # max(this, 2 x (card + cpu spread) / |g|)
+BOOK_PARAM_FLOOR = 1e-6       # parameters after step 1 less each side's
+                              # step, card vs CPU: max(2 x (card spread
+                              # + cpu spread), this)
+BOOK_NCE_RTOL = 1e-5          # nce's loss vs its formula on the samples
+
+
+def _book_program(name, cfg, decode=False):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = book.build_decode(cfg) if decode else book.build(name, cfg)
+    return main, startup, out
+
+
+def _book_feeds(name, cfg, n):
+    """The first ``n`` batches of ``name``'s dataset, as numpy feeds."""
+    it = book.feeds(name, cfg)
+    return [next(it) for _ in range(n)]
+
+
+def _cuda_feed(feed):
+    return {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+
+
+def phase_book_train():
+    """The reference's book models (Fluid 1.5 tests/book/) through
+    Executor on the card at the reference tests' widths
+    (``book.base_config``): each program's startup, then BOOK_STEPS
+    steps (2 warm-up) over its dataset's first BOOK_FEEDS batches in
+    turn: finite losses, no port kernel launched (none lies on these
+    paths); ms per step, one profiled step's kernel launches and busy
+    share, peak memory.  After machine_translation, its beam decode
+    from the trained weights.  Returns ({path: launches}, the trained
+    machine-translation scope)."""
+    t_phase = time.perf_counter()
+    by_path, mt, card = {}, None, _card()
+    for name in book.NAMES:
+        t_prog = time.perf_counter()
+        cfg = book.base_config(name)
+        main, startup, out = _book_program(name, cfg)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        feeds = [_cuda_feed(f)
+                 for f in _book_feeds(name, cfg, BOOK_FEEDS)]
+        fetch = [out["loss"]]
+        torch.cuda.reset_peak_memory_stats()
+        # the main path's run: counts go to 0 here and are read after it
+        _reset_launches()
+        losses = []
+        for i in range(BOOK_STEPS):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(exe.run(main, feed=feeds[i % BOOK_FEEDS],
+                                  fetch_list=fetch, scope=scope,
+                                  return_numpy=False)[0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (BOOK_STEPS - 2) * 1e3
+        launches = _launches()
+        losses = [float(v.reshape(-1)[0].item()) for v in losses]
+        prof, _ = _profile_record(exe, main, feeds[0], fetch, scope)
+        del prof["top_kernels"]
+        checks = {"losses_finite": bool(np.isfinite(losses).all()),
+                  "no_port_kernel": not any(launches.values())}
+        emit(phase="book_train", program=name, card=card, config=cfg,
+             steps=BOOK_STEPS, losses=losses, ms_per_step=step_ms,
+             peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+             profiled_step=prof, launches=launches, checks=checks,
+             seconds=time.perf_counter() - t_prog)
+        _fail_unless("book_train " + name, checks)
+        by_path["book_" + name] = launches
+        if name == "machine_translation":
+            mt = (main, scope)
+            by_path["book_mt_decode"] = _book_decode(cfg, main, scope)
+    emit(phase="book_train_total", seconds=time.perf_counter() - t_phase)
+    return by_path, mt
+
+
+def _book_decode(cfg, train_main, scope):
+    """machine_translation's beam decode on the card from the trained
+    weights in ``scope``: SentenceIds [B, beam, T] inside the vocabulary,
+    finite scores sorted best first; ms per decode.  Returns its port
+    kernel launches (none)."""
+    main, _, out = _book_program(None, cfg, decode=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feed = _book_feeds("machine_translation", cfg, 1)[0]
+    feed = _cuda_feed({k: feed[k] for k in out["feeds"]})
+    _reset_launches()
+    ids, scores = exe.run(main, feed=feed, fetch_list=out["outs"],
+                          scope=scope)
+    launches = _launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        exe.run(main, feed=feed, fetch_list=out["outs"], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    checks = {
+        "ids_shape": ids.shape == (cfg["batch"], cfg["beam"], cfg["t_trg"]),
+        "ids_in_vocabulary": bool((ids >= 0).all() and
+                                  (ids < cfg["dict"]).all()),
+        "scores_finite": bool(np.isfinite(scores).all()),
+        "scores_sorted": bool((np.diff(scores, axis=1) <= 1e-5).all()),
+        "no_port_kernel": not any(launches.values())}
+    emit(phase="book_mt_decode", card=_card(), ms_per_decode=ms,
+         beam=cfg["beam"], max_len=cfg["t_trg"], sentence_ids_head=
+         ids[:2].tolist(), launches=launches, checks=checks)
+    _fail_unless("book_mt_decode", checks)
+    return launches
+
+
+def _book_step(exe, main, loss, state, feed, fetch=(), grads=False):
+    """One step of ``main`` on a copy of ``state`` on ``exe``'s device:
+    ([loss, *fetch] as numpy, {parameter: value after the step} and,
+    with ``grads``, {parameter: its step gradient}), as float64 tensors
+    on the host."""
+    scope = _state_copy(main, state, exe.device)
+    params = [p.name for p in main.global_block().all_parameters()]
+    gnames = [main._grad_name_map[n] for n in params] if grads else []
+    got = exe.run(main, feed=feed, fetch_list=[loss] + list(fetch) + gnames,
+                  scope=scope)
+    got = [np.asarray(g) for g in got]
+    head, tail = got[:1 + len(fetch)], got[1 + len(fetch):]
+    after = {n: scope.find_var(n).double().cpu() for n in params}
+    if not grads:
+        return head, after
+    return head, after, {n: torch.from_numpy(g).double()
+                         for n, g in zip(params, tail)}
+
+
+def _step1_update(main, rate, grads):
+    """Each parameter's first step as its optimizer op computes it from
+    the gradient ``grads[n]`` (float64): SGD ``−lr·g``; Adam from zero
+    moments and beta powers ``β``, ``−lr·sqrt(1−β2)/(1−β1)·(1−β1)·g /
+    (sqrt((1−β2)·g²) + eps)``, the op's own attributes."""
+    opt = {op.input("Param")[0]: op for op in main.global_block().ops
+           if op.type in ("sgd", "adam")}
+    out = {}
+    for n, g in grads.items():
+        op, lr = opt[n], rate[n]
+        if op.type == "sgd":
+            out[n] = -lr * g
+            continue
+        b1, b2, eps = (float(np.float32(op.attr(a))) for a in
+                       ("beta1", "beta2", "epsilon"))
+        lr_t = lr * math.sqrt(1 - b2) / (1 - b1)
+        out[n] = -lr_t * (1 - b1) * g / (torch.sqrt((1 - b2) * g * g) + eps)
+    return out
+
+
+def _book_check_one(name, cfg):
+    """Step 1 of ``name`` from its startup weights on the card (twice,
+    then with the batch's examples reversed) and on the port's CPU path
+    (as fed and reversed).  A side's spread is how far its runs lie
+    apart, tensor by tensor.  The loss within BOOK_LOSS_RTOL; each
+    parameter's gradient within max(BOOK_GRAD_L2, 2 x (card spread +
+    CPU spread) / |g|) in relative L2: a value that lands within the
+    devices' rounding of a kink (relu's 0, a max-pool tie) takes its
+    gradient down the other side, which moves that entry by its whole
+    size (label_semantic_roles' relu candidates: 1.2% of a bias's
+    largest entry, 0.16% in L2).  Each parameter after the step within
+    max(BOOK_PARAM_FLOOR, 2 x (card spread + CPU spread)) of the CPU's
+    once each side's step from its own gradient (``_step1_update``) is
+    taken out: Adam's first step ``lr·g/(|g| + 31.6·eps)`` turns a
+    gradient entry near 0 that the two devices round apart into steps
+    up to 2·lr apart, which the gradient check already holds.
+    word2vec_nce draws its noise classes from each device's own
+    generator: its card loss is held to the nce formula on the card's
+    samples instead."""
+    main, startup, out = _book_program(name, cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    init = _state_copy(main, scope, "cpu")
+    feed = _book_feeds(name, cfg, 1)[0]
+    loss = out["loss"]
+    if name == "word2vec_nce":
+        op = [o for o in main.global_block().ops if o.type == "nce"][0]
+        (lv, hidden, samples), _ = _book_step(
+            exe, main, loss, init, feed,
+            [op.input("Input")[0], op.output("SampleLabels")[0]])
+        w = init.find_var(op.input("Weight")[0]).double().numpy()
+        b = init.find_var(op.input("Bias")[0]).double().numpy()[:, 0]
+        lab = feed["w%d" % (cfg["n"] - 1)][:, 0]
+        x, k, C = hidden.astype(np.float64), cfg["neg"], w.shape[0]
+        lt = (w[lab] * x).sum(-1) + b[lab]
+        ln = (w[samples] * x[:, None, :]).sum(-1) + b[samples]
+        want = (np.logaddexp(0, -(lt - np.log(k / C))) +
+                np.logaddexp(0, ln - np.log(k / C)).sum(-1)).mean()
+        err = float(abs(float(lv.reshape(-1)[0]) - want) / abs(want))
+        return dict(loss_card=float(lv.reshape(-1)[0]),
+                    loss_formula=float(want), loss_rel_err=err), {
+                        "nce_formula": err <= BOOK_NCE_RTOL}
+    rev = {k: np.ascontiguousarray(v[::-1]) for k, v in feed.items()}
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    runs = [_book_step(e, main, loss, init, f, grads=True) for e, f in (
+        (exe, feed), (exe, feed), (exe, rev), (cpu_exe, feed),
+        (cpu_exe, rev))]
+    (c1,), p1, g1 = runs[0]
+    (h1,), q1, k1 = runs[3]
+
+    def spread(i, j, k):
+        """Run i against run j (and j + 1 on the card): the largest
+        entry of the difference for parameters (k = 1), its L2 norm for
+        gradients (k = 2)."""
+        def size(d):
+            return float(d.norm() if k == 2 else d.abs().max())
+        return {n: max(size(runs[i][k][n] - runs[j][k][n]),
+                       size(runs[i][k][n] - runs[j + 1][k][n])
+                       if j == 1 else 0.0) for n in p1}
+    gs_card, gs_cpu = spread(0, 1, 2), spread(3, 4, 2)
+    ps_card, ps_cpu = spread(0, 1, 1), spread(3, 4, 1)
+    rate = {p.name: cfg["lr"] * p.optimize_attr["learning_rate"]
+            for p in main.global_block().all_parameters()}
+    step_card = _step1_update(main, rate, g1)
+    step_cpu = _step1_update(main, rate, k1)
+    g_over, p_over, g_err, p_err, r_err = {}, {}, {}, {}, {}
+    for n in p1:
+        norm = max(float(k1[n].norm()), 1e-30)
+        gb = max(BOOK_GRAD_L2, 2 * (gs_card[n] + gs_cpu[n]) / norm)
+        g_err[n] = float((g1[n] - k1[n]).norm()) / norm
+        if g_err[n] > gb:
+            g_over[n] = (g_err[n], gb)
+        pb = max(BOOK_PARAM_FLOOR, 2 * (ps_card[n] + ps_cpu[n]))
+        p_err[n] = float((p1[n] - q1[n]).abs().max())
+        # what is left once each side's step from its own gradient is
+        # taken out of the difference
+        r_err[n] = float(((p1[n] - step_card[n]) -
+                          (q1[n] - step_cpu[n])).abs().max())
+        if r_err[n] > pb:
+            p_over[n] = (r_err[n], pb)
+    lc, lh = float(c1.reshape(-1)[0]), float(h1.reshape(-1)[0])
+    loss_err = abs(lc - lh) / abs(lh)
+    loss_spread = abs(lc - float(runs[2][0][0].reshape(-1)[0])) + \
+        abs(lh - float(runs[4][0][0].reshape(-1)[0]))
+    checks = {"loss_finite": bool(np.isfinite(lc)),
+              "card_loss_matches_cpu": loss_err <= max(
+                  BOOK_LOSS_RTOL, 2 * loss_spread / abs(lh)),
+              "card_grads_match_cpu": not g_over,
+              "card_params_match_cpu": not p_over}
+    worst = sorted(g_err, key=lambda n: -g_err[n])[:3]
+    return dict(loss_card=lc, loss_card_2=float(runs[1][0][0].reshape(-1)[0]),
+                loss_cpu=lh, loss_rel_err=loss_err,
+                card_runs_bit_equal=all(
+                    float((p1[n] - runs[1][1][n]).abs().max()) == 0
+                    for n in p1),
+                grad_rel_l2_err_worst={n: g_err[n] for n in worst},
+                param_max_abs_err=max(p_err.values()),
+                param_residual_max_abs_err=max(r_err.values()),
+                param_spread_card=max(ps_card.values()),
+                param_spread_cpu=max(ps_cpu.values()),
+                grads_over_bound=g_over, params_over_bound=p_over), checks
+
+
+def phase_book_check(mt):
+    """Each book program's step 1 on the card against the port's CPU
+    path (``_book_check_one``), at the reference widths with the CNNs'
+    batch cut to BOOK_CHECK_BATCH and VGG's dropouts left out (the two
+    devices draw other masks); then the beam decode from the trained
+    weights ``mt`` on the card and the CPU: SentenceIds equal, scores
+    within max(1e-5 relative, 2 x the spread of each side's decode of
+    the batch in reverse order)."""
+    t_phase = time.perf_counter()
+    ok, card = True, _card()
+    for name in book.NAMES:
+        t_prog = time.perf_counter()
+        cfg = book.base_config(name)
+        if name in BOOK_CHECK_BATCH:
+            cfg["batch"] = BOOK_CHECK_BATCH[name]
+        if "dropout" in cfg:
+            cfg["dropout"] = False
+        report, checks = _book_check_one(name, cfg)
+        report["seconds"] = time.perf_counter() - t_prog
+        emit(phase="book_check", program=name, card=card, batch=
+             cfg["batch"], tolerance="loss rel %g (or 2 x the reversed-"
+             "batch spreads); each gradient |card - cpu| / |cpu| (L2) <= "
+             "max(%g, 2 x (card spread + cpu spread) / |cpu|); each "
+             "parameter max|(card - its step) - (cpu - its step)| <= "
+             "max(2 x (card spread + cpu spread), %g), a side's step the "
+             "optimizer's step-1 formula on its own gradient; card "
+             "spread: the larger of "
+             "card against card again and against the reversed batch; "
+             "cpu spread: cpu against the reversed batch; tensor by tensor"
+             % (BOOK_LOSS_RTOL, BOOK_GRAD_L2, BOOK_PARAM_FLOOR),
+             checks=checks, **report)
+        ok = ok and all(checks.values())
+        if not all(checks.values()):
+            print("book_check %s failed: %s" % (
+                name, [k for k, v in checks.items() if not v]), flush=True)
+    checks = _book_decode_check(*mt)
+    emit(phase="book_check_total", seconds=time.perf_counter() - t_phase)
+    _fail_unless("book_check", dict(programs=ok, decode=all(checks.values())))
+
+
+def _book_decode_check(train_main, scope):
+    cfg = book.base_config("machine_translation")
+    main, _, out = _book_program(None, cfg, decode=True)
+    feed = _book_feeds("machine_translation", cfg, 1)[0]
+    feed = {k: feed[k] for k in out["feeds"]}
+    rev = {k: np.ascontiguousarray(v[::-1]) for k, v in feed.items()}
+    runs = {}
+    for dev, exe in (("card", fluid.Executor(fluid.CUDAPlace(0))),
+                     ("cpu", fluid.Executor(fluid.CPUPlace()))):
+        state = _state_copy(train_main, scope, exe.device)
+        for key, f in (("", feed), ("_rev", rev)):
+            ids, sc = exe.run(main, feed=f, fetch_list=out["outs"],
+                              scope=state)
+            if key:
+                ids, sc = ids[::-1], sc[::-1]
+            runs[dev + key] = (np.asarray(ids), np.asarray(sc, np.float64))
+    ids_c, sc_c = runs["card"]
+    ids_h, sc_h = runs["cpu"]
+    spread = np.abs(runs["card_rev"][1] - sc_c).max() + \
+        np.abs(runs["cpu_rev"][1] - sc_h).max()
+    spread = float(spread)
+    bound = max(1e-5 * float(np.abs(sc_h).max()), 2 * spread)
+    err = float(np.abs(sc_c - sc_h).max())
+    checks = {"sentence_ids_equal": bool((ids_c == ids_h).all()),
+              "scores_match": err <= bound}
+    emit(phase="book_check_decode", card=_card(), batch=cfg["batch"],
+         beam=cfg["beam"], rows_differing=int(
+             (ids_c != ids_h).reshape(len(ids_c), -1).any(1).sum()),
+         score_max_abs_err=err, score_spread=spread, score_bound=bound,
+         checks=checks)
+    return checks
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -4808,6 +5178,10 @@ def main():
     by_path["dataset_train"] = phase_dataset_train()
     by_path["elastic_shrink"] = phase_elastic_shrink()
     phase_watchdog_stall()
+    book_paths, mt = phase_book_train()
+    by_path.update(book_paths)
+    phase_book_check(mt)
+    del mt
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],

@@ -10,13 +10,13 @@ never imports ``jax`` or ``paddle_tpu``.  Its layout mirrors
 ``paddle_tpu`` so each module's counterpart is found by name.
 
 Subpackages load on first use (``paddle_tpu_torch.fluid``, ``.models``,
-``.reader``, ``.batch``), so ``python -m paddle_tpu_torch.distributed.
+``.reader``, ``.dataset``, ``.batch``), so ``python -m paddle_tpu_torch.distributed.
 launch`` supervises its ranks without importing torch.
 """
 
 import importlib
 
-_SUBPACKAGES = ("fluid", "models", "reader", "distributed")
+_SUBPACKAGES = ("fluid", "models", "reader", "dataset", "distributed")
 
 
 def __getattr__(name):

@@ -19,7 +19,10 @@ weight-update sharding and hierarchical allreduce, ``LocalSGD``,
 ``CompiledProgram.with_data_parallel`` with sync batch norm and ZeRO-1,
 ``ParallelExecutor``, the collective ``incubate.fleet``, pod checkpoints,
 ``elastic`` and ``python -m paddle_tpu_torch.distributed.launch`` with
-its relaunches) (see ROADMAP.md's port queue).
+its relaunches); the reference's book models (sub-blocks with
+``StaticRNN``/``DynamicRNN`` over the ``recurrent`` op, the sequence,
+LSTM, CRF, NCE and beam-search ops, ``nets`` and ``metrics``) (see
+ROADMAP.md's port queue).
 """
 
 # op registrations must load before anything runs programs
@@ -82,5 +85,7 @@ from . import compiler
 from .compiler import CompiledProgram, BuildStrategy, ExecutionStrategy
 from .parallel_executor import ParallelExecutor
 from . import incubate
+from . import nets
+from . import metrics
 
 name = "paddle_tpu_torch.fluid"

@@ -12,7 +12,10 @@ and for a training program also the optimizer's state (Momentum's
 ``velocity``; Adam's ``moment1``/``moment2``,
 ``beta1_pow_acc``/``beta2_pow_acc``) and the global ``learning_rate``.
 The port's layers and optimizers name them as the JAX package does, so
-the same program built in both packages reads the same names::
+the same program built in both packages reads the same names.  A
+parameter created inside a control-flow op's step block (``StaticRNN``,
+``DynamicRNN``) lives in the global block in both packages, so it is
+carried like any other::
 
     names = [v.name for v in jax_main.list_vars() if v.persistable]
     arrays = {n: np.asarray(jax_scope.find_var(n)) for n in names}

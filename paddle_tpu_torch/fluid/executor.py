@@ -199,22 +199,33 @@ def scope_guard(scope):
 # ---------------------------------------------------------------------------
 
 def _block_reads_writes(block, feed_names):
-    """(reads-before-write, writes) over the block's op slots, in order."""
+    """(reads-before-write, writes) over the block's op slots, in order,
+    recursing into the sub-blocks that control-flow ops name (JAX
+    executor.py:259): the names such an op binds inside its sub-block
+    (a recurrent op's step inputs and carried state) are not reads.  The
+    ops of a sub-block run inside their control-flow op's rule, never
+    at the top level."""
     reads, writes = [], []
-    written = set(feed_names)
-    for op in block.ops:
-        if op.type in ("feed", "fetch"):
-            continue
-        for names in op.inputs.values():
-            for n in names:
-                if n and n not in written:
-                    reads.append(n)
-                    written.add(n)
-        for names in op.outputs.values():
-            for n in names:
-                if n:
-                    writes.append(n)
-                    written.add(n)
+
+    def visit(blk, written):
+        for op in blk.ops:
+            if op.type in ("feed", "fetch"):
+                continue
+            for names in op.inputs.values():
+                for n in names:
+                    if n and n not in written:
+                        reads.append(n)
+                        written.add(n)
+            for sub_idx in framework.op_sub_block_indices(op):
+                visit(blk.program.blocks[sub_idx],
+                      set(written) | framework.op_bound_var_names(op))
+            for names in op.outputs.values():
+                for n in names:
+                    if n:
+                        writes.append(n)
+                        written.add(n)
+
+    visit(block, set(feed_names))
     return list(dict.fromkeys(reads)), list(dict.fromkeys(writes))
 
 

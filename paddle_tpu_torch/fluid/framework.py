@@ -320,6 +320,23 @@ class Program:
     def block(self, idx):
         return self.blocks[idx]
 
+    def _create_block(self, parent_idx=None):
+        """Open a sub-block under ``parent_idx`` (default: the current
+        block) and make it current (JAX framework.py:406): the step block
+        of a ``recurrent`` op, which control-flow layers fill and then
+        close with :meth:`_rollback`."""
+        parent_idx = self.current_block_idx if parent_idx is None \
+            else parent_idx
+        block = Block(self, len(self.blocks), parent_idx)
+        self.blocks.append(block)
+        self.current_block_idx = block.idx
+        self._bump_version()
+        return block
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def _bump_version(self):
         self._version += 1
 
@@ -479,6 +496,26 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+# Attrs by which a control-flow op names its sub-block, and attrs naming
+# the inner variables the op binds itself each step (a recurrent op's
+# step inputs and carried state): the block traversals (the executor's
+# read analysis, ``ops/control_flow_ops.block_reads``) share them (JAX
+# framework.py:607-623).
+SUB_BLOCK_ATTRS = ("sub_block", "true_block", "false_block")
+BOUND_VAR_ATTRS = ("step_input_vars", "pre_state_vars")
+
+
+def op_sub_block_indices(op):
+    return [op.attr(a) for a in SUB_BLOCK_ATTRS if op.attr(a) is not None]
+
+
+def op_bound_var_names(op):
+    bound = set()
+    for a in BOUND_VAR_ATTRS:
+        bound |= set(op.attr(a, []) or [])
+    return bound
 
 
 def grad_var_name(name):

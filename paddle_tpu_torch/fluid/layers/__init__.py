@@ -2,8 +2,9 @@
 
 Exports only what the port has ported: the layers that BERT, ResNet,
 LeNet, Transformer NMT and DeepFM training call, the unary layers of
-``ops.py``, the clips, the learning-rate schedules, and the in-program
-readers of ``io.py``.
+``ops.py``, the clips, the learning-rate schedules, the in-program
+readers of ``io.py``, and the book models' losses, sequence, RNN, CRF
+and beam-search layers with ``StaticRNN``/``DynamicRNN``.
 """
 
 from . import io
@@ -14,6 +15,8 @@ from . import rnn
 from . import math_op_patch
 from . import metric_op
 from . import learning_rate_scheduler
+from . import sequence
+from . import control_flow
 
 from .io import (data, py_reader, create_py_reader_by_data,  # noqa: F401
                  double_buffer, read_file)
@@ -23,11 +26,21 @@ from .nn import (fc, embedding, layer_norm, dropout, softmax,  # noqa: F401
                  pool2d, batch_norm, topk, elementwise_add,
                  elementwise_mul, elementwise_div, elementwise_max,
                  elementwise_min, elementwise_pow,
-                 reduce_sum, one_hot, label_smooth,
-                 sigmoid_cross_entropy_with_logits, clip, clip_by_norm)
+                 reduce_sum, reduce_mean, one_hot, label_smooth,
+                 sigmoid_cross_entropy_with_logits, clip, clip_by_norm,
+                 cross_entropy, square_error_cost, squeeze, stack,
+                 expand, where, split)
 from .ops import *                                           # noqa: F401,F403
 from .metric_op import accuracy                              # noqa: F401
 from .tensor import (assign, create_parameter, fill_constant,  # noqa: F401
-                     cast, concat, sums)
-from .rnn import fused_attention                             # noqa: F401
+                     cast, concat, sums, fill_constant_batch_size_like,
+                     zeros_like, range)
+from .rnn import (fused_attention, dynamic_lstm,  # noqa: F401
+                  linear_chain_crf, crf_decoding, cos_sim, nce,
+                  beam_search, beam_search_decode)
+from .sequence import (sequence_mask, sequence_pool,  # noqa: F401
+                       sequence_first_step, sequence_last_step,
+                       sequence_conv)
+from .control_flow import (less_than, BlockGuard,  # noqa: F401
+                           StaticRNN, DynamicRNN)
 from .learning_rate_scheduler import *                       # noqa: F401,F403

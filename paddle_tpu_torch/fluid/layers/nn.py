@@ -488,11 +488,11 @@ def elementwise_pow(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_pow", x, y, axis, act, name)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    """Sum over ``dim`` (an int or a list), or over every axis when
-    ``dim`` is None (``reduce_all``; the declared shape is (1,), the
+def _reduce(op_type, input, dim=None, keep_dim=False, name=None):
+    """A reduce op over ``dim`` (an int or a list), or over every axis
+    when ``dim`` is None (``reduce_all``; the declared shape is (1,), the
     value 0-d, as in the JAX package)."""
-    helper = LayerHelper("reduce_sum", name=name)
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
     if dim is None:
         out.shape = (1,)
@@ -510,9 +510,17 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
                                   if i not in axes)
         attrs = {"dim": list(dims), "keep_dim": keep_dim,
                  "reduce_all": False}
-    helper.append_op("reduce_sum", inputs={"X": [input]},
+    helper.append_op(op_type, inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
 
 
 def one_hot(input, depth):
@@ -536,3 +544,104 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
         return scale(label, 1.0 - epsilon, epsilon / float(num_classes))
     return elementwise_add(scale(label, 1.0 - epsilon),
                            scale(prior_dist, epsilon))
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """``-log`` of the label's probability in ``input`` (probabilities,
+    not logits): ``[..., 1]`` (JAX layers/nn.py:327)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape:
+        out.shape = tuple(input.shape[:-1]) + (1,)
+    helper.append_op("cross_entropy", inputs={"X": [input],
+                                              "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op("square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze2", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape is not None:
+        nd = len(input.shape)
+        drop = set(a % nd for a in axes)
+        out.shape = tuple(s for i, s in enumerate(input.shape)
+                          if not (i in drop and s == 1))
+    xshape = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op("squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
+    return out
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    if xs[0].shape is not None:
+        shape = list(xs[0].shape)
+        shape.insert(axis if axis >= 0 else axis + len(shape) + 1, len(xs))
+        out.shape = tuple(shape)
+    helper.append_op("stack", inputs={"X": xs}, outputs={"Y": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(s * t if s and s > 0 else -1
+                          for s, t in zip(x.shape, expand_times))
+    helper.append_op("expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def where(condition, x, y):
+    """X where ``condition`` holds, else Y (the JAX package's select)."""
+    helper = LayerHelper("where")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("where", inputs={"Condition": [condition], "X": [x],
+                                      "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    nd = len(input.shape)
+    axis = dim % nd
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+        sizes = [input.shape[axis] // num] * num \
+            if input.shape[axis] > 0 else [-1] * num
+    else:
+        sections = list(num_or_sections)
+        num = 0
+        sizes = sections
+    outs = []
+    for s in sizes:
+        o = helper.create_variable_for_type_inference(input.dtype)
+        shape = list(input.shape)
+        shape[axis] = s
+        o.shape = tuple(shape)
+        outs.append(o)
+    helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
+                     attrs={"axis": axis, "num": num, "sections": sections})
+    return outs

@@ -1,7 +1,201 @@
-"""``fused_attention`` (counterpart paddle_tpu/fluid/layers/rnn.py:272),
-the one layer of that module the slice ports."""
+"""Recurrent, structured-prediction and generation layers (counterpart
+paddle_tpu/fluid/layers/rnn.py; reference ``python/paddle/fluid/layers/
+nn.py``): ``fused_attention``, and the book models' ``dynamic_lstm``,
+``linear_chain_crf``, ``crf_decoding``, ``cos_sim``, ``nce``,
+``beam_search`` and ``beam_search_decode``.  Every sequence layer takes
+an explicit ``length`` Variable ``[batch]`` over padded ``[batch, time,
+...]`` data, in place of the reference's LoD."""
 
 from ..layer_helper import LayerHelper
+
+
+def dynamic_lstm(input, size, length=None, h_0=None, c_0=None,
+                 param_attr=None, bias_attr=None, use_peepholes=True,
+                 is_reverse=False, gate_activation="sigmoid",
+                 cell_activation="tanh", candidate_activation="tanh",
+                 dtype="float32", name=None):
+    """LSTM over a pre-projected input [B, T, 4*D]; size = 4*D.
+
+    Returns (hidden, cell), both [B, T, D].
+    """
+    assert length is not None, \
+        "dynamic_lstm needs an explicit length tensor (no LoD)"
+    helper = LayerHelper("lstm", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    D = size // 4
+    weight = helper.create_parameter(helper.param_attr, [D, 4 * D], dtype)
+    bias_size = [1, 7 * D] if use_peepholes else [1, 4 * D]
+    bias = helper.create_parameter(helper.bias_attr, bias_size, dtype,
+                                   is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    if input.shape:
+        hidden.shape = tuple(input.shape[:2]) + (D,)
+        cell.shape = hidden.shape
+    inputs = {"Input": [input], "Weight": [weight], "Length": [length]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    if c_0 is not None:
+        inputs["C0"] = [c_0]
+    helper.append_op("lstm", inputs=inputs,
+                     outputs={"Hidden": [hidden], "Cell": [cell]},
+                     attrs={"use_peepholes": use_peepholes,
+                            "is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation})
+    return hidden, cell
+
+
+def linear_chain_crf(input, label, length=None, param_attr=None):
+    """CRF negative log-likelihood; input [B, T, C], label [B, T] int.
+
+    The transition parameter is [C+2, C] (row 0 start, row 1 stop), the
+    reference's exact layout, so a trained ``crfw`` feeds crf_decoding.
+    """
+    assert length is not None, \
+        "linear_chain_crf needs an explicit length tensor (no LoD)"
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(helper.param_attr,
+                                         [num_tags + 2, num_tags],
+                                         input.dtype)
+    nll = helper.create_variable_for_type_inference(input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype)
+    nll.shape = (input.shape[0], 1)
+    helper.append_op("linear_chain_crf",
+                     inputs={"Emission": [input], "Transition": [transition],
+                             "Label": [label], "Length": [length]},
+                     outputs={"LogLikelihood": [nll], "Alpha": [alpha]})
+    return nll
+
+
+def crf_decoding(input, length=None, param_attr=None, label=None):
+    """Viterbi decode; returns [B, T, 1] int64 path (or 0/1 correctness
+    indicators when ``label`` is given, the chunk_eval contract)."""
+    assert length is not None
+    helper = LayerHelper("crf_decoding", param_attr=param_attr)
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(helper.param_attr,
+                                         [num_tags + 2, num_tags],
+                                         input.dtype)
+    path = helper.create_variable_for_type_inference("int64",
+                                                     stop_gradient=True)
+    path.shape = tuple(input.shape[:2]) + (1,)
+    inputs = {"Emission": [input], "Transition": [transition],
+              "Length": [length]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op("crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    return path
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    if X.shape:
+        out.shape = tuple(X.shape[:-1]) + (1,)
+    helper.append_op("cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xn], "YNorm": [yn]})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None, sampler="uniform",
+        custom_dist=None, seed=0, is_sparse=False):
+    """NCE loss layer (reference nn.py nce → nce op); returns [B, 1] cost."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    weight = helper.create_parameter(helper.param_attr,
+                                     [num_total_classes, dim], input.dtype)
+    bias = helper.create_parameter(helper.bias_attr,
+                                   [num_total_classes, 1], input.dtype,
+                                   is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(input.dtype)
+    sample_labels = helper.create_variable_for_type_inference("int64",
+                                                              stop_gradient=True)
+    cost.shape = (input.shape[0], 1)
+    sampler_id = {"uniform": 0, "log_uniform": 1, "custom_dist": 2}[sampler]
+    inputs = {"Input": [input], "Label": [label], "Weight": [weight]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    if custom_dist is not None:
+        inputs["CustomDistProbs"] = [custom_dist]
+        sampler_id = 2
+    helper.append_op("nce", inputs=inputs,
+                     outputs={"Cost": [cost],
+                              "SampleLogits": [sample_logits],
+                              "SampleLabels": [sample_labels]},
+                     attrs={"num_total_classes": int(num_total_classes),
+                            "num_neg_samples": int(num_neg_samples or 10),
+                            "sampler": sampler_id, "seed": seed,
+                            "is_sparse": is_sparse,
+                            "__op_seed__":
+                                helper.main_program.next_op_seed()})
+    return cost
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None):
+    """One beam-search step on static [B, K] beams.
+
+    ``ids``/``scores``: [B, K, C] per-beam candidate ids and *accumulated*
+    log-probs (typically from topk over log-softmax + pre_scores).
+    Returns (selected_ids, selected_scores, parent_idx), all [B, beam_size].
+    """
+    helper = LayerHelper("beam_search", name=name)
+    sel_ids = helper.create_variable_for_type_inference("int64",
+                                                        stop_gradient=True)
+    sel_scores = helper.create_variable_for_type_inference(
+        scores.dtype, stop_gradient=True)
+    parent = helper.create_variable_for_type_inference("int64",
+                                                       stop_gradient=True)
+    if scores.shape:
+        sel_ids.shape = (scores.shape[0], int(beam_size))
+        sel_scores.shape = sel_ids.shape
+        parent.shape = sel_ids.shape
+    helper.append_op("beam_search",
+                     inputs={"pre_ids": [pre_ids],
+                             "pre_scores": [pre_scores],
+                             "ids": [ids], "scores": [scores]},
+                     outputs={"selected_ids": [sel_ids],
+                              "selected_scores": [sel_scores],
+                              "parent_idx": [parent]},
+                     attrs={"beam_size": int(beam_size),
+                            "end_id": int(end_id), "level": int(level),
+                            "is_accumulated": bool(is_accumulated)})
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, scores, parent_idx, beam_size, end_id,
+                       name=None):
+    """Backtrack stacked per-step beams [T, B, K] into sentences.
+
+    Returns (sentence_ids [B, K, T], sentence_scores [B, K]).
+    """
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_variable_for_type_inference("int64",
+                                                         stop_gradient=True)
+    sent_scores = helper.create_variable_for_type_inference(
+        scores.dtype, stop_gradient=True)
+    helper.append_op("beam_search_decode",
+                     inputs={"Ids": [ids], "Scores": [scores],
+                             "ParentIdx": [parent_idx]},
+                     outputs={"SentenceIds": [sent_ids],
+                              "SentenceScores": [sent_scores]},
+                     attrs={"beam_size": int(beam_size),
+                            "end_id": int(end_id)})
+    return sent_ids, sent_scores
+
 
 
 def fused_attention(q, k, v, attn_bias=None, scale=1.0, causal=False,

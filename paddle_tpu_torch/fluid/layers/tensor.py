@@ -1,11 +1,13 @@
 """Tensor layers (reference: python/paddle/fluid/layers/tensor.py;
 counterpart paddle_tpu/fluid/layers/tensor.py): ``assign``, which BERT's
 causal composition path and the Transformer's positional table call,
-``create_parameter``, ``fill_constant``, and ``cast``, ``concat`` and
-``sums`` (DeepFM and the global-norm clip)."""
+``create_parameter``, ``fill_constant``, ``cast``, ``concat`` and
+``sums`` (DeepFM and the global-norm clip), and the book models'
+``fill_constant_batch_size_like``, ``zeros_like`` and ``range``."""
 
 import numpy as np
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..data_types import canonical_dtype
 from ..param_attr import ParamAttr
@@ -89,4 +91,51 @@ def sums(input, out=None):
         out = helper.create_variable_for_type_inference(input[0].dtype)
     out.shape = input[0].shape
     helper.append_op("sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(shape)
+    helper.append_op("fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape),
+                            "dtype": canonical_dtype(dtype),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("fill_zeros_like", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def range(start, end, step, dtype="int64"):
+    """``arange(start, end, step)`` (JAX tensor.py:154): Python bounds
+    become static attrs, Variables the Start/End/Step inputs."""
+    helper = LayerHelper("range")
+    out = helper.create_variable_for_type_inference(dtype)
+    if not isinstance(start, Variable) and not isinstance(end, Variable) \
+            and not isinstance(step, Variable):
+        helper.append_op("range", outputs={"Out": [out]},
+                         attrs={"static_start": start, "static_end": end,
+                                "static_step": step})
+        return out
+    s = fill_constant([1], dtype, start) if not isinstance(start, Variable) \
+        else start
+    e = fill_constant([1], dtype, end) if not isinstance(end, Variable) \
+        else end
+    st = fill_constant([1], dtype, step) if not isinstance(step, Variable) \
+        else step
+    helper.append_op("range", inputs={"Start": [s], "End": [e], "Step": [st]},
+                     outputs={"Out": [out]})
     return out

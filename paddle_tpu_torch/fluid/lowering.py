@@ -25,6 +25,7 @@ import torch
 
 from . import flags
 from .data_types import torch_dtype
+from .framework import op_sub_block_indices
 from .registry import get_op_def
 
 # Op types consumed by the executor itself rather than lowered.
@@ -209,14 +210,21 @@ def plan_release(block, keep):
     written back to the scope).  Dropping them from the environment there
     frees a temporary as soon as nothing can read it again; a tensor that
     a taped op saved for its grad op stays alive through the tape until
-    that grad op has run."""
-    last = {}
-    for i, op in enumerate(block.ops):
+    that grad op has run.  A control-flow op mentions every name its
+    sub-block's ops mention, so nothing its step block reads leaves
+    before it has run."""
+    def mentions(op):
         for slots in (op.inputs, op.outputs):
             for names in slots.values():
-                for n in names:
-                    if n:
-                        last[n] = i
+                yield from (n for n in names if n)
+        for sub_idx in op_sub_block_indices(op):
+            for sub_op in block.program.blocks[sub_idx].ops:
+                yield from mentions(sub_op)
+
+    last = {}
+    for i, op in enumerate(block.ops):
+        for n in mentions(op):
+            last[n] = i
     out = {}
     for n, i in last.items():
         if n not in keep:

@@ -10,3 +10,8 @@ from . import norm_ops       # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import io_ops         # noqa: F401
 from . import collective_ops  # noqa: F401
+from . import sequence_ops   # noqa: F401
+from . import rnn_ops        # noqa: F401
+from . import crf_ops        # noqa: F401
+from . import control_flow_ops  # noqa: F401
+from . import generation_ops  # noqa: F401

@@ -244,6 +244,20 @@ def _reduce_sum(ctx, op):
     ctx.set("Out", torch.sum(x, dim=axes, keepdim=keep) if axes else x)
 
 
+@register_op("reduce_mean")
+def _reduce_mean(ctx, op):
+    """math_ops.py:151: the mean over ``dim``, or over every axis with
+    ``reduce_all`` (0-d, as ``jnp.mean(axis=None)``), as reduce_sum
+    reads its attributes."""
+    x = ctx.i("X")
+    keep = ctx.attr("keep_dim", False)
+    if ctx.attr("reduce_all", False):
+        axes = tuple(range(x.dim()))
+    else:
+        axes = tuple(sorted({d % x.dim() for d in ctx.attr("dim", [0])}))
+    ctx.set("Out", torch.mean(x, dim=axes, keepdim=keep) if axes else x)
+
+
 @register_op("softmax")
 def _softmax(ctx, op):
     ctx.set("Out", torch.softmax(ctx.i("X"), dim=ctx.attr("axis", -1)))

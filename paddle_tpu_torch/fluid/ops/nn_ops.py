@@ -1,7 +1,8 @@
 """NN op lowerings of the slice (counterpart ``paddle_tpu/fluid/ops/
 nn_ops.py``): conv2d / depthwise_conv2d, pool2d, batch_norm, layer_norm,
-dropout, softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits
-and accuracy.
+dropout, softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
+accuracy, and the book models' losses: cross_entropy, square_error_cost,
+cos_sim and nce.
 
 Every conv route but K1's stays a library convolution (``F.conv2d``,
 cuDNN on the card), as the JAX package leaves its convs to XLA; K1 is
@@ -339,3 +340,123 @@ def _accuracy(ctx, op):
     ctx.set("Correct", num_correct.to(torch.int32).reshape((1,)))
     ctx.set("Total", torch.full((1,), rows, dtype=torch.int32,
                                 device=indices.device))
+
+
+@register_op("cross_entropy", nondiff_inputs=("Label",))
+def _cross_entropy(ctx, op):
+    """nn_ops.py:362: X holds probabilities; hard labels pick one entry,
+    soft labels weight every one, each log taken of the entry clamped at
+    1e-20 (``torch.maximum``, which, like ``jnp.maximum``, splits the
+    gradient at a tie).  Y ``[..., 1]``; ``ignore_index`` is read by
+    neither package's rule."""
+    x = ctx.i("X")
+    label = ctx.i("Label")
+    tiny = torch.tensor(1e-20, dtype=x.dtype, device=x.device)
+    if ctx.attr("soft_label", False):
+        loss = -(label * torch.log(torch.maximum(x, tiny))).sum(
+            -1, keepdim=True)
+    else:
+        lab = label
+        if lab.dim() == x.dim() and lab.shape[-1] == 1:
+            lab = lab.squeeze(-1)
+        picked = torch.gather(x, -1, lab.long().unsqueeze(-1))
+        loss = -torch.log(torch.maximum(picked, tiny))
+    ctx.set("Y", loss)
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, op):
+    """nn_ops.py:394: ``(X − Y)²`` entry by entry."""
+    ctx.set("Out", torch.square(ctx.i("X") - ctx.i("Y")))
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, op):
+    """nn_ops.py:461: row-wise cosine similarity over the last axis; Y
+    may be one row ``[1, D]`` broadcast against X ``[B, D]``.  The norms
+    are outputs too; the denominator is clamped at 1e-12."""
+    x = ctx.i("X")
+    y = ctx.i("Y")
+    xn = torch.sqrt((x * x).sum(-1, keepdim=True))
+    yn = torch.sqrt((y * y).sum(-1, keepdim=True))
+    tiny = torch.tensor(1e-12, dtype=x.dtype, device=x.device)
+    out = (x * y).sum(-1, keepdim=True) / torch.maximum(xn * yn, tiny)
+    ctx.set("Out", out)
+    ctx.set("XNorm", xn)
+    ctx.set("YNorm", yn)
+
+
+def nce_samples(ctx, sampler, num_classes, shape, probs=None):
+    """``shape`` int64 noise classes drawn from the op's generator, and
+    the float32 probability ``q(c)`` of a class under the sampler
+    (nn_ops.py:504-527): 0 uniform over ``[0, C)``; 1 log-uniform,
+    ``q(c) = log((c + 2) / (c + 1)) / log(C + 1)``, drawn as
+    ``floor(exp(u·log(C + 1))) − 1``; 2 the custom distribution
+    ``probs``.  The draws are the port's own: RNG streams never match
+    the JAX package's."""
+    gen = ctx.generator()
+    dev = ctx.state.device
+    if sampler == 1:
+        log_c1 = torch.log(torch.tensor(float(num_classes + 1),
+                                        dtype=torch.float32, device=dev))
+        u = torch.rand(shape, generator=gen, device=dev)
+        samples = (torch.exp(u * log_c1) - 1.0).long().clamp(
+            0, num_classes - 1)
+
+        def q(c):
+            c = c.float()
+            return torch.log((c + 2.0) / (c + 1.0)) / log_c1
+    elif sampler == 2:
+        flat = probs.reshape(-1)
+        n = int(np.prod(shape))
+        samples = torch.multinomial(flat.float(), n, replacement=True,
+                                    generator=gen).reshape(shape)
+
+        def q(c):
+            return flat[c].float()
+    else:
+        samples = torch.randint(0, num_classes, shape, generator=gen,
+                                device=dev)
+
+        def q(c):
+            return torch.full(c.shape, 1.0 / num_classes,
+                              dtype=torch.float32, device=dev)
+    return samples, q
+
+
+@register_op("nce", nondiff_inputs=("Label", "SampleWeight",
+                                    "CustomDistProbs"))
+def _nce(ctx, op):
+    """Noise-contrastive estimation (nn_ops.py:476-542): for each row,
+    ``num_neg_samples`` noise classes and the cost
+    ``softplus(−(s_true − log(k·q_true))) + Σ softplus(s_c − log(k·q_c))``
+    with ``s = w_c·x + b_c``, in log space (``softplus`` as
+    ``logaddexp(·, 0)``, jax.nn.softplus's form).  The grad op
+    differentiates this very forward on the tape, so it sees the same
+    samples (the JAX package redraws them from the op's key)."""
+    x = ctx.i("Input")                                   # [B, D]
+    label = ctx.i("Label").reshape(-1).long()            # [B]
+    w = ctx.i("Weight")                                  # [C, D]
+    bias = ctx.i_opt("Bias")
+    num_classes = int(ctx.attr("num_total_classes"))
+    k = max(int(ctx.attr("num_neg_samples", 10)), 1)
+    samples, q = nce_samples(ctx, ctx.attr("sampler", 0), num_classes,
+                             (x.shape[0], k), ctx.i_opt("CustomDistProbs"))
+    flat_bias = bias.reshape(-1) if bias is not None else None
+
+    def logit(cls):
+        lo = (w[cls] * (x[:, None, :] if cls.dim() == 2 else x)).sum(-1)
+        return lo + flat_bias[cls] if flat_bias is not None else lo
+
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    logit_true = logit(label)
+    logit_neg = logit(samples)
+    cost = torch.logaddexp(-(logit_true - torch.log(k * q(label))), zero) \
+        + torch.logaddexp(logit_neg - torch.log(k * q(samples)),
+                          zero).sum(-1)
+    sw = ctx.i_opt("SampleWeight")
+    if sw is not None:
+        cost = cost * sw.reshape(-1)
+    ctx.set("Cost", cost[:, None])
+    ctx.set("SampleLogits", logit_neg)
+    ctx.set("SampleLabels", samples)

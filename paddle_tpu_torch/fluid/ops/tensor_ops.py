@@ -121,6 +121,68 @@ def _unsqueeze2(ctx, op):
     ctx.set("XShape", _empty_xshape(ctx))
 
 
+@register_op("squeeze2")
+def _squeeze2(ctx, op):
+    """tensor_ops.py:105: drop the size-1 dims among ``axes`` (every
+    size-1 dim when ``axes`` is empty); XShape is the empty placeholder
+    unsqueeze2 gives."""
+    x = ctx.i("X")
+    axes = {a % max(x.dim(), 1) for a in ctx.attr("axes", [])}
+    if axes:
+        out = x.reshape(tuple(s for i, s in enumerate(x.shape)
+                              if not (i in axes and s == 1)))
+    else:
+        out = x.squeeze()
+    ctx.set("Out", out)
+    ctx.set("XShape", _empty_xshape(ctx))
+
+
+@register_op("stack")
+def _stack(ctx, op):
+    """tensor_ops.py:153: the X list stacked along a new ``axis``."""
+    ctx.set("Y", torch.stack([ctx.env[n] for n in op.input("X")],
+                             dim=ctx.attr("axis", 0)))
+
+
+@register_op("expand")
+def _expand(ctx, op):
+    """tensor_ops.py:181: X tiled ``expand_times`` along each axis."""
+    ctx.set("Out", ctx.i("X").repeat(*ctx.attr("expand_times")))
+
+
+@register_op("fill_zeros_like")
+def _fill_zeros_like(ctx, op):
+    ctx.set("Out", torch.zeros_like(ctx.i("X")))
+
+
+@register_op("range", stop_gradient=True)
+def _range(ctx, op):
+    """tensor_ops.py:261: ``arange(start, end, step)``, from the static
+    attrs the layer writes for Python bounds, else from the Start, End
+    and Step tensors (one read-back each).  Integer bounds give int64."""
+    if ctx.attr("static_start") is not None:
+        start, end, step = (ctx.attr("static_start"),
+                            ctx.attr("static_end"), ctx.attr("static_step"))
+    else:
+        start, end, step = (ctx.i(s).reshape(-1)[0].item()
+                            for s in ("Start", "End", "Step"))
+    ctx.set("Out", torch.arange(start, end, step, device=ctx.state.device))
+
+
+@register_op("less_than", stop_gradient=True)
+def _less_than(ctx, op):
+    """tensor_ops.py:293: ``X < Y`` elementwise (broadcast), bool."""
+    ctx.set("Out", torch.lt(ctx.i("X"), ctx.i("Y")))
+
+
+@register_op("where", nondiff_inputs=("Condition",))
+def _where(ctx, op):
+    """tensor_ops.py:339: the JAX package's three-argument select,
+    X where Condition holds, else Y (not the reference's index-returning
+    ``where``)."""
+    ctx.set("Out", torch.where(ctx.i("Condition"), ctx.i("X"), ctx.i("Y")))
+
+
 @register_op("slice")
 def _slice(ctx, op):
     x = ctx.i("Input")
@@ -237,11 +299,20 @@ def _truncated_gaussian_random(ctx, op):
     _random_fill(ctx, draw)
 
 
+def top_k_stable(x, k):
+    """The k largest entries of the last axis, sorted descending, and
+    their int64 indices, the lower index first among equal entries, as
+    ``lax.top_k`` gives them (``torch.topk`` promises no order for ties
+    on the card).  A stable descending sort, then the first k."""
+    vals, idxs = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idxs[..., :k]
+
+
 @register_op("top_k", stop_gradient=True)
 def _top_k(ctx, op):
-    """tensor_ops.py:309: the k largest entries of the last axis, sorted
-    descending, and their int64 indices."""
-    vals, idxs = torch.topk(ctx.i("X"), ctx.attr("k", 1), dim=-1)
+    """tensor_ops.py:309 (:func:`top_k_stable`): a beam decode's dead
+    beams tie at -1e9, and which of them comes first picks its ids."""
+    vals, idxs = top_k_stable(ctx.i("X"), ctx.attr("k", 1))
     ctx.set("Out", vals)
     ctx.set("Indices", idxs)
 
