@@ -103,6 +103,28 @@ non-zero exit (nothing is caught):
    GradAllReduce after every step, each rank holding half of the Adam
    moments (plus the bucket's pad), on the int8 wire within 2/127; the
    wire bytes of each precision.
+9f. train_surface, three parts, each from phase 9's initial parameters
+   and batch.  bert_recompute: phase 9's program with
+   RecomputeOptimizer over its Adam, the 12 post-FFN layer_norm outputs
+   as checkpoints, 2 + 8 steps (after the same of the plain program,
+   timed beside it): losses and parameters bit-equal to phase 9's (or
+   within twice a second plain run's spread), 24 K2, 12 K3, 12 K4 and 0
+   K5 a step (K2 runs again in each span's replay), peak memory below
+   phase 9's, one profiled step.  bert_gradient_merge: all dropout off,
+   GradientMergeOptimizer(Adam, k_steps=4) over the 32 rows as 4
+   micro-batches of 8, 8 micro-steps: parameters bit-unchanged between
+   the applies, the averaged accumulation of the first apply within
+   1e-5 relative L2 of the 32-row gradient, the parameters after it
+   within max(2 x spread, 1e-6) of one plain 32-row Adam step net of
+   each side's own step, 12 K2/K3/K4 a micro-step, one
+   conditional_block predicate sync a micro-step (the branch's host
+   read); a non-apply and an apply micro-step profiled.
+   bert_amp_dynamic: pure bf16 with dynamic loss scaling (2^15, x2
+   every 2 good steps, x0.8 every bad one) over Adam, 5 steps, step 3
+   fed an input_mask holding one inf: the scale after each step its
+   closed form, step 3's gated gradients all 0, the other losses
+   finite, 12 K2/K3/K4 a step; a profiled step beside the same program
+   without scaling (the gate's launches).
 10. train_bias: an attention layer whose bias is a trainable [1,H,S,S]
    parameter — the path that launches K5 — against the composition path.
 11. train_attn_dropout: BERT with attention dropout 0.1 at 2 layers, the
@@ -166,6 +188,16 @@ non-zero exit (nothing is caught):
    and a per-parameter rate of 0.5 on fm_emb, and SGD on each of the
    seven schedules, whose fetched rate must equal its closed form
    within 1e-6.
+19b. wrappers: DeepFM at batch 512 through ExponentialMovingAverage
+   and ModelAverage(max_average_window=2) after Adam,
+   LookaheadOptimizer(Adam, k=2), DGCMomentumOptimizer (rampup from
+   step 1, a world of one) and a hand-built proximal_gd /
+   proximal_adagrad program (l1, l2 > 0), 3 steps each held as phase 19
+   holds its runs; EMA's apply against its bias-corrected closed form,
+   ModelAverage's after step 2 (the window's mean) and step 3 (after
+   its reset, the last step), each restore bit-equal to the trained
+   parameters; Lookahead synced after step 2 only; DGC's u zero before
+   rampup and v entries cleared after; no port kernel launched.
 20. lookup_grad: the lookup_table rule's table gradient (torch's
    embedding backward under its deterministic algorithms) against
    torch's default one, at BERT-base's three tables (batch 32) and
@@ -256,9 +288,10 @@ non-zero exit (nothing is caught):
    the trained weights on the card and the CPU: SentenceIds equal, the
    scores within max(1e-5 relative, 2 x the reversed-batch spreads).
 29. kernels: one JSON line listing every ported kernel, with its
-   launches on every main path (0 on DeepFM's, ResNet-50 inference's
-   and the book models'; the data-parallel paths' as their rank 0
-   counted them, the elastic path's as its world of one counted them).
+   launches on every main path (0 on DeepFM's, the wrappers',
+   ResNet-50 inference's and the book models'; the data-parallel
+   paths' as their rank 0 counted them, the elastic path's as its
+   world of one counted them).
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.  ``python3
@@ -269,7 +302,10 @@ the build and phase 9, whose weights and batch they take): ``python3 -c
 c.phase_train(); c.phase_dp_wus(t); c.phase_dp_two_ranks_sharded(t);
 c.phase_elastic_shrink()'``.  The book phases alone (no build needed):
 ``python3 -c 'import chip_smoke as c; c.phase_device(); p, mt =
-c.phase_book_train(); c.phase_book_check(mt)'``.
+c.phase_book_train(); c.phase_book_check(mt)'``.  The training surface
+and the wrappers alone: ``python3 -c 'import chip_smoke as c;
+c.phase_device(); c.phase_build(); t = c.phase_train();
+c.phase_train_surface(t); c.phase_wrappers()'``.
 """
 
 import contextlib
@@ -1495,6 +1531,9 @@ def phase_train():
          fused_attention_grad_ops=ops.count("fused_attention_grad"))
     feed = _train_feed(cfg, BT, SEED)
     init = _host_params(main, scope)        # dp_train starts from these
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mb = torch.cuda.memory_allocated() / 2**20
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: counts go to 0 here and are read after it
     _reset_launches()
@@ -1504,10 +1543,11 @@ def phase_train():
     losses = [float(g[0].item()) for g in got]
     steps = len(got)
     per_step = {n: c / steps for n, c in launches.items()}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     emit(phase="train", steps=steps, losses=losses, ms_per_step=step_ms,
          sequences_per_s=BT / step_ms * 1e3,
          tokens_per_s=BT * cfg.max_seq_len / step_ms * 1e3,
-         peak_device_mb=torch.cuda.max_memory_allocated() / 2**20,
+         peak_device_mb=peak_mb, allocated_before_mb=base_mb,
          launches=launches, launches_per_step=per_step)
     L = cfg.num_layers
     checks = {
@@ -1562,7 +1602,8 @@ def phase_train():
          card_vs_cpu=dict(loss_rel=cpu_loss, grads=cpu_g), checks=checks)
     _fail_unless("train", checks)
     return dict(launches=launches, ms_per_step=step_ms, init=init,
-                final=final, losses=losses, feed=feed)
+                final=final, losses=losses, feed=feed, peak_mb=peak_mb,
+                base_mb=base_mb)
 
 
 def _bias_program(fused, optimizer=None, B_=8):
@@ -4016,33 +4057,7 @@ def phase_dp_train(train):
     final = torch.load(d / "final.pt")
     steps = len(r["losses"])
     launches = r["launches"]
-    bit_equal = r["losses"] == train["losses"] and \
-        _params_equal(final, train["final"])
-    held = "bit_equal"
-    spread = None
-    if not bit_equal:
-        # a second plain run from the same state: its distance to the
-        # first is the spread the DP run is held to
-        cfg = bert.base_config(attn_dropout=0.0)
-        main, startup, out = _build_pretrain(cfg)
-        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
-        exe.run(startup, scope=scope)
-        for name, t in train["init"].items():
-            scope.set_var(name, t.to("cuda"))
-        got, _ms = _train_steps(exe, main, [train["feed"]], [out["loss"]],
-                                scope)
-        again = _host_params(main, scope)
-        p_spread = _max_diff(again, train["final"])
-        l_spread = max(abs(float(g[0].item()) - w)
-                       for g, w in zip(got, train["losses"]))
-        p_err = _max_diff(final, train["final"])
-        l_err = max(abs(a - b) for a, b in zip(r["losses"],
-                                                train["losses"]))
-        held = "spread" if l_err <= 2 * l_spread and all(
-            p_err[n] <= 2 * p_spread[n] for n in p_err) else "neither"
-        spread = dict(loss_err=l_err, loss_spread=l_spread,
-                      param_err_max=max(p_err.values()),
-                      param_spread_max=max(p_spread.values()))
+    held, spread = _held_to_train(train, r["losses"], final)
     L = 12
     checks = {
         "backend_nccl": r["backend"] == "nccl",
@@ -5137,6 +5152,586 @@ def _book_decode_check(train_main, scope):
     return checks
 
 
+# ---------------------------------------------------------------------------
+# The rest of the training surface: recompute, gradient merge, dynamic loss
+# scaling (BERT-base), and the wrapper optimizers (DeepFM)
+# ---------------------------------------------------------------------------
+
+GM_K = 4                      # bert_gradient_merge: micro-batches per apply
+GM_ROWS = BT // GM_K          # ... of 8 of phase train's 32 rows
+GM_STEPS = 2 * GM_K           # ... micro-steps: two applies
+GM_ACC_L2 = 1e-5              # averaged accumulation vs the 32-row gradient
+GM_PARAM_FLOOR = 1e-6         # parameters after the apply vs one plain step,
+#                               net of each side's Adam step: max(2 x the
+#                               plain step's spread, this)
+AMP_STEPS = 5                 # bert_amp_dynamic
+AMP_BAD_STEP = 3              # ... fed an input_mask holding one inf
+AMP_SCALING = dict(init_loss_scaling=2.0 ** 15, use_dynamic_loss_scaling=True,
+                   incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+WRAP_DECAY = 0.9              # wrappers: ExponentialMovingAverage's decay
+WRAP_CLOSED_RTOL = 1e-5       # applied values vs their closed form, of the
+#                               tensor's largest entry
+
+
+class _EncoderCheckpoints:
+    """An optimizer stand-in for build_pretrain: RecomputeOptimizer over
+    ``inner`` with each encoder layer's post-FFN layer_norm output as a
+    checkpoint, picked from the loss's program (the embedding's
+    layer_norm comes first, then two a layer)."""
+
+    def __init__(self, inner, layers):
+        self.inner, self.layers = inner, layers
+
+    def minimize(self, loss):
+        lns = [op.output("Y")[0] for op in
+               loss.block.program.global_block().ops
+               if op.type == "layer_norm"]
+        opt = fluid.optimizer.RecomputeOptimizer(self.inner)
+        opt._set_checkpoints(lns[2:2 * self.layers + 1:2])
+        return opt.minimize(loss)
+
+
+def _bert_state(main, startup, init):
+    """(executor, scope) on the card holding ``main``'s startup state
+    with the parameters ``init`` (host tensors) loaded."""
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    for name, t in init.items():
+        scope.set_var(name, t.to("cuda"))
+    return exe, scope
+
+
+def _held_to_train(train, losses, final):
+    """How ``losses`` and the parameters ``final`` of a run from phase
+    train's initial state and batch hold against train's: "bit_equal",
+    else "spread" when within twice the spread of a second plain run from
+    the same state, else "neither"; (held, the spread's report)."""
+    if losses == train["losses"] and _params_equal(final, train["final"]):
+        return "bit_equal", None
+    main, startup, out = _build_pretrain(bert.base_config(attn_dropout=0.0))
+    exe, scope = _bert_state(main, startup, train["init"])
+    got, _ms = _train_steps(exe, main, [train["feed"]], [out["loss"]], scope)
+    again = _host_params(main, scope)
+    del exe, scope
+    torch.cuda.empty_cache()
+    p_spread = _max_diff(again, train["final"])
+    l_spread = max(abs(float(g[0].item()) - w)
+                   for g, w in zip(got, train["losses"]))
+    p_err = _max_diff(final, train["final"])
+    l_err = max(abs(a - b) for a, b in zip(losses, train["losses"]))
+    held = "spread" if l_err <= 2 * l_spread and all(
+        p_err[n] <= 2 * p_spread[n] for n in p_err) else "neither"
+    return held, dict(loss_err=l_err, loss_spread=l_spread,
+                      param_err_max=max(p_err.values()),
+                      param_spread_max=max(p_spread.values()))
+
+
+def _bert_recompute(train):
+    """bert_recompute: phase train's program (hidden dropout 0.1) with
+    RecomputeOptimizer over its Adam, the 12 post-FFN layer_norm outputs
+    as checkpoints, from train's initial parameters and batch: 2 warm-up
+    and 8 timed steps, after the same of the plain program."""
+    cfg = bert.base_config(attn_dropout=0.0)
+    L = cfg.num_layers
+    # the plain program first, timed in this phase too: the two step
+    # times are compared within one phase (host time drifts across them)
+    pmain, pstartup, pout = _build_pretrain(cfg)
+    pexe, pscope = _bert_state(pmain, pstartup, train["init"])
+    _pgot, plain_ms = _train_steps(pexe, pmain, [train["feed"]],
+                                   [pout["loss"]], pscope)
+    del pexe, pscope, _pgot
+    main, startup, out = _build_pretrain(cfg, _EncoderCheckpoints(
+        fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR), L))
+    ops = [op.type for op in main.global_block().ops]
+    exe, scope = _bert_state(main, startup, train["init"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    got, step_ms = _train_steps(exe, main, [train["feed"]], [out["loss"]],
+                                scope)
+    launches = _launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    losses = [float(g[0].item()) for g in got]
+    final = _host_params(main, scope)
+    steps = len(got)
+    rec, _prof = _profile_record(exe, main, train["feed"], [out["loss"]],
+                                 scope)
+    del exe, scope, _prof
+    torch.cuda.empty_cache()
+    held, spread = _held_to_train(train, losses, final)
+    per_step = {n: c / steps for n, c in launches.items()}
+    checks = {
+        "one_recompute_op_a_layer": ops.count("recompute") == L and
+        ops.count("recompute_grad") == L,
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "k2_24_per_step": launches["flash_attention_fwd"] == 2 * L * steps,
+        "k3_k4_12_per_step": all(launches[n] == L * steps for n in (
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
+        "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+        "matches_train": held in ("bit_equal", "spread"),
+        "peak_below_train": peak_mb < train["peak_mb"],
+    }
+    emit(phase="bert_recompute", card=_card(), steps=steps, losses=losses,
+         ms_per_step=step_ms, train_ms_per_step=train["ms_per_step"],
+         ratio_to_train=step_ms / train["ms_per_step"],
+         plain_ms_per_step_same_phase=plain_ms,
+         ratio_to_plain_same_phase=step_ms / plain_ms,
+         peak_device_mb=peak_mb, train_peak_device_mb=train["peak_mb"],
+         allocated_before_mb=base_mb,
+         train_allocated_before_mb=train["base_mb"],
+         launches=launches, launches_per_step=per_step, held=held,
+         spread=spread, profile=rec, checks=checks)
+    _fail_unless("bert_recompute", checks)
+    return launches
+
+
+def _gm_acc_names(main):
+    """{parameter: its *_gm_acc accumulator}: the ``elementwise_add`` that
+    adds the parameter's gradient into the accumulator in place."""
+    grad_of = {g: p for p, g in main._grad_name_map.items()}
+    out = {}
+    for op in main.global_block().ops:
+        if op.type == "elementwise_add" and "_gm_acc" in op.input("X")[0] \
+                and op.input("X") == op.output("Out"):
+            out[grad_of[op.input("Y")[0]]] = op.input("X")[0]
+    return out
+
+
+def _bert_gradient_merge(train):
+    """bert_gradient_merge: BERT-base with all dropout off through
+    GradientMergeOptimizer(Adam, k_steps=GM_K) from phase train's initial
+    parameters, train's 32 rows fed as GM_K micro-batches of GM_ROWS in
+    turn, GM_STEPS micro-steps (two applies); then two more profiled
+    micro-steps, a non-apply and an apply one (after two unprofiled)."""
+    cfg = bert.base_config(attn_dropout=0.0, hidden_dropout=0.0)
+    L = cfg.num_layers
+    main, startup, out = _build_pretrain(cfg, fluid.optimizer
+                                         .GradientMergeOptimizer(
+                                             fluid.optimizer.AdamOptimizer(
+                                                 learning_rate=TRAIN_LR),
+                                             k_steps=GM_K))
+    params = [p.name for p in main.global_block().all_parameters()]
+    accs = _gm_acc_names(main)
+    grads = [main._grad_name_map[n] for n in params]
+    micro = [_rank_feed(train["feed"], i, GM_ROWS) for i in range(GM_K)]
+    exe, scope = _bert_state(main, startup, train["init"])
+    applied = {n: scope.find_var(n).clone() for n in params}
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+    losses, step_ms, step_launches, unchanged = [], [], [], []
+    syncs0 = fluid.profiler.host_sync_count("conditional_block")
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    for s in range(GM_STEPS):
+        apply = (s + 1) % GM_K == 0
+        last_of_first = s == GM_K - 1
+        if last_of_first:
+            acc3 = {n: scope.find_var(accs[n]).clone() for n in params}
+        before = _launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(main, feed=micro[s % GM_K], fetch_list=[out["loss"]] +
+                      (grads if last_of_first else []), scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = _launches()
+        step_launches.append({n: after[n] - before[n] for n in after})
+        losses.append(float(got[0].reshape(-1)[0].item()))
+        if last_of_first:
+            g4 = dict(zip(params, got[1:]))
+        cur = {n: scope.find_var(n) for n in params}
+        if apply:
+            applied = {n: cur[n].clone() for n in params}
+            if last_of_first:
+                first_apply = {n: cur[n].detach().double().cpu()
+                               for n in params}
+        else:
+            unchanged.append(all(torch.equal(cur[n], applied[n])
+                                 for n in params))
+    launches = _launches()
+    syncs = fluid.profiler.host_sync_count("conditional_block") - syncs0
+    # two more micro-steps profiled: a non-apply one, then an apply one
+    prof = {}
+    for s in range(GM_STEPS, GM_STEPS + GM_K):
+        if s % GM_K in (0, GM_K - 1):
+            rec, _p = _profile_record(exe, main, micro[s % GM_K],
+                                      [out["loss"]], scope)
+            prof["apply" if s % GM_K == GM_K - 1 else "non_apply"] = rec
+            del _p
+        else:
+            exe.run(main, feed=micro[s % GM_K], fetch_list=[out["loss"]],
+                    scope=scope, return_numpy=False)
+    # the averaged accumulation the first apply used, (acc after GM_K - 1
+    # micro-steps + the last micro-batch's gradient) / GM_K, against the
+    # gradient of the 32 rows at the same (unchanged) weights
+    avg = {n: (acc3[n].double() + g4[n].double()) / GM_K for n in params}
+    del acc3, g4, applied, cur, exe, scope
+    torch.cuda.empty_cache()
+    gmain, gstartup, gout = _build_pretrain(cfg, _GradsOnly())
+    gexe, gscope = _bert_state(gmain, gstartup, train["init"])
+    full = dict(zip(params, gexe.run(
+        gmain, feed=train["feed"], fetch_list=[gmain._grad_name_map[n]
+                                               for n in params],
+        scope=gscope, return_numpy=False)))
+    del gexe, gscope
+    num = sum(float((avg[n] - full[n].double()).norm() ** 2) for n in params)
+    den = sum(float(full[n].double().norm() ** 2) for n in params)
+    acc_l2 = math.sqrt(num / den)
+    per_param = {n: float((avg[n] - full[n].double()).norm() /
+                          max(float(full[n].double().norm()), 1e-30))
+                 for n in params}
+    worst = sorted(per_param, key=lambda n: -per_param[n])[:3]
+    avg = {n: t.cpu() for n, t in avg.items()}
+    del full
+    torch.cuda.empty_cache()
+    # one plain Adam step on the 32 rows, twice (its spread), with its
+    # gradients; each side's parameters less its own first Adam step
+    pmain, pstartup, pout = _build_pretrain(cfg)
+    plain = []
+    for _ in range(2):
+        pexe, pscope = _bert_state(pmain, pstartup, train["init"])
+        got = pexe.run(pmain, feed=train["feed"],
+                       fetch_list=[pmain._grad_name_map[n] for n in params],
+                       scope=pscope, return_numpy=False)
+        plain.append(({n: pscope.find_var(n).detach().double().cpu()
+                       for n in params},
+                      {n: g.detach().double().cpu()
+                       for n, g in zip(params, got)}))
+        del pexe, pscope, got
+        torch.cuda.empty_cache()
+    rate = {n: TRAIN_LR for n in params}
+    step_gm = _step1_update(pmain, rate, avg)
+    step_plain = _step1_update(pmain, rate, plain[0][1])
+    init = {n: train["init"][n].double() for n in params}
+    spread = max(float((plain[0][0][n] - plain[1][0][n]).abs().max())
+                 for n in params)
+    bound = max(2 * spread, GM_PARAM_FLOOR)
+    resid = {n: float(((first_apply[n] - init[n] - step_gm[n]) -
+                       (plain[0][0][n] - init[n] - step_plain[n]))
+                      .abs().max()) for n in params}
+    raw = max(float((first_apply[n] - plain[0][0][n]).abs().max())
+              for n in params)
+    apply_ms = [step_ms[s] for s in range(GM_STEPS) if (s + 1) % GM_K == 0]
+    plain_ms = [step_ms[s] for s in range(1, GM_STEPS)
+                if (s + 1) % GM_K != 0]
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "params_unchanged_between_applies": len(unchanged) ==
+        GM_STEPS - 2 and all(unchanged),
+        "averaged_accumulation_matches_32_rows": acc_l2 <= GM_ACC_L2,
+        "apply_matches_one_plain_step": max(resid.values()) <= bound,
+        "k2_k3_k4_12_per_micro_step": all(
+            sl[k] == L for sl in step_launches for k in kernels),
+        "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+        "one_predicate_sync_per_micro_step": syncs == GM_STEPS,
+    }
+    emit(phase="bert_gradient_merge", card=_card(), k_steps=GM_K,
+         micro_rows=GM_ROWS, micro_steps=GM_STEPS, losses=losses,
+         ms_per_micro_step=step_ms, non_apply_ms_mean=float(
+             np.mean(plain_ms)), apply_ms_mean=float(np.mean(apply_ms)),
+         train_ms_per_step=train["ms_per_step"],
+         acc_rel_l2=acc_l2, acc_rel_l2_worst={n: per_param[n]
+                                              for n in worst},
+         param_residual_max=max(resid.values()), param_bound=bound,
+         plain_step_spread=spread, param_max_abs_diff_raw=raw,
+         predicate_syncs=syncs, launches=launches,
+         launches_per_micro_step=step_launches[0], profile=prof,
+         checks=checks)
+    _fail_unless("bert_gradient_merge", checks)
+    return launches
+
+
+def _amp_closed_form(n_steps, bad_step, init, incr_every, decr_every,
+                     incr=2.0, decr=0.8):
+    """The loss scale after each step by update_loss_scaling's rule in
+    float32: good steps counted to incr_every multiply by incr, bad ones
+    to decr_every by decr, never below 1."""
+    scale, good, bad, out = np.float32(init), 0, 0, []
+    for s in range(1, n_steps + 1):
+        good, bad = (0, bad + 1) if s == bad_step else (good + 1, 0)
+        if good >= incr_every:
+            scale, good = np.float32(scale * np.float32(incr)), 0
+        if bad >= decr_every:
+            scale, bad = np.float32(scale * np.float32(decr)), 0
+        scale = max(scale, np.float32(1.0))
+        out.append(float(scale))
+    return out
+
+
+def _bert_amp_dynamic(train):
+    """bert_amp_dynamic: phase train's BERT-base in pure bf16 with
+    dynamic loss scaling over Adam (AMP_SCALING), from train's initial
+    parameters and batch, AMP_STEPS steps, step AMP_BAD_STEP fed an
+    input_mask holding one inf; then one profiled step beside the same
+    program without loss scaling, for the launches the gate adds."""
+    cfg = bert.base_config(attn_dropout=0.0)
+    L = cfg.num_layers
+    opt = fluid.contrib.mixed_precision.decorate(
+        fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR),
+        use_pure_bf16=True, **AMP_SCALING)
+    main, startup, out = _build_pretrain(cfg, opt)
+    scale = opt.get_loss_scaling().name
+    ops = main.global_block().ops
+    gated = [op.output("Out")[0] for op in ops if op.type == "where"]
+    feed = train["feed"]
+    bad = dict(feed)
+    bad["input_mask"] = feed["input_mask"].copy()
+    bad["input_mask"][0, 3, 0] = np.inf
+    exe, scope = _bert_state(main, startup, train["init"])
+    losses, scales, zero, step_launches = [], [], None, []
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    for s in range(1, AMP_STEPS + 1):
+        before = _launches()
+        got = exe.run(main, feed=bad if s == AMP_BAD_STEP else feed,
+                      fetch_list=[out["loss"]] +
+                      (gated if s == AMP_BAD_STEP else []),
+                      scope=scope, return_numpy=False)
+        losses.append(float(got[0].reshape(-1)[0].item()))
+        if s == AMP_BAD_STEP:
+            zero = all(bool((g == 0).all()) for g in got[1:])
+        scales.append(float(scope.find_var(scale).reshape(-1)[0].item()))
+        after = _launches()
+        step_launches.append({n: after[n] - before[n] for n in after})
+    launches = _launches()
+    want = _amp_closed_form(AMP_STEPS, AMP_BAD_STEP,
+                            AMP_SCALING["init_loss_scaling"],
+                            AMP_SCALING["incr_every_n_steps"],
+                            AMP_SCALING["decr_every_n_nan_or_inf"])
+    rec, _p = _profile_record(exe, main, feed, [out["loss"]], scope)
+    del exe, scope, _p
+    torch.cuda.empty_cache()
+    # the same program without loss scaling: what the gate adds
+    popt = fluid.contrib.mixed_precision.decorate(
+        fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR),
+        use_pure_bf16=True)
+    pmain, pstartup, pout = _build_pretrain(cfg, popt)
+    pexe, pscope = _bert_state(pmain, pstartup, train["init"])
+    for _ in range(2):
+        pexe.run(pmain, feed=feed, fetch_list=[pout["loss"]], scope=pscope,
+                 return_numpy=False)
+    prec, _p = _profile_record(pexe, pmain, feed, [pout["loss"]], pscope)
+    del pexe, pscope, _p
+    torch.cuda.empty_cache()
+    kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+    gate_ops = len(ops) - len(pmain.global_block().ops)
+    checks = {
+        "scale_is_closed_form": scales == want,
+        "bad_step_gradients_zero": bool(zero),
+        "bad_step_loss_not_finite": not np.isfinite(
+            losses[AMP_BAD_STEP - 1]),
+        "later_losses_finite": bool(np.isfinite(
+            losses[AMP_BAD_STEP:]).all()),
+        "earlier_losses_finite": bool(np.isfinite(
+            losses[:AMP_BAD_STEP - 1]).all()),
+        "k2_k3_k4_12_per_step": all(sl[k] == L for sl in step_launches
+                                    for k in kernels),
+        "k5_0": launches["flash_attention_bwd_dbias"] == 0,
+    }
+    emit(phase="bert_amp_dynamic", card=_card(), steps=AMP_STEPS,
+         bad_step=AMP_BAD_STEP, losses=losses, loss_scale=scales,
+         loss_scale_closed_form=want, gated_gradients=len(gated),
+         gate_ops=gate_ops, launches=launches,
+         profile=rec, profile_without_scaling=prec,
+         gate_launch_calls=rec["launch_calls"] - prec["launch_calls"],
+         gate_wall_ms=rec["wall_ms"] - prec["wall_ms"], checks=checks)
+    _fail_unless("bert_amp_dynamic", checks)
+    return launches
+
+
+def phase_train_surface(train):
+    """BERT-base through the rest of the training surface, each part
+    from phase train's initial parameters and batch: recompute
+    (bert_recompute), gradient merge (bert_gradient_merge) and dynamic
+    loss scaling (bert_amp_dynamic).  {path: its kernel launches}."""
+    t0 = time.perf_counter()
+    paths = {"bert_recompute": _bert_recompute(train),
+             "bert_gradient_merge": _bert_gradient_merge(train),
+             "bert_amp_dynamic": _bert_amp_dynamic(train)}
+    emit(phase="train_surface", seconds=time.perf_counter() - t0)
+    return paths
+
+
+class _AfterMinimize:
+    """An optimizer stand-in for ``_dfm_program``: ``inner``'s minimize,
+    then ``then()`` in the same program build (EMA's ``update``,
+    ModelAverage's construction); ``handle`` keeps what ``then`` gives."""
+
+    def __init__(self, inner, then):
+        self.inner, self.then, self.handle = inner, then, None
+
+    def minimize(self, loss):
+        got = self.inner.minimize(loss)
+        self.handle = self.then()
+        return got
+
+
+class _ProximalOptimizer(fluid.optimizer.Optimizer):
+    """A program built by hand (no optimizer class of either package
+    appends these ops): ``proximal_adagrad`` on DeepFM's two tables (a
+    moment started at 0.1: a row no example looks up has a zero
+    gradient, and 0 / sqrt(0) is NaN) and ``proximal_gd`` on the rest,
+    both with l1 and l2 above 0."""
+
+    def __init__(self, learning_rate, l1, l2):
+        super().__init__(learning_rate)
+        self._l1, self._l2 = l1, l2
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            if p.name.startswith("fm_"):
+                self._add_accumulator("moment", p, fill_value=0.1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        ins = {"Param": [param], "Grad": [grad],
+               "LearningRate": [self._create_param_lr(param_and_grad)]}
+        outs = {"ParamOut": [param]}
+        kind = "proximal_gd"
+        if param.name.startswith("fm_"):
+            m = self._get_accumulator("moment", param)
+            ins["Moment"], outs["MomentOut"] = [m], [m]
+            kind = "proximal_adagrad"
+        return block.append_op(kind, inputs=ins, outputs=outs,
+                               attrs={"l1": self._l1, "l2": self._l2})
+
+
+def _wrapper_runs():
+    """name -> a maker of the optimizer ``_dfm_program`` minimizes."""
+    adam = lambda: fluid.optimizer.AdamOptimizer(DFM_LR)   # noqa: E731
+
+    def ema():
+        def then():
+            e = fluid.optimizer.ExponentialMovingAverage(WRAP_DECAY)
+            e.update()
+            return e
+        return _AfterMinimize(adam(), then)
+    return {
+        "ema": ema,
+        "model_average": lambda: _AfterMinimize(
+            adam(), lambda: fluid.optimizer.ModelAverage(
+                0.15, max_average_window=2)),
+        "lookahead": lambda: fluid.optimizer.LookaheadOptimizer(
+            adam(), alpha=0.5, k=2),
+        "dgc": lambda: fluid.optimizer.DGCMomentumOptimizer(
+            0.05, momentum=0.9, rampup_begin_step=1),
+        "proximal": lambda: _ProximalOptimizer(0.05, l1=1e-4, l2=1e-4),
+    }
+
+
+def _closed_err(got, want):
+    """max|got − want| over the largest |want|, over a {name: tensor}."""
+    return max(float((got[n].double().cpu() - want[n]).abs().max()) /
+               max(float(want[n].abs().max()), 1e-30) for n in want)
+
+
+def _wrapper_trace(name, exe, main, loss, init, feeds, handle):
+    """DFM_CHECK_STEPS card steps from ``init`` keeping the scope: EMA's
+    and ModelAverage's ``apply`` against their closed forms and
+    ``restore`` bit-equal to the trained values (ModelAverage applied
+    after step 2, the window's mean, and after step 3, where the reset
+    leaves the last step alone); Lookahead's sync steps; DGC's cleared
+    residual entries; the proximal tables' exact zeros."""
+    scope = _state_copy(main, init, exe.device)
+    params = [p.name for p in main.global_block().all_parameters()]
+    small = [n for n in params if scope.find_var(n).numel() <= 10 ** 6]
+    hist, report, checks = [], {}, {}
+
+    def swap_check(tag, want):
+        trained = {n: scope.find_var(n).clone() for n in params}
+        with fluid.scope_guard(scope):
+            with handle.apply(exe):
+                got = {n: scope.find_var(n).clone() for n in want}
+        err = _closed_err(got, want)
+        report[tag + "_closed_err"] = err
+        checks[tag + "_closed_form"] = err <= WRAP_CLOSED_RTOL
+        checks[tag + "_restore_bit_equal"] = all(
+            torch.equal(scope.find_var(n), trained[n]) for n in params)
+
+    synced = []
+    for s in range(1, DFM_CHECK_STEPS + 1):
+        exe.run(main, feed=feeds[(s - 1) % len(feeds)], fetch_list=[loss],
+                scope=scope)
+        hist.append({n: scope.find_var(n).double().cpu() for n in small})
+        if name == "lookahead":
+            synced.append(all(torch.equal(scope.find_var(n), scope.find_var(
+                n + "_la_slow")) for n in params))
+        if name == "model_average" and s == 2:
+            swap_check("apply_step2", {n: (hist[0][n] + hist[1][n]) / 2
+                                       for n in small})
+        if name == "dgc" and s == 1:
+            checks["u_zero_before_rampup"] = all(
+                not scope.find_var(n + "_dgc_u_0").any() for n in params)
+    if name == "ema":
+        shadow = {n: torch.zeros_like(hist[0][n]) for n in small}
+        for h in hist:
+            shadow = {n: WRAP_DECAY * shadow[n] + (1 - WRAP_DECAY) * h[n]
+                      for n in small}
+        corr = 1 - WRAP_DECAY ** len(hist)
+        swap_check("apply", {n: shadow[n] / corr for n in small})
+    if name == "model_average":
+        checks["count_reset_to_1"] = float(scope.find_var(
+            handle._count_name).reshape(-1)[0].item()) == 1.0
+        swap_check("apply_step3", hist[-1])
+    if name == "lookahead":
+        report["synced_after_step"] = synced
+        checks["syncs_on_step_2_only"] = synced == [False, True, False]
+    if name == "dgc":
+        v = scope.find_var("fc_0.w_0_dgc_v_0")
+        report["fc_0_v_cleared_share"] = float((v == 0).float().mean())
+        checks["residuals_cleared_after_rampup"] = \
+            report["fc_0_v_cleared_share"] > 0
+    if name == "proximal":
+        emb = scope.find_var("fm_emb")
+        report["fm_emb_zero_share"] = float((emb == 0).float().mean())
+    return report, checks
+
+
+def phase_wrappers():
+    """DeepFM at base_config and batch DFM_OPT_BATCH through each wrapper
+    (ExponentialMovingAverage and ModelAverage(max_average_window=2)
+    after Adam, LookaheadOptimizer(Adam, k=2), DGCMomentumOptimizer in a
+    world of one, rampup from step 1) and a hand-built proximal_gd /
+    proximal_adagrad program, each DFM_CHECK_STEPS steps held as
+    deepfm_optimizers holds its runs (card against the port's CPU path),
+    then ``_wrapper_trace``'s checks; no port kernel may launch.  The
+    launches of the whole phase (all 0)."""
+    t0 = time.perf_counter()
+    feeds = _dfm_feeds(_dfm_config(), DFM_OPT_BATCH)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    checks = {}
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    for name, make in _wrapper_runs().items():
+        main, startup, loss, opt = _dfm_program(make)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        report, ok, _card_run = _dfm_card_vs_cpu(exe, main, loss, scope,
+                                                 feeds)
+        trace, tok = _wrapper_trace(name, exe, main, loss, scope, feeds,
+                                    getattr(opt, "handle", None))
+        ok.update(tok)
+        kinds = [op.type for b in main.blocks for op in b.ops]
+        emit(phase="wrappers", run=name, batch=DFM_OPT_BATCH,
+             steps=DFM_CHECK_STEPS, ops=len(kinds),
+             conditional_blocks=kinds.count("conditional_block"),
+             checks=ok, **report, **trace)
+        checks.update({"%s_%s" % (name, k): v for k, v in ok.items()})
+        del scope
+    launches = _launches()
+    checks["no_port_kernel"] = not any(launches.values())
+    emit(phase="wrappers_total", seconds=time.perf_counter() - t0,
+         launches=launches, checks={"no_port_kernel":
+                                    checks["no_port_kernel"]})
+    _fail_unless("wrappers", checks)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -5158,6 +5753,7 @@ def main():
     by_path["dp_wus"], by_path["dp_wus_bert_int8"] = phase_dp_wus(train)
     by_path["dp_two_ranks_sharded"], by_path["dp_two_ranks_int8"] = \
         phase_dp_two_ranks_sharded(train)
+    by_path.update(phase_train_surface(train))
     del train
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
@@ -5170,6 +5766,7 @@ def main():
     by_path["lenet_train"] = phase_lenet_train()
     by_path["deepfm_train"] = phase_deepfm_train()
     phase_deepfm_optimizers()
+    by_path["wrappers"] = phase_wrappers()
     phase_lookup_grad()
     by_path["ckpt_resume"] = phase_ckpt_resume()
     by_path["export_serve"] = phase_export_serve()

@@ -4,7 +4,9 @@ Exports only what the port has ported: the layers that BERT, ResNet,
 LeNet, Transformer NMT and DeepFM training call, the unary layers of
 ``ops.py``, the clips, the learning-rate schedules, the in-program
 readers of ``io.py``, and the book models' losses, sequence, RNN, CRF
-and beam-search layers with ``StaticRNN``/``DynamicRNN``.
+and beam-search layers with ``StaticRNN``/``DynamicRNN``, and the
+comparison, logical and modulo layers with ``increment`` and
+``isfinite``.
 """
 
 from . import io
@@ -24,8 +26,10 @@ from .nn import (fc, embedding, layer_norm, dropout, softmax,  # noqa: F401
                  matmul, scale, reshape, transpose, unsqueeze, slice,
                  gather, mean, softmax_with_cross_entropy, conv2d,
                  pool2d, batch_norm, topk, elementwise_add,
-                 elementwise_mul, elementwise_div, elementwise_max,
-                 elementwise_min, elementwise_pow,
+                 elementwise_sub, elementwise_mul, elementwise_div,
+                 elementwise_max, elementwise_min, elementwise_pow,
+                 elementwise_mod, elementwise_floordiv, logical_and,
+                 logical_or, logical_xor, logical_not,
                  reduce_sum, reduce_mean, one_hot, label_smooth,
                  sigmoid_cross_entropy_with_logits, clip, clip_by_norm,
                  cross_entropy, square_error_cost, squeeze, stack,
@@ -34,13 +38,15 @@ from .ops import *                                           # noqa: F401,F403
 from .metric_op import accuracy                              # noqa: F401
 from .tensor import (assign, create_parameter, fill_constant,  # noqa: F401
                      cast, concat, sums, fill_constant_batch_size_like,
-                     zeros_like, range)
+                     zeros_like, range, isfinite)
 from .rnn import (fused_attention, dynamic_lstm,  # noqa: F401
                   linear_chain_crf, crf_decoding, cos_sim, nce,
                   beam_search, beam_search_decode)
 from .sequence import (sequence_mask, sequence_pool,  # noqa: F401
                        sequence_first_step, sequence_last_step,
                        sequence_conv)
-from .control_flow import (less_than, BlockGuard,  # noqa: F401
-                           StaticRNN, DynamicRNN)
+from .control_flow import (increment, less_than,  # noqa: F401
+                           less_equal, greater_than, greater_equal,
+                           equal, not_equal, BlockGuard, StaticRNN,
+                           DynamicRNN)
 from .learning_rate_scheduler import *                       # noqa: F401,F403

@@ -1,6 +1,7 @@
 """Control-flow layers (counterpart paddle_tpu/fluid/layers/control_flow.py;
-reference ``python/paddle/fluid/layers/control_flow.py``): ``less_than``,
-``BlockGuard``, ``StaticRNN`` and ``DynamicRNN``.
+reference ``python/paddle/fluid/layers/control_flow.py``): ``increment``,
+the comparisons, ``BlockGuard``, ``ConditionalBlock``, ``StaticRNN`` and
+``DynamicRNN``.
 
 The builders open a sub-block of the main program, let user code append
 the step's ops into it, and on exit emit one ``recurrent`` op whose
@@ -11,8 +12,10 @@ analysis, the tape and ``append_backward`` see it as an input.
 The reference's LoD DynamicRNN (lod_rank_table, reorder by length) is
 replaced, as in the JAX package, by padded ``[batch, time, ...]`` inputs
 and a lengths mask: a step past a row's length leaves its memory
-unchanged and emits zeros.  ``While``, ``Switch``, ``IfElse``, ``cond``
-and the tensor arrays are ROADMAP item 13c.
+unchanged and emits zeros.  ``ConditionalBlock`` emits one
+``conditional_block`` op whose ``Out`` is every name the block writes
+that an enclosing block declares.  ``While``, ``Switch``, ``IfElse``,
+``cond`` and the tensor arrays are ROADMAP item 13c.
 """
 
 import contextlib
@@ -21,18 +24,54 @@ from ..framework import default_main_program
 from ..layer_helper import LayerHelper
 from . import tensor as tensor_layers
 
-__all__ = ["less_than", "BlockGuard", "StaticRNN", "DynamicRNN"]
+__all__ = ["increment", "less_than", "less_equal", "greater_than",
+           "greater_equal", "equal", "not_equal", "BlockGuard",
+           "StaticRNN", "DynamicRNN"]
 
 
-def less_than(x, y, force_cpu=None, cond=None):
-    """``x < y`` elementwise, a bool Variable (JAX control_flow.py:54)."""
-    helper = LayerHelper("less_than")
+def increment(x, value=1.0, in_place=True):
+    """``x + value`` (JAX control_flow.py:36), into ``x`` itself unless
+    ``in_place`` is false."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"step": float(value)})
+    return out
+
+
+def _compare(op_type, x, y, cond=None):
+    """``x <op> y`` elementwise, a bool Variable (JAX control_flow.py:44)."""
+    helper = LayerHelper(op_type)
     if cond is None:
         cond = helper.create_variable_for_type_inference("bool")
         cond.stop_gradient = True
-    helper.append_op("less_than", inputs={"X": [x], "Y": [y]},
+    helper.append_op(op_type, inputs={"X": [x], "Y": [y]},
                      outputs={"Out": [cond]})
     return cond
+
+
+def less_than(x, y, force_cpu=None, cond=None):
+    return _compare("less_than", x, y, cond)
+
+
+def less_equal(x, y, cond=None):
+    return _compare("less_equal", x, y, cond)
+
+
+def greater_than(x, y, cond=None):
+    return _compare("greater_than", x, y, cond)
+
+
+def greater_equal(x, y, cond=None):
+    return _compare("greater_equal", x, y, cond)
+
+
+def equal(x, y, cond=None):
+    return _compare("equal", x, y, cond)
+
+
+def not_equal(x, y, cond=None):
+    return _compare("not_equal", x, y, cond)
 
 
 def _external_reads(sub_block, blocks):
@@ -60,6 +99,37 @@ class BlockGuard:
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.main_program._rollback()
         return False
+
+
+class ConditionalBlock:
+    """Builder of one ``conditional_block`` op (reference
+    ConditionalBlock; JAX control_flow.py:257): ``with cb.block():``
+    fills a sub-block, whose external reads become the op's ``Input``
+    and whose writes of names an enclosing block declares its ``Out``
+    (block-local temporaries stay inside)."""
+
+    def __init__(self, inputs, is_scalar_condition=False, name=None):
+        self.inputs = inputs
+        self.helper = LayerHelper("conditional_block", name=name)
+
+    @contextlib.contextmanager
+    def block(self):
+        from ..ops.control_flow_ops import _block_writes
+        prog = self.helper.main_program
+        parent = prog.current_block()
+        with BlockGuard(prog) as sub:
+            yield
+        cond_names = {v.name for v in self.inputs}
+        reads = [n for n in _external_reads(sub, prog.blocks)
+                 if n not in cond_names]
+        writes = [n for n in _block_writes(sub)
+                  if n not in sub.vars
+                  and parent._find_var_recursive(n) is not None]
+        parent.append_op(
+            "conditional_block",
+            inputs={"Cond": [v.name for v in self.inputs], "Input": reads},
+            outputs={"Out": writes, "Scope": []},
+            attrs={"sub_block": sub.idx, "is_scalar_condition": True})
 
 
 class StaticRNNMemoryLink:

@@ -468,6 +468,10 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_mul", x, y, axis, act, name)
 
@@ -486,6 +490,42 @@ def elementwise_min(x, y, axis=-1, act=None, name=None):
 
 def elementwise_pow(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    """``x mod y`` with the divisor's sign (JAX nn_extras2.py:619)."""
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
+
+
+def _logical(op_type, inputs, x):
+    """A bool Variable shaped like ``x`` (JAX nn_extras2.py:114)."""
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference("bool")
+    if x.shape:
+        out.shape = x.shape
+    helper.append_op(op_type, inputs=inputs, outputs={"Out": [out]},
+                     attrs={})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical("logical_and", {"X": [x], "Y": [y]}, x)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical("logical_or", {"X": [x], "Y": [y]}, x)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical("logical_xor", {"X": [x], "Y": [y]}, x)
+
+
+def logical_not(x, out=None, name=None):
+    return _logical("logical_not", {"X": [x]}, x)
 
 
 def _reduce(op_type, input, dim=None, keep_dim=False, name=None):

@@ -109,6 +109,15 @@ def fill_constant_batch_size_like(input, shape, dtype, value,
     return out
 
 
+def isfinite(x):
+    """One ``(1,)`` bool: every entry of ``x`` finite (JAX tensor.py:211)."""
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op("isfinite", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
 def zeros_like(x, out=None):
     helper = LayerHelper("zeros_like")
     if out is None:

@@ -284,6 +284,11 @@ def plan_tape(block):
         if not op.type.endswith("_grad") or \
                 op.attr("__fwd_outputs__") is None:
             continue
+        if op.type == "conditional_block_grad":
+            raise NotImplementedError(
+                "conditional_block_grad is not ported yet (ROADMAP.md, "
+                "port queue 1: item 13c): no program of the ported "
+                "optimizers differentiates through a branch")
         fwd_def = get_op_def(op.type[:-len("_grad")])
         names = wants.setdefault(tape_key(op.attr("__fwd_outputs__")), [])
         for _, _, name in _grad_targets(op, fwd_def):

@@ -1,6 +1,7 @@
-"""The ``recurrent`` op and the sub-block traversals (counterpart
-``paddle_tpu/fluid/ops/control_flow_ops.py``; ``while``,
-``conditional_block`` and the tensor arrays are ROADMAP item 13c).
+"""The ``recurrent``, ``conditional_block`` and ``recompute`` ops and
+the sub-block traversals (counterpart ``paddle_tpu/fluid/ops/
+control_flow_ops.py``; ``while``, ``cond`` and the tensor arrays are
+ROADMAP item 13c).
 
 A ``recurrent`` op runs its step block once per time step: the JAX rule
 is one ``lax.scan``, the port's a Python loop that runs the step
@@ -11,10 +12,21 @@ leaves, the loop runs under autograd with no inner op on the tape, and
 float ``Params`` back through the unrolled steps.  ``StaticRNN``
 declares every outer read of the step block as ``Params``, so the step
 environment is built from the op's own inputs.
+
+A ``conditional_block`` runs its block when its predicate holds.  The
+JAX rule is one ``lax.cond``; eager torch reads the predicate on the
+host, one synchronisation per run of the op on the card (recorded as
+the ``conditional_block`` host sync), and runs the block only when it
+is taken.  A ``recompute`` op runs its span of forward ops under
+non-reentrant ``torch.utils.checkpoint``: the span keeps no
+intermediate, and its grad op's ``torch.autograd.grad`` runs the span
+again to rebuild them.
 """
 
 import torch
+import torch.utils.checkpoint
 
+from .. import profiler
 from ..framework import op_bound_var_names, op_sub_block_indices
 from ..registry import register_op
 
@@ -92,3 +104,89 @@ def _recurrent(ctx, op):
         env[n] = torch.stack(y)
     for n, v in zip(op.output("FinalStates"), carry):
         env[n] = v
+
+
+def _read_predicate(pred):
+    """``bool(pred)``: a read-back, counted as the ``conditional_block``
+    host sync, when ``pred`` lies on a device other than the CPU."""
+    if isinstance(pred, torch.Tensor) and pred.device.type != "cpu":
+        profiler.record_host_sync("conditional_block")
+    return bool(pred)
+
+
+@register_op("conditional_block", nondiff_inputs=("Cond",))
+def _conditional_block(ctx, op):
+    """control_flow_ops.py:256: run the block when every Cond holds
+    (their conjunction, read on the host); otherwise each Out keeps its
+    value, or is zeros where it had none.  Every name the block writes
+    that its parent knows is an Out, so the persistables it updates (an
+    optimizer's parameters, moments and beta powers) reach the scope."""
+    from ..lowering import run_block
+    state = ctx.state
+    sub = state.blocks[ctx.attr("sub_block")]
+    env = ctx.env
+    out_names = [n for n in op.output("Out") if n]
+    conds = [ctx.env[n].reshape(()).to(torch.bool)
+             for n in op.input("Cond")]
+    if _read_predicate(torch.stack(conds).all() if conds else True):
+        inner = dict(env)
+        run_block(sub, inner, state)
+        for n in out_names:
+            env[n] = inner[n]
+        return
+    missing = [n for n in out_names if n not in env]
+    if missing:
+        # zeros shaped as one run of the block, on a copy of the
+        # environment, gives them (JAX takes the branch's eval_shape)
+        inner = dict(env)
+        run_block(sub, inner, state)
+        for n in missing:
+            env[n] = torch.zeros_like(inner[n])
+
+
+@register_op("recompute")
+def _recompute(ctx, op):
+    """control_flow_ops.py:350: the forward span in the sub-block, run on
+    the inputs ``X`` (bound to ``input_vars``), exposing ``output_vars``.
+    Taped (its grad op in the block, so autograd is on), the span runs
+    under ``torch.utils.checkpoint(use_reentrant=False,
+    preserve_rng_state=False)``: it saves no intermediate, and the grad
+    op's ``torch.autograd.grad`` replays it to rebuild them.  The replay
+    is the same computation: a random op's generator is built afresh
+    from (program seed, op seed, step) on each call
+    (``LowerCtx.generator``), so dropout draws the same mask, and every
+    rule writes into the span's own environment, a new dict per call,
+    so a state update (batch norm's running statistics) reaches the
+    outputs once, from the forward.  The names in
+    ``stop_gradient_vars`` are detached where they enter or are written,
+    as ``append_backward`` cuts the gradient there without recompute."""
+    from ..lowering import dispatch
+    state = ctx.state
+    sub = state.blocks[ctx.attr("sub_block")]
+    in_names = ctx.attr("input_vars")
+    out_names = ctx.attr("output_vars")
+    stop = set(ctx.attr("stop_gradient_vars", []) or [])
+    xs = [ctx.env[n] for n in op.input("X")]
+
+    def cut(env, names):
+        for n in names:
+            if n in stop and n in env:
+                env[n] = env[n].detach()
+
+    def segment(*vals):
+        inner = dict(zip(in_names, vals))
+        cut(inner, in_names)
+        for sub_op in sub.ops:
+            dispatch(sub_op, inner, state, sub)
+            for names in sub_op.outputs.values():
+                cut(inner, names)
+        return tuple(inner[n] for n in out_names)
+
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        outs = torch.utils.checkpoint.checkpoint(
+            segment, *xs, use_reentrant=False, preserve_rng_state=False)
+    else:
+        outs = segment(*xs)
+    for n, v in zip(op.output("Out"), outs):
+        ctx.env[n] = v

@@ -37,10 +37,11 @@ def _binary(fn):
     return lower
 
 
-# the elementwise types of JAX's table (math_ops.py:42) that the ported
-# models, learning-rate schedules and clips use; torch's type promotion
-# (bf16 with float32 gives float32) and true division are jnp's, and
-# torch.maximum/minimum, like jnp's, split the gradient evenly at a tie
+# the elementwise types of JAX's table (math_ops.py:42); torch's type
+# promotion (bf16 with float32 gives float32) and true division are
+# jnp's, and torch.maximum/minimum, like jnp's, split the gradient evenly
+# at a tie.  jnp.mod takes the divisor's sign, as torch.remainder does
+# (torch.fmod takes the dividend's)
 for _name, _fn in [
     ("elementwise_add", torch.add),
     ("elementwise_sub", torch.sub),
@@ -49,6 +50,8 @@ for _name, _fn in [
     ("elementwise_max", torch.maximum),
     ("elementwise_min", torch.minimum),
     ("elementwise_pow", torch.pow),
+    ("elementwise_mod", torch.remainder),
+    ("elementwise_floordiv", torch.floor_divide),
 ]:
     register_op(_name)(_binary(_fn))
 

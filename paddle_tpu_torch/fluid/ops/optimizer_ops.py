@@ -1,7 +1,9 @@
 """Optimizer op lowerings (counterpart ``paddle_tpu/fluid/ops/
 optimizer_ops.py``): ``sgd``, ``momentum``, ``lars_momentum``, ``adam``,
 ``adamax``, ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``,
-``ftrl`` and ``lamb``.
+``ftrl``, ``lamb``, ``dgc_momentum``, ``proximal_gd``,
+``proximal_adagrad`` and ``average_accumulates`` (no optimizer class of
+either package appends the last three; programs built by hand do).
 
 Each rule is the JAX rule's arithmetic in the same order.  The JAX rules
 round every attribute to the parameter's dtype first
@@ -262,13 +264,145 @@ def _lamb(ctx, op):
     ctx.set("Moment2Out", m2n)
 
 
-def _proximal_not_ported(ctx, op):
-    raise NotImplementedError(
-        "%s is not ported yet (ROADMAP.md, port queue 1: 'the proximal "
-        "optimizers')" % op.type)
+@register_op("dgc_momentum", stop_gradient=True)
+def _dgc_momentum(ctx, op):
+    """optimizer_ops.py:213, Deep Gradient Compression momentum in its
+    convergence mode: ``u = m·u + g``, ``v = v + u``; the entries of
+    ``|v|`` at or above the threshold ``sort(|v|)[k]`` (k the sparsity
+    of the rampup schedule times numel, in float32) are sent, summed
+    over the ranks and averaged (``__dp_mean__``), and cleared from u and
+    v; ``p − lr·sent``.  Before ``rampup_begin_step`` it is momentum on
+    the rank-averaged gradient, with u zeroed.  The step is the host's
+    (``ExecState.step``), so only the branch taken runs, with its one
+    all-reduce in a world of more than one rank; the JAX rule computes
+    both and selects.  ``kthvalue`` (k + 1) is the sorted entry at k,
+    ties included, as ``>=`` needs."""
+    from . import collective_ops
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    u = ctx.i("U")
+    v = ctx.i("V")
+    lr = _lr(ctx, p)
+    m = torch.tensor(ctx.attr("momentum", 0.9), dtype=p.dtype)
+    begin = int(ctx.attr("rampup_begin_step", 0))
+    rampup = max(int(ctx.attr("rampup_step", 1)), 1)
+    sched = list(ctx.attr("sparsity", [0.75, 0.9375, 0.984375, 0.996,
+                                       0.999]))
+    step = int(ctx.state.step)
+    w = collective_ops._world(ctx)
+
+    def world_sum(t):
+        d, group, n = w
+        y = collective_ops._payload(t, "fp32")
+        d.all_reduce(y, group=group)
+        collective_ops._count(ctx, "allreduce", "fp32",
+                              2 * y.element_size() * y.numel())
+        return y, torch.tensor(n, dtype=p.dtype)
+
+    if step < begin:
+        g_sync = g
+        if w is not None:
+            g_sync, n = world_sum(g)
+            g_sync = g_sync / n
+        v_mom = m * v + g_sync
+        ctx.set("ParamOut", p - lr * v_mom)
+        ctx.set("UOut", torch.zeros_like(u))
+        ctx.set("VOut", v_mom)
+        return
+    idx = min(max((step - begin) * len(sched) // rampup, 0), len(sched) - 1)
+    u_new = m * u + g
+    v_new = v + u_new
+    flat = torch.abs(v_new).reshape(-1)
+    n_el = flat.numel()
+    k_idx = min(max(int(np.float32(sched[idx]) * np.float32(n_el)), 0),
+                n_el - 1)
+    thr = torch.kthvalue(flat, k_idx + 1).values
+    mask = (torch.abs(v_new) >= thr).to(p.dtype)
+    sync = v_new * mask
+    if w is not None:
+        sync, n = world_sum(sync)
+        if ctx.attr("__dp_mean__", True):
+            sync = sync / n
+    ctx.set("ParamOut", p - lr * sync)
+    ctx.set("UOut", u_new * (1 - mask))
+    ctx.set("VOut", v_new * (1 - mask))
 
 
-# JAX optimizer_ops.py:288-310; no optimizer class of either package
-# appends them
-register_op("proximal_gd", stop_gradient=True)(_proximal_not_ported)
-register_op("proximal_adagrad", stop_gradient=True)(_proximal_not_ported)
+def _prox(prox_param, lr, l1, l2):
+    """optimizer_ops.py:277, the proximal step of proximal_gd and
+    proximal_adagrad (reference optimizers/proximal_gd_op.h:49):
+    soft-threshold by ``lr·l1`` when ``l1 > 0``, then shrink by
+    ``1/(1 + lr·l2)``."""
+    if l1 > 0:
+        return (torch.sign(prox_param) *
+                torch.clamp_min(torch.abs(prox_param) - lr * l1, 0.0) /
+                (1.0 + lr * l2))
+    return prox_param / (1.0 + lr * l2)
+
+
+@register_op("proximal_gd", stop_gradient=True)
+def _proximal_gd(ctx, op):
+    """optimizer_ops.py:288: ``prox(p − lr·g)``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = _lr(ctx, p)
+    ctx.set("ParamOut", _prox(p - lr * g, lr, _f32(ctx, "l1", 0.0),
+                              _f32(ctx, "l2", 0.0)))
+
+
+@register_op("proximal_adagrad", stop_gradient=True)
+def _proximal_adagrad(ctx, op):
+    """optimizer_ops.py:298: ``m' = m + g²``, ``prox(p − lr·g/sqrt(m'))``."""
+    p = ctx.i("Param")
+    g = ctx.i("Grad").to(p.dtype)
+    lr = _lr(ctx, p)
+    m_new = ctx.i("Moment") + g * g
+    ctx.set("MomentOut", m_new)
+    ctx.set("ParamOut", _prox(p - lr * g / torch.sqrt(m_new), lr,
+                              _f32(ctx, "l1", 0.0), _f32(ctx, "l2", 0.0)))
+
+
+@register_op("average_accumulates", stop_gradient=True)
+def _average_accumulates(ctx, op):
+    """optimizer_ops.py:311, ModelAverage's accumulator rotation
+    (reference average_accumulates_op.h): sum_1 adds the parameter;
+    every 16384 updates it drains into sum_2; once the window reaches
+    ``min_average_window`` and ``min(max_average_window, num_updates ·
+    average_window)`` both drain into sum_3 and the window restarts.
+    Counters are int32, as the JAX rule keeps them."""
+    kmax = 16384
+    param = ctx.i("param")
+    s1 = ctx.i("in_sum_1")
+    s2 = ctx.i("in_sum_2")
+    s3 = ctx.i("in_sum_3")
+
+    def count(slot):
+        return ctx.i(slot).reshape(()).to(torch.int32)
+
+    nacc = count("in_num_accumulates")
+    old = count("in_old_num_accumulates")
+    nupd = count("in_num_updates")
+    avg_win = float(np.float32(ctx.attr("average_window", 0.0)))
+    max_win = min(ctx.attr("max_average_window", 2 ** 31 - 1), 2 ** 31 - 1)
+    min_win = ctx.attr("min_average_window", 10000)
+
+    nupd = nupd + 1
+    nacc = nacc + 1
+    s1 = s1 + param.to(s1.dtype)
+    rotate = torch.remainder(nupd, kmax) == 0
+    s2 = torch.where(rotate, s2 + s1, s2)
+    s1 = torch.where(rotate, torch.zeros_like(s1), s1)
+    window = torch.minimum(torch.tensor(max_win, dtype=torch.int32),
+                           (nupd.to(torch.float32) * avg_win).to(torch.int32))
+    full = (nacc >= min_win) & (nacc >= window)
+    s3 = torch.where(full, s1 + s2, s3)
+    s1 = torch.where(full, torch.zeros_like(s1), s1)
+    s2 = torch.where(full, torch.zeros_like(s2), s2)
+    old = torch.where(full, nacc, old)
+    nacc = torch.where(full, torch.zeros_like(nacc), nacc)
+    ctx.set("out_sum_1", s1)
+    ctx.set("out_sum_2", s2)
+    ctx.set("out_sum_3", s3)
+    ctx.set("out_num_accumulates", nacc.reshape((1,)))
+    ctx.set("out_old_num_accumulates", old.reshape((1,)))
+    ctx.set("out_num_updates", nupd.reshape((1,)))

@@ -169,10 +169,40 @@ def _range(ctx, op):
     ctx.set("Out", torch.arange(start, end, step, device=ctx.state.device))
 
 
-@register_op("less_than", stop_gradient=True)
-def _less_than(ctx, op):
-    """tensor_ops.py:293: ``X < Y`` elementwise (broadcast), bool."""
-    ctx.set("Out", torch.lt(ctx.i("X"), ctx.i("Y")))
+def _compare(fn):
+    def lower(ctx, op):
+        ctx.set("Out", fn(ctx.i("X"), ctx.i("Y")))
+    return lower
+
+
+# tensor_ops.py:282-302: the comparisons and the binary logical ops,
+# elementwise with broadcasting, bool results
+for _name, _fn in [
+    ("equal", torch.eq),
+    ("not_equal", torch.ne),
+    ("less_than", torch.lt),
+    ("less_equal", torch.le),
+    ("greater_than", torch.gt),
+    ("greater_equal", torch.ge),
+    ("logical_and", torch.logical_and),
+    ("logical_or", torch.logical_or),
+    ("logical_xor", torch.logical_xor),
+]:
+    register_op(_name, stop_gradient=True)(_compare(_fn))
+
+
+@register_op("logical_not", stop_gradient=True)
+def _logical_not(ctx, op):
+    ctx.set("Out", torch.logical_not(ctx.i("X")))
+
+
+@register_op("isfinite", stop_gradient=True)
+def _isfinite(ctx, op):
+    """tensor_ops.py:360: one ``(1,)`` bool, true when every entry of
+    every X is finite (the AMP gate reads it)."""
+    xs = [ctx.env[n] for n in op.input("X")]
+    finite = torch.stack([torch.isfinite(x).all() for x in xs]).all()
+    ctx.set("Out", finite.reshape((1,)))
 
 
 @register_op("where", nondiff_inputs=("Condition",))

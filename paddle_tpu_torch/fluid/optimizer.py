@@ -1,7 +1,9 @@
 """Optimizers (counterpart ``paddle_tpu/fluid/optimizer.py``; reference
-``python/paddle/fluid/optimizer.py:50``): the ``Optimizer`` base and the
+``python/paddle/fluid/optimizer.py:50``): the ``Optimizer`` base, the
 update rules SGD, Momentum, LarsMomentum, Adam, Adamax, Adagrad,
-DecayedAdagrad, Adadelta, RMSProp, Ftrl and Lamb.
+DecayedAdagrad, Adadelta, RMSProp, Ftrl, Lamb and DGCMomentum, and the
+wrappers ModelAverage, ExponentialMovingAverage, LookaheadOptimizer,
+GradientMergeOptimizer and RecomputeOptimizer.
 
 ``minimize`` = ``append_backward`` + the gradient clips (``clip.py``) +
 the regularization ops (``regularizer.py``), both under the Optimize
@@ -9,16 +11,29 @@ role + one optimizer op per parameter + ``_finish_update`` (the
 beta-power ``scale`` ops of Adam, Adamax and Lamb).  The global
 learning-rate variable and the accumulators get the JAX package's names
 and fill values, so ``convert.load_numpy_params`` carries every
-persistable of a JAX scope across.  The learning rate is a float, or a
+persistable of a JAX scope across; so do the wrappers' state
+(``*_gm_acc``, ``*_la_slow``, ``*_ma_sum``, ``ma_count``, ``*_ema``,
+``ema_step``, ``dgc_u``, ``dgc_v``).  The learning rate is a float, or a
 Variable such as a schedule's (``layers.learning_rate_scheduler``),
 which the optimizer ops then read on every run; a parameter whose
 ``ParamAttr(learning_rate=r)`` is not 1 reads ``scale(lr, r)``, one
-``LRSched`` op per parameter.  A dygraph schedule (a callable rate) and
-the wrapper optimizers (``ModelAverage`` and the rest, at the end of
-this file) are not ported yet and raise, naming their ROADMAP item.
+``LRSched`` op per parameter.
+
+GradientMerge, Lookahead and ModelAverage's window reset run their
+updates in a ``conditional_block`` (one host read of the predicate per
+run); the inner optimizer's accumulators and learning rate are created
+in the global block all the same.  RecomputeOptimizer packs the forward
+spans between checkpoints into ``recompute`` ops.  A dygraph schedule (a
+callable rate) is not ported yet and raises, naming its ROADMAP item.
 """
 
-from .framework import OpRole, Variable, default_main_program
+import contextlib
+
+import numpy as np
+
+from . import framework
+from .framework import (OpRole, OP_ROLE_KEY, Variable, default_main_program,
+                        default_startup_program, program_guard)
 from .backward import append_backward
 from .clip import append_gradient_clip_ops
 from .regularizer import append_regularization_ops
@@ -531,21 +546,531 @@ class LambOptimizer(Optimizer):
     _finish_update = AdamOptimizer._finish_update
 
 
-def _wrapper_not_ported(name):
-    """A class of the JAX package's optimizer.py:675-1145 that the port
-    has not ported yet: building one raises, naming its ROADMAP item."""
-    def __init__(self, *args, **kwargs):
-        raise _not_ported(name, "'the wrapper optimizers'")
-    return type(name, (), {"__init__": __init__, "__doc__":
-                           "Not ported yet (ROADMAP.md, port queue 1)."})
+# ---------------------------------------------------------------------------
+# the wrappers around an optimizer (JAX optimizer.py:648-1229)
+# ---------------------------------------------------------------------------
+
+def _swap_programs(param_infos, source_of):
+    """(apply program, restore program) that swap each parameter with a
+    substitute value through the scope (JAX optimizer.py:648): apply
+    copies it to ``<name>@BACKUP`` and installs what
+    ``source_of(name, block, param var)`` appends; restore copies the
+    backup back.  ``param_infos``: [(name, shape, dtype)]."""
+    apply_prog, restore_prog = framework.Program(), framework.Program()
+    for prog, is_apply in ((apply_prog, True), (restore_prog, False)):
+        blk = prog.global_block()
+        for name, shape, dtype in param_infos:
+            p = blk.create_var(name=name, shape=shape, dtype=dtype,
+                               persistable=True)
+            bak = blk.create_var(name=name + "@BACKUP", shape=shape,
+                                 dtype=dtype, persistable=True)
+            with program_guard(prog, framework.Program()):
+                if is_apply:
+                    blk.append_op("assign", inputs={"X": [p]},
+                                  outputs={"Out": [bak]})
+                    sub = source_of(name, blk, p)
+                    blk.append_op("assign", inputs={"X": [sub]},
+                                  outputs={"Out": [p]})
+                else:
+                    blk.append_op("assign", inputs={"X": [bak]},
+                                  outputs={"Out": [p]})
+    return apply_prog, restore_prog
 
 
-ModelAverage = _wrapper_not_ported("ModelAverage")
-ExponentialMovingAverage = _wrapper_not_ported("ExponentialMovingAverage")
-LookaheadOptimizer = _wrapper_not_ported("LookaheadOptimizer")
-DGCMomentumOptimizer = _wrapper_not_ported("DGCMomentumOptimizer")
-GradientMergeOptimizer = _wrapper_not_ported("GradientMergeOptimizer")
-RecomputeOptimizer = _wrapper_not_ported("RecomputeOptimizer")
+class _SwapMixin:
+    """``apply``/``restore`` over the programs ``_swap_programs`` built."""
+
+    @contextlib.contextmanager
+    def apply(self, executor, need_restore=True):
+        assert self._programs is not None, \
+            "build the averaging ops inside the program first"
+        executor.run(self._programs[0])
+        try:
+            yield
+        finally:
+            if need_restore:
+                self.restore(executor)
+
+    def restore(self, executor):
+        executor.run(self._programs[1])
+
+
+class ModelAverage(_SwapMixin, Optimizer):
+    """Parameter averaging (reference optimizer.py:2244; JAX
+    optimizer.py:675): a running sum of each parameter and a count
+    ``ma_count``, both reset (sum = the parameter, count = 1) in a
+    ``conditional_block`` once the count passes ``max_average_window``;
+    ``apply`` installs sum / count, ``restore`` the trained values.  The
+    ops are appended when it is built, after the inner optimizer's
+    ``minimize``, as in the reference."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self._param_infos = []
+        self._programs = None
+        self.build()
+
+    def _build(self, program):
+        from . import layers
+        from .layers.control_flow import ConditionalBlock
+        block = program.global_block()
+        helper = LayerHelper("model_average")
+        with program._role_guard(OpRole.Optimize):
+            cnt = helper.create_global_variable(
+                name=unique_name.generate("ma_count"), shape=(1,),
+                dtype="float32", persistable=True)
+            helper.set_variable_initializer(cnt, ConstantInitializer(0.0))
+            layers.increment(cnt, 1.0, in_place=True)
+            self._count_name = cnt.name
+            for p in block.all_parameters():
+                s = helper.create_global_variable(
+                    name=p.name + "_ma_sum", shape=p.shape, dtype=p.dtype,
+                    persistable=True)
+                helper.set_variable_initializer(s, ConstantInitializer(0.0))
+                block.append_op("elementwise_add",
+                                inputs={"X": [s], "Y": [p]},
+                                outputs={"Out": [s]},
+                                attrs={"axis": -1,
+                                       OP_ROLE_KEY: OpRole.Optimize})
+                self._param_infos.append((p.name, tuple(p.shape), p.dtype))
+            # the window reset: count > max_window -> sum = param, count = 1
+            mx = layers.fill_constant(shape=[1], dtype="float32",
+                                      value=float(self.max_average_window))
+            over = layers.greater_than(cnt, mx)
+            cb = ConditionalBlock([over])
+            with cb.block():
+                one = layers.fill_constant(shape=[1], dtype="float32",
+                                           value=1.0)
+                cur = program.current_block()
+                cur.append_op("assign", inputs={"X": [one]},
+                              outputs={"Out": [cnt]})
+                for pname, _sh, _dt in self._param_infos:
+                    cur.append_op("assign", inputs={"X": [pname]},
+                                  outputs={"Out": [pname + "_ma_sum"]})
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        raise TypeError(
+            "ModelAverage wraps an already-optimized program: build your "
+            "optimizer, call its minimize, then ModelAverage(...) — "
+            "matching the reference usage")
+
+    def build(self, program=None):
+        """Append the averaging ops (after the inner optimizer's
+        minimize, inside the program build)."""
+        program = program or default_main_program()
+        self._build(program)
+
+        def avg_of(name, blk, pvar):
+            s = blk.create_var(name=name + "_ma_sum", shape=pvar.shape,
+                               dtype=pvar.dtype, persistable=True)
+            c = blk.create_var(name=self._count_name, shape=(1,),
+                               dtype="float32", persistable=True)
+            out = blk.create_var(name=unique_name.generate(name + "_ma"))
+            blk.append_op("elementwise_div", inputs={"X": [s], "Y": [c]},
+                          outputs={"Out": [out]}, attrs={"axis": -1})
+            return out
+
+        self._programs = _swap_programs(self._param_infos, avg_of)
+        return self
+
+
+class ExponentialMovingAverage(_SwapMixin):
+    """EMA of the parameters (JAX optimizer.py:775): ``shadow = decay ·
+    shadow + (1 − decay) · param`` every step, and a step count
+    ``ema_step``; ``apply`` installs the bias-corrected shadow
+    ``shadow / (1 − decay^t)``, with ``decay^t = exp(t · ln decay)``,
+    ``restore`` the trained values."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = float(decay)
+        self._name = name or "ema"
+        self._param_infos = []
+        self._programs = None
+
+    def update(self):
+        """Append the EMA update ops; call inside the training program's
+        build, after the optimizer's minimize."""
+        from . import layers
+        program = default_main_program()
+        block = program.global_block()
+        helper = LayerHelper(self._name)
+        with program._role_guard(OpRole.Optimize):
+            step = helper.create_global_variable(
+                name=unique_name.generate("ema_step"), shape=(1,),
+                dtype="float32", persistable=True)
+            helper.set_variable_initializer(step, ConstantInitializer(0.0))
+            layers.increment(step, 1.0, in_place=True)
+            self._step_name = step.name
+            for p in block.all_parameters():
+                ema = helper.create_global_variable(
+                    name=p.name + "_" + self._name, shape=p.shape,
+                    dtype=p.dtype, persistable=True)
+                helper.set_variable_initializer(ema,
+                                                ConstantInitializer(0.0))
+                scaled_e = layers.scale(ema, scale=self._decay)
+                scaled_p = layers.scale(p, scale=1.0 - self._decay)
+                block.append_op("elementwise_add",
+                                inputs={"X": [scaled_e], "Y": [scaled_p]},
+                                outputs={"Out": [ema]},
+                                attrs={"axis": -1,
+                                       OP_ROLE_KEY: OpRole.Optimize})
+                self._param_infos.append((p.name, tuple(p.shape), p.dtype))
+
+        def ema_of(name, blk, pvar):
+            ema = blk.create_var(name=name + "_" + self._name,
+                                 shape=pvar.shape, dtype=pvar.dtype,
+                                 persistable=True)
+            st = blk.create_var(name=self._step_name, shape=(1,),
+                                dtype="float32", persistable=True)
+            ln_d = float(np.log(self._decay)) if self._decay > 0 else -80.0
+            decay_pow = layers.exp(layers.scale(st, scale=ln_d))
+            denom = layers.scale(decay_pow, scale=-1.0, bias=1.0)
+            out = blk.create_var(name=unique_name.generate(name + "_emac"))
+            blk.append_op("elementwise_div",
+                          inputs={"X": [ema], "Y": [denom]},
+                          outputs={"Out": [out]}, attrs={"axis": -1})
+            return out
+
+        self._programs = _swap_programs(self._param_infos, ema_of)
+
+
+class LookaheadOptimizer:
+    """Lookahead (JAX optimizer.py:849): the inner (fast) optimizer
+    steps every run; on every k-th run (``la_step mod k == 0``, one
+    ``conditional_block``) the slow weights move ``alpha`` of the way to
+    the fast ones and the fast weights are set to them.  The startup
+    program starts the slow weights at the initial fast ones."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        assert 0.0 <= alpha <= 1.0
+        self.inner_optimizer = inner_optimizer
+        self.alpha = float(alpha)
+        self.k = int(k)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from . import layers
+        from .layers.control_flow import ConditionalBlock
+        result = self.inner_optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        program = default_main_program()
+        startup = startup_program or default_startup_program()
+        block = program.global_block()
+        helper = LayerHelper("lookahead")
+        with program._role_guard(OpRole.Optimize):
+            cnt = helper.create_global_variable(
+                name=unique_name.generate("la_step"), shape=(1,),
+                dtype="float32", persistable=True)
+            helper.set_variable_initializer(cnt, ConstantInitializer(0.0))
+            layers.increment(cnt, 1.0, in_place=True)
+            slows = []
+            sb = startup.global_block()
+            for p in block.all_parameters():
+                slow = helper.create_global_variable(
+                    name=p.name + "_la_slow", shape=p.shape, dtype=p.dtype,
+                    persistable=True)
+                if not sb.has_var_local(slow.name):
+                    sb.create_var(name=slow.name, shape=p.shape,
+                                  dtype=p.dtype, persistable=True)
+                    sb.append_op("assign", inputs={"X": [p.name]},
+                                 outputs={"Out": [slow.name]})
+                slows.append((p, slow))
+            kconst = layers.fill_constant(shape=[1], dtype="float32",
+                                          value=float(self.k))
+            rem = block.create_var(name=unique_name.generate("la_rem"),
+                                   dtype="float32", stop_gradient=True)
+            rem.shape = (1,)
+            block.append_op("elementwise_mod",
+                            inputs={"X": [cnt], "Y": [kconst]},
+                            outputs={"Out": [rem]},
+                            attrs={"axis": -1, OP_ROLE_KEY: OpRole.Optimize})
+            half = layers.fill_constant(shape=[1], dtype="float32",
+                                        value=0.5)
+            is_sync = layers.less_than(rem, half, force_cpu=False)
+            is_sync.stop_gradient = True
+        cb = ConditionalBlock([is_sync])
+        with cb.block():
+            cur = program.current_block()
+            for p, slow in slows:
+                # slow += alpha * (fast - slow); fast = slow
+                diff = layers.elementwise_sub(p, slow)
+                step_v = layers.scale(diff, scale=self.alpha)
+                cur.append_op("elementwise_add",
+                              inputs={"X": [slow], "Y": [step_v]},
+                              outputs={"Out": [slow]},
+                              attrs={"axis": -1,
+                                     OP_ROLE_KEY: OpRole.Optimize})
+                cur.append_op("assign", inputs={"X": [slow]},
+                              outputs={"Out": [p]})
+        return result
+
+
+class DGCMomentumOptimizer(Optimizer):
+    """DGC momentum in its convergence mode (reference optimizer.py:787;
+    JAX optimizer.py:921): one ``dgc_momentum`` op per parameter, with
+    the residual accumulators ``dgc_u`` and ``dgc_v``.  The op exchanges
+    its own masked gradient, so ``minimize`` records the parameters in
+    ``program._dgc_param_names`` and ``GradAllReduce`` adds no
+    all-reduce for them.  The exchange is a dense all-reduce of the
+    masked values: DGC's convergence, not its wire savings."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step,
+                 rampup_step=1,
+                 sparsity=(0.75, 0.9375, 0.984375, 0.996, 0.999),
+                 use_nesterov=False, num_trainers=None, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._rampup_begin_step = int(rampup_begin_step)
+        self._rampup_step = int(rampup_step)
+        self._sparsity = [float(s) for s in sparsity]
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("dgc_u", p)
+            self._add_accumulator("dgc_v", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        param, grad = param_and_grad
+        u = self._get_accumulator("dgc_u", param)
+        v = self._get_accumulator("dgc_v", param)
+        prog = block.program
+        if not hasattr(prog, "_dgc_param_names"):
+            prog._dgc_param_names = set()
+        prog._dgc_param_names.add(param.name)
+        return block.append_op(
+            "dgc_momentum",
+            inputs={"Param": [param], "Grad": [grad], "U": [u], "V": [v],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param], "UOut": [u], "VOut": [v]},
+            attrs={"momentum": self._momentum,
+                   "rampup_begin_step": self._rampup_begin_step,
+                   "rampup_step": self._rampup_step,
+                   "sparsity": self._sparsity})
+
+
+class GradientMergeOptimizer:
+    """k-micro-batch gradient accumulation (JAX optimizer.py:978; the
+    reference's multi_batch_merge_pass contract): a ``*_gm_acc``
+    accumulator per parameter gathers the gradient every run, and a
+    ``conditional_block`` on ``gm_step mod k == 0`` runs the inner
+    optimizer on the averaged accumulation and zeroes the accumulators.
+    The inner optimizer's accumulators and learning rate land in the
+    global block although its ops are appended in the sub-block."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self.inner_optimizer = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from . import layers
+        from .layers.control_flow import ConditionalBlock
+        assert self.k_steps >= 1
+        if self.k_steps == 1:
+            return self.inner_optimizer.minimize(
+                loss, startup_program, parameter_list, no_grad_set)
+        params_grads = self.inner_optimizer.backward(
+            loss, startup_program, parameter_list, no_grad_set)
+        program = default_main_program()
+        block = program.global_block()
+        helper = LayerHelper("gradient_merge")
+
+        with program._role_guard(OpRole.Optimize):
+            counter = helper.create_global_variable(
+                name=unique_name.generate("gm_step"), shape=(1,),
+                dtype="float32", persistable=True)
+            counter.stop_gradient = True
+            helper.set_variable_initializer(counter,
+                                            ConstantInitializer(0.0))
+            layers.increment(counter, value=1.0, in_place=True)
+
+            merged = []
+            for p, g in params_grads:
+                if g is None:
+                    continue
+                acc = helper.create_global_variable(
+                    name=unique_name.generate(p.name + "_gm_acc"),
+                    shape=p.shape, dtype=p.dtype, persistable=True)
+                acc.stop_gradient = True
+                helper.set_variable_initializer(acc,
+                                                ConstantInitializer(0.0))
+                block.append_op("elementwise_add",
+                                inputs={"X": [acc], "Y": [g]},
+                                outputs={"Out": [acc]},
+                                attrs={"axis": -1,
+                                       OP_ROLE_KEY: OpRole.Backward})
+                merged.append((p, g, acc))
+
+            # the apply predicate step % k == 0: the remainder is >= 0,
+            # so "== 0" is "< 0.5" exactly in float
+            kconst = layers.fill_constant(shape=[1], dtype="float32",
+                                          value=float(self.k_steps))
+            rem = block.create_var(
+                name=unique_name.generate("gm_rem"), dtype="float32",
+                stop_gradient=True)
+            rem.shape = (1,)
+            block.append_op("elementwise_mod",
+                            inputs={"X": [counter], "Y": [kconst]},
+                            outputs={"Out": [rem]},
+                            attrs={"axis": -1, OP_ROLE_KEY: OpRole.Optimize})
+            half = layers.fill_constant(shape=[1], dtype="float32",
+                                        value=0.5)
+            is_apply = layers.less_than(rem, half, force_cpu=False)
+            is_apply.stop_gradient = True
+
+        cond_blk = ConditionalBlock([is_apply])
+        with cond_blk.block():
+            apply_pg = []
+            for p, g, acc in merged:
+                eff = layers.scale(
+                    acc, scale=1.0 / self.k_steps if self.avg else 1.0)
+                apply_pg.append((p, eff))
+            optimize_ops = self.inner_optimizer.apply_gradients(apply_pg)
+            cur = program.current_block()
+            for _p, _g, acc in merged:
+                cur.append_op("scale", inputs={"X": [acc]},
+                              outputs={"Out": [acc]},
+                              attrs={"scale": 0.0,
+                                     OP_ROLE_KEY: OpRole.Optimize})
+        return optimize_ops, params_grads
+
+
+class RecomputeOptimizer:
+    """Gradient checkpointing (JAX optimizer.py:1089; the reference's
+    RecomputeOptimizer contract): ``_set_checkpoints([...])`` names the
+    activations to keep, and every forward span that ends at one is
+    packed into a ``recompute`` op whose grad op replays the span
+    instead of keeping its intermediates.  A variable inside a span
+    cannot be fetched; fetch the checkpoints or the span outputs."""
+
+    def __init__(self, optimizer):
+        self.inner_optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = [c.name if isinstance(c, Variable) else c
+                             for c in checkpoints]
+        return self
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        """Segment the forward, then the inner optimizer's backward (so
+        an AMP decorator or fleet can wrap this optimizer)."""
+        self._apply_segmentation(loss, no_grad_set)
+        return self.inner_optimizer.backward(
+            loss, startup_program, parameter_list, no_grad_set, callbacks)
+
+    def apply_gradients(self, params_grads):
+        return self.inner_optimizer.apply_gradients(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self.inner_optimizer.apply_gradients(params_grads)
+
+    def _apply_segmentation(self, loss, no_grad_set):
+        if not self._checkpoints:
+            raise ValueError(
+                "call _set_checkpoints([...]) before minimize — recompute "
+                "needs segment boundaries")
+        if not getattr(loss.block.program, "_recompute_segmented", False):
+            _segment_for_recompute(loss.block.program, self._checkpoints,
+                                   loss.name, no_grad_set or ())
+            loss.block.program._recompute_segmented = True
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        self._apply_segmentation(loss, no_grad_set)
+        return self.inner_optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+
+
+def _segment_for_recompute(program, checkpoints, loss_name, no_grad_set=()):
+    """Rewrite the forward-only main block (JAX optimizer.py:1145): each
+    span of ops that ends at a checkpoint becomes one ``recompute`` op
+    over a new sub-block.  A control-flow or feed/fetch op ends a span
+    and is never packed; the tail span (the loss) stays as it is.  A
+    span's outputs are what later ops read, the checkpoints, the loss
+    and every persistable it writes; its ``stop_gradient_vars`` are the
+    names ``append_backward`` would cut the gradient at."""
+    block = program.global_block()
+    ck = set(checkpoints)
+    segments, cur = [], []
+    for op in block.ops:
+        if framework.op_sub_block_indices(op) or op.type in ("feed",
+                                                             "fetch"):
+            if cur:
+                segments.append(("wrap", cur))
+                cur = []
+            segments.append(("keep", [op]))
+            continue
+        cur.append(op)
+        writes = {n for names in op.outputs.values() for n in names}
+        if writes & ck:
+            segments.append(("wrap", cur))
+            cur = []
+    if cur:
+        segments.append(("keep", cur))
+
+    # later_reads[i]: the names read by the segments after i
+    later_reads = [set() for _ in segments]
+    acc = set()
+    for i in range(len(segments) - 1, -1, -1):
+        later_reads[i] = set(acc)
+        for op in segments[i][1]:
+            for names in op.inputs.values():
+                acc.update(n for n in names if n)
+
+    def _is_persistable(name):
+        v = block._find_var_recursive(name)
+        return v is not None and getattr(v, "persistable", False)
+
+    def _stops_gradient(name):
+        if name in no_grad_set:
+            return True
+        v = block._find_var_recursive(name)
+        return v is not None and getattr(v, "stop_gradient", False) \
+            and not getattr(v, "is_data", False)
+
+    new_ops = []
+    for i, (kind, ops) in enumerate(segments):
+        if kind == "keep" or len(ops) < 2:
+            new_ops.extend(ops)
+            continue
+        reads, writes = [], set()
+        for op in ops:
+            for names in op.inputs.values():
+                for n in names:
+                    if n and n not in writes and n not in reads:
+                        reads.append(n)
+            for names in op.outputs.values():
+                writes.update(n for n in names if n)
+        later = later_reads[i] | ck | {loss_name}
+        later |= {n for n in writes if _is_persistable(n)}
+        outs = sorted(writes & later)
+        if not outs:
+            new_ops.extend(ops)
+            continue
+        stop_vars = sorted(n for n in (writes | set(reads))
+                           if _stops_gradient(n))
+        sub = framework.Block(program, len(program.blocks),
+                              parent_idx=block.idx)
+        sub.ops = list(ops)
+        program.blocks.append(sub)
+        rec = framework.Operator(block, "recompute",
+                                 inputs={"X": list(reads)},
+                                 outputs={"Out": outs},
+                                 attrs={"sub_block": sub.idx,
+                                        "input_vars": list(reads),
+                                        "output_vars": outs,
+                                        "stop_gradient_vars": stop_vars})
+        new_ops.append(rec)
+    block.ops = new_ops
+    program._bump_version()
 
 
 # reference-compatible aliases (JAX optimizer.py:1070-1080)

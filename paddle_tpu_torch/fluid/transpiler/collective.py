@@ -221,7 +221,10 @@ class GradAllReduce(Collective):
         return name
 
     def _collect_grads(self, block):
-        """[(producing op idx, param name, grad name)] in program order."""
+        """[(producing op idx, param name, grad name)] in program order.
+        A DGC parameter is left out: its ``dgc_momentum`` op exchanges
+        its own masked gradient (JAX collective.py:170)."""
+        dgc = getattr(block.program, "_dgc_param_names", set())
         out = []
         for idx, op in enumerate(block.ops):
             if not (op.attr(OP_ROLE_KEY, 0) & OpRole.Backward):
@@ -230,6 +233,8 @@ class GradAllReduce(Collective):
             if not role_vars:
                 continue
             for i in range(0, len(role_vars), 2):
+                if role_vars[i] in dgc:
+                    continue
                 out.append((idx, role_vars[i], role_vars[i + 1]))
         return out
 

@@ -373,6 +373,11 @@ def test_amp_mul(pure_bf16):
 
 
 def test_amp_loss_scaling_is_not_ported_and_says_so():
+    """Loss scaling raised until ROADMAP item 6 ported it; now the scaled,
+    gated program is JAX's op for op and its outputs and updated
+    persistables after two steps agree (optimizer ``atol 1e-6``; bf16
+    products ``2e-2`` of the largest entry, as above).
+    tests/test_torch_amp_scaling.py holds the rest."""
     def body(pkg):
         x = _x(pkg, (2, 3))
         return [pkg.layers.fc(x, 2)], []
@@ -380,5 +385,14 @@ def test_amp_loss_scaling_is_not_ported_and_says_so():
     def opt(pkg):
         return pkg.contrib.mixed_precision.decorate(
             pkg.optimizer.SGDOptimizer(0.1), init_loss_scaling=128.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build(fluid, body, optimizer=opt)
+    jm = _build(jfluid, body, optimizer=opt)[0]
+    pm = _build(fluid, body, optimizer=opt)[0]
+    assert [(op.type, op.inputs, op.outputs, op.attrs)
+            for op in pm.global_block().ops] == \
+        [(op.type, op.inputs, op.outputs, op.attrs)
+         for op in jm.global_block().ops]
+    (j, ja), (p, pa), _names, _pnames = run_both(body, _feed((2, 3)),
+                                                 optimizer=opt, steps=2)
+    for a, b in zip(j + ja, p + pa):
+        a, b = a.astype(np.float32), b.astype(np.float32)
+        assert np.abs(a - b).max() <= max(2e-2 * np.abs(a).max(), 1e-6)

@@ -30,6 +30,12 @@ rank feeds and fetches its local rows).
   rank's rows of one batch norm over all 8, ``rtol 1e-5, atol 1e-6``.
 - LocalSGD (``k_steps=2``), 4 steps: losses ``rtol 1e-5``, rank 0's
   parameters (JAX keeps replica 0's) ``atol 1e-6``.
+- fc + DGCMomentumOptimizer (rampup from step 2) under GradAllReduce, 5
+  steps: no ``c_allreduce_sum`` (the update op exchanges the masked
+  gradient itself, one all-reduce per parameter a step: the rank mean
+  before rampup, the masked sum after), losses ``rtol 1e-5`` and the
+  parameters ``atol 1e-6`` against JAX's, with rank 0's residuals
+  ``dgc_u``/``dgc_v`` (JAX keeps replica 0's).
 - port-only: ``run_window`` over the transpiled program is bit-equal to
   K ``run`` calls and issues K times the collectives; ranks draw
   different dropout masks and rank 0 the world-of-one mask;
@@ -64,6 +70,7 @@ FC_ROWS, FC_STEPS = 16, 5
 CONV_ROWS, CONV_STEPS = 4, 3
 BERT_ROWS, BERT_STEPS, BERT_PRED, BERT_LR = 2, 3, 4, 1e-3
 LSGD_STEPS = 4
+DGC_STEPS = 5
 DS_LINES, DS_BATCH, DS_K = 40, 2, 4
 
 
@@ -83,6 +90,26 @@ def fc_net(pkg):
     d = pred - y
     loss = pkg.layers.mean(d * d)
     pkg.optimizer.SGDOptimizer(0.05).minimize(loss)
+    return loss
+
+
+def dgc_net(pkg):
+    """fc_net's regression under DGC momentum: two plain-momentum steps
+    on the rank-averaged gradient, then the sparsified exchange (the
+    startup is step 0)."""
+    x = pkg.layers.data(name="x", shape=[6], dtype="float32")
+    y = pkg.layers.data(name="y", shape=[1], dtype="float32")
+    pred = pkg.layers.fc(
+        x, size=1,
+        param_attr=pkg.ParamAttr(
+            initializer=pkg.initializer.ConstantInitializer(0.5)),
+        bias_attr=pkg.ParamAttr(
+            initializer=pkg.initializer.ConstantInitializer(0.0)))
+    d = pred - y
+    loss = pkg.layers.mean(d * d)
+    pkg.optimizer.DGCMomentumOptimizer(
+        0.05, momentum=0.9, rampup_begin_step=3, rampup_step=2,
+        sparsity=[0.5, 0.8]).minimize(loss)
     return loss
 
 
@@ -332,6 +359,19 @@ def worker(out_dir):
                    for _ in range(LSGD_STEPS)]
     keep("lsgd", main, scope)
 
+    # DGC momentum under GradAllReduce: no all-reduce of its gradients,
+    # the update op's own exchange instead
+    main, startup, loss = programs(fluid, dgc_net)
+    GradAllReduce().transpile(startup, main, rank=rank, endpoints=["e"] * n)
+    res["dgc_ops"] = [op.type for op in main.global_block().ops]
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    collective_ops.reset_calls()
+    res["dgc"] = [_loss(exe.run(main, feed=fc_feed(rank), fetch_list=[loss],
+                                scope=scope)[0]) for _ in range(DGC_STEPS)]
+    res["dgc_calls"] = dict(collective_ops.calls)
+    keep("dgc", main, scope)
+
     # ParallelExecutor over the fc program (transpiled copy, parameters
     # broadcast from rank 0 before the first step)
     main, startup, loss = programs(fluid, fc_net)
@@ -500,6 +540,12 @@ def dp(tmp_path_factory):
         jfluid, compiled, cscope, [conv_feed(s) for s in range(CONV_STEPS)],
         loss)
     ref["compiled_after"] = _jax_after(cscope, main)
+    # DGC
+    main, startup, loss = transpiled(dgc_net, JGAR)
+    scope, _ = _jax_startup(jfluid, main, startup)
+    ref["dgc"] = _jax_losses(jfluid, main, scope, [fc_feed()] * DGC_STEPS,
+                             loss)
+    ref["dgc_after"] = _jax_after(scope, main)
     # LocalSGD
     main, _s, loss = jobs["lsgd"]
     ref["lsgd"] = _jax_losses(jfluid, main, scopes["lsgd"],
@@ -640,6 +686,25 @@ def test_local_sgd_matches_paddle_tpu(dp):
     for name in ("fc_0.w_0", "fc_0.b_0"):
         np.testing.assert_allclose(dp["arrays"][0]["lsgd/" + name],
                                    want[name], atol=1e-6)
+
+
+def test_dgc_momentum_matches_paddle_tpu(dp):
+    np.testing.assert_allclose(_rank_losses(dp, "dgc"),
+                               np.stack(dp["ref"]["dgc"]), rtol=1e-5)
+    want = dp["ref"]["dgc_after"]
+    names = [n for n in want if n.startswith("fc_0.")]
+    assert len(names) == 6      # w, b and their dgc_u, dgc_v
+    for r in range(NPROC):
+        ops = dp["ranks"][r]["dgc_ops"]
+        assert "c_allreduce_sum" not in ops and ops.count(
+            "dgc_momentum") == 2
+        assert dp["ranks"][r]["dgc_calls"] == {"dgc_momentum":
+                                               2 * DGC_STEPS}
+        # the residuals u, v are each rank's own: JAX keeps replica 0's
+        for name in names if r == 0 else ("fc_0.w_0", "fc_0.b_0"):
+            np.testing.assert_allclose(dp["arrays"][r]["dgc/" + name],
+                                       want[name], atol=1e-6,
+                                       err_msg="%s rank %d" % (name, r))
 
 
 def test_run_window_is_k_steps_of_run(dp):

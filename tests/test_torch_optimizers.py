@@ -371,25 +371,55 @@ def test_per_parameter_learning_rate_and_clip_with_sgd():
 
 
 def test_unported_wrappers_and_proximal_ops_raise_naming_the_roadmap():
-    for name in ("ModelAverage", "ExponentialMovingAverage",
-                 "LookaheadOptimizer", "DGCMomentumOptimizer",
-                 "GradientMergeOptimizer", "RecomputeOptimizer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            getattr(fluid.optimizer, name)(None)
+    """The wrappers and the proximal rules raised until they were ported
+    (ROADMAP item 6); now each wrapper builds on tiny DeepFM as JAX's
+    does, and each proximal rule runs a hand-built program as JAX's does
+    (``rtol 1e-6, atol 1e-7``).  tests/test_torch_wrapper_optimizers.py
+    trains them."""
+    def wrappers(pkg):
+        return {
+            "LookaheadOptimizer": lambda: pkg.optimizer.LookaheadOptimizer(
+                pkg.optimizer.SGDOptimizer(0.1), k=2),
+            "DGCMomentumOptimizer": lambda: pkg.optimizer.DGCMomentumOptimizer(
+                0.1, momentum=0.9, rampup_begin_step=1),
+            "GradientMergeOptimizer": lambda: pkg.optimizer
+            .GradientMergeOptimizer(pkg.optimizer.SGDOptimizer(0.1), 2),
+            "RecomputeOptimizer": lambda: pkg.optimizer.RecomputeOptimizer(
+                pkg.optimizer.SGDOptimizer(0.1))._set_checkpoints(
+                    ["fc_0.tmp_2"])}
+    for name in wrappers(fluid):
+        ops = {}
+        for key, pkg, mod in PKGS:
+            main = build_deepfm(pkg, mod, lambda pkg: wrappers(pkg)[name]())[0]
+            ops[key] = [(op.type, op.inputs, op.outputs, op.attrs)
+                        for b in main.blocks for op in b.ops]
+        assert ops["port"] == ops["jax"], name
+        if name == "RecomputeOptimizer":
+            assert ops["port"][0][0] == "recompute"
+    for name in ("ModelAverage", "ExponentialMovingAverage"):
+        assert callable(getattr(fluid.optimizer, name))
     for op_type in ("proximal_gd", "proximal_adagrad"):
-        main = fluid.Program()
-        block = main.global_block()
-        for n in ("Param", "Grad", "LearningRate"):
-            block.create_var(name=n, shape=(2,), persistable=True)
-        block.append_op(op_type, inputs={n: [n] for n in
-                                         ("Param", "Grad", "LearningRate")},
-                        outputs={"ParamOut": ["Param"]})
-        scope = fluid.Scope()
-        fluid.load_numpy_params(scope, {n: np.ones(2, np.float32) for n in
-                                        ("Param", "Grad", "LearningRate")},
-                                fluid.CPUPlace())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fluid.Executor(fluid.CPUPlace()).run(main, scope=scope)
+        got = {}
+        for key, pkg, _mod in PKGS:
+            main = pkg.Program()
+            block = main.global_block()
+            arrays = {"Param": np.array([0.5, -0.02], np.float32),
+                      "Grad": np.array([1.0, 0.1], np.float32),
+                      "LearningRate": np.array([0.1], np.float32)}
+            outputs = {"ParamOut": ["Param"]}
+            if op_type == "proximal_adagrad":
+                arrays["Moment"] = np.array([1.0, 2.0], np.float32)
+                outputs["MomentOut"] = ["Moment"]
+            for n in arrays:
+                block.create_var(name=n, shape=(2,), persistable=True)
+            block.append_op(op_type, inputs={n: [n] for n in arrays},
+                            outputs=outputs, attrs={"l1": 0.1, "l2": 0.01})
+            scope = pkg.Scope()
+            _set_state(pkg, scope, arrays)
+            got[key] = np.asarray(pkg.Executor(pkg.CPUPlace()).run(
+                main, fetch_list=["Param"], scope=scope)[0])
+        np.testing.assert_allclose(got["port"], got["jax"], rtol=RTOL,
+                                   atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -250,10 +250,13 @@ def test_a_variable_in_two_slots_gets_its_gradient_once():
 
 
 def test_unported_optimizer_options_raise_naming_the_roadmap():
-    """Per-parameter learning rates and gradient clipping train now
-    (tests/test_torch_optimizers.py); a dygraph schedule (a callable
-    learning rate), AMP loss scaling and the wrapper optimizers such as
-    ModelAverage still raise, naming their ROADMAP item."""
+    """Per-parameter learning rates and gradient clipping train
+    (tests/test_torch_optimizers.py), and so do AMP loss scaling and
+    ModelAverage since ROADMAP item 6 was ported
+    (tests/test_torch_amp_scaling.py, tests/test_torch_wrapper_
+    optimizers.py): loss scaling builds its isfinite gate and
+    ModelAverage its conditional reset.  A dygraph schedule (a callable
+    learning rate) still raises, naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fluid.optimizer.AdamOptimizer(learning_rate=lambda: 0.1)
     main, startup = fluid.Program(), fluid.Program()
@@ -263,8 +266,16 @@ def test_unported_optimizer_options_raise_naming_the_roadmap():
             x, 2, param_attr=fluid.ParamAttr(learning_rate=0.5)))
         opt = fluid.contrib.mixed_precision.decorate(
             fluid.optimizer.AdamOptimizer(), init_loss_scaling=128.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            opt.minimize(loss)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fluid.optimizer.ModelAverage(0.15, min_average_window=10,
-                                     max_average_window=20)
+        opt.minimize(loss)
+        ma = fluid.optimizer.ModelAverage(0.15, min_average_window=10,
+                                          max_average_window=20)
+    kinds = [op.type for op in main.global_block().ops]
+    assert kinds.count("isfinite") == 1 and "conditional_block" in kinds
+    assert opt.get_loss_scaling() is not None
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    got, = exe.run(main, feed={"x": _x()[:4, :8]}, fetch_list=[loss],
+                   scope=scope)
+    assert np.isfinite(got).all()
+    assert scope.find_var_numpy(ma._count_name)[0] == 1.0
