@@ -314,16 +314,47 @@ non-zero exit (nothing is caught):
    its formula on the card's own samples (1e-5); the beam decode from
    the trained weights on the card and the CPU: SentenceIds equal, the
    scores within max(1e-5 relative, 2 x the reversed-batch spreads).
-29. kernels: one JSON line listing every ported kernel, with its
+29. mp_bert: tensor and sequence parallelism, two gloo ranks on card 0
+   (``dp_child mp_bert``): BERT-base at phase 9's configuration with
+   all dropout off (batch 32, fp32, Adam 1e-4), from phase 9's initial
+   parameters and batch, through fleet with mp_degree=2 (tp_bert), then
+   sp_degree=2 ring and Ulysses (sp_bert_ring, sp_bert_ulysses), 1 + 3
+   steps each, against the same program in this process: every step's
+   loss within 1e-4 (steps 2-4 after the layer's backward and sharded
+   update), both ranks' losses equal, 12 K2/K3/K4 a step (0 on the
+   ring, whose padding bias takes the einsum ring) and 0 K5; tp_bert's
+   parameters a rank below one process's; ms per step, peak memory,
+   parameter and optimizer-state bytes a rank, the model-parallel
+   collectives a step (calls and wire bytes).
+30. moe: the MoE block of tests/test_moe_transformer_composition.py at
+   fluid/benchmark.py:329's widths (batch 8, S 512, hidden 768, 12
+   heads, 8 experts of ffn 3072, capacity 1.25), two gloo ranks on card
+   0 (``dp_child moe``), from one startup's weights: sp_ring_flash (sp 2
+   ring, T_local 256: the flash ring, K2 with the LSE twice a forward,
+   K3 and K4 twice a backward with the global LSE, asserted), then
+   ep_moe dense, a2a fp32 and a2a int8 (ep 2); against the block in this
+   process: every step's loss and the step-1 aux loss within 1e-4, the
+   MoE op's step-1 output within 1e-4 of its largest entry (int8:
+   2/127), each rank holding half the experts; ms per step, peak
+   memory, the a2a
+   bytes by precision.  kernel_ring: the flash ring's forward and
+   backward at that shape (B 8, H 12, S 512 as two shards, D 64) in fp32
+   and bf16 on each rank, against the einsum ring and the plain K2-K4
+   over the whole sequence (1e-4 fp32, 2e-2 bf16, of each of o, dq, dk
+   and dv's own largest entry); wall ms of both rings (their exchanges
+   go through the host on gloo).
+31. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's, the wrappers', the
    parameter server's, ResNet-50 inference's and the book models'; the
-   data-parallel paths' as their rank 0 counted them, the elastic
-   path's as its world of one counted them).
+   data-parallel and model-parallel paths' as their rank 0 counted
+   them, the elastic path's as its world of one counted them); K2's row
+   carries kernel_ring's record.
 
 The last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, where torch.cuda.is_available() is false.  ``python3
-chip_smoke.py dp_child <mode> <dir>`` is a data-parallel phase's rank
-(the launcher runs it; not for direct use), and ``python3 chip_smoke.py
+chip_smoke.py dp_child <mode> <dir>`` is a data- or model-parallel
+phase's rank (the launcher runs it; not for direct use), and ``python3
+chip_smoke.py
 ps_child <server|trainer> <dir> <index>`` a pserver or trainer of the
 PS phases (not for direct use either).  The PS phases alone (no build
 needed): ``python3 -c 'import chip_smoke as c; c.phase_device(); cl =
@@ -4059,7 +4090,8 @@ def _child_resnet(d):
 def dp_child(mode, d):
     d = Path(d)
     child = {"resnet": _child_resnet, "wus": _child_wus,
-             "sharded": _child_sharded, "elastic": _child_elastic}.get(mode)
+             "sharded": _child_sharded, "elastic": _child_elastic,
+             "mp_bert": _child_mp_bert, "moe": _child_moe}.get(mode)
     res = child(d) if child else _child_train(d, mode)
     name = res.pop("file", "rank%d.json" % res["rank"])
     (d / name).write_text(json.dumps(res))
@@ -6284,6 +6316,449 @@ def phase_ps_two_trainers(cluster, ref):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Tensor, sequence and expert parallelism: two gloo ranks on card 0
+# ---------------------------------------------------------------------------
+
+MP_STEPS = 4                  # 1 warm-up + 3 timed steps a path
+MP_LOSS_RTOL = 1e-4           # every step's loss, two ranks vs one process
+MOE_OUT_RTOL = {"fp32": 1e-4,  # the MoE output at step 1 vs one process,
+                "int8": 2.0 / 127}  # over its largest entry (int8: the
+#                                     repo's int8 bound; one rounding to
+#                                     1/254 of a token's largest entry on
+#                                     each of the two a2a legs)
+MOE_B, MOE_S, MOE_HID, MOE_HEADS = 8, 512, 768, 12    # fluid/benchmark.py
+MOE_E, MOE_F, MOE_CF = 8, 3072, 1.25                  # :329's attention_moe
+RING_TOL = {"float32": 1e-4, "bfloat16": 2e-2}        # kernel_ring, as the
+#                                                       kernel rows' bounds,
+#                                                       over each tensor's
+#                                                       largest entry
+
+
+def _mp_strategies():
+    """(path name, DistributedStrategy kwargs) of mp_bert's three runs."""
+    return (("tp_bert", dict(mp_degree=2)),
+            ("sp_bert_ring", dict(sp_degree=2, sp_mode="ring")),
+            ("sp_bert_ulysses", dict(sp_degree=2, sp_mode="ulysses")))
+
+
+def _moe_program(transpile=None):
+    """The MoE transformer block of tests/test_moe_transformer_composition.py
+    (attention, then a switch_moe FFN; Momentum 0.05) at the widths of
+    paddle_tpu/fluid/benchmark.py:329: batch 8, S 512, hidden 768, 12
+    heads (D 64), 8 experts of ffn 3072, capacity factor 1.25.
+    ``transpile(main, startup)`` runs after minimize."""
+    L = fluid.layers
+    D_ = MOE_HID // MOE_HEADS
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = L.data(name="x", shape=[MOE_S, MOE_HID], dtype="float32")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        uni = fluid.ParamAttr(
+            initializer=fluid.initializer.Uniform(-0.05, 0.05))
+        q = L.transpose(L.reshape(L.fc(x, size=MOE_HID, num_flatten_dims=2,
+                                       param_attr=uni),
+                                  [0, MOE_S, MOE_HEADS, D_]), [0, 2, 1, 3])
+        ctx = L.fused_attention(q, q, q, scale=D_ ** -0.5)
+        h = x + L.reshape(L.transpose(ctx, [0, 2, 1, 3]),
+                          [0, MOE_S, MOE_HID])
+        moe, aux = L.switch_moe(h, num_experts=MOE_E, ffn_dim=MOE_F,
+                                act="gelu", param_attr=uni,
+                                capacity_factor=MOE_CF)
+        logits = L.fc(L.reduce_mean(h + moe, dim=1), size=8, param_attr=uni)
+        ce = L.mean(L.softmax_with_cross_entropy(logits, label))
+        loss = ce + 0.01 * L.reduce_sum(aux)
+        fluid.optimizer.MomentumOptimizer(0.05, 0.9).minimize(loss)
+    if transpile is not None:
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            transpile(main, startup)
+    return main, startup, loss, aux, moe
+
+
+def _moe_feed():
+    rng = np.random.RandomState(SEED)
+    return {"x": rng.normal(0, 1, (MOE_B, MOE_S, MOE_HID)).astype(np.float32),
+            "label": rng.randint(0, 8, (MOE_B, 1)).astype(np.int64)}
+
+
+def _moe_runs():
+    """(path name, transpile) of moe's four runs."""
+    from paddle_tpu_torch.fluid.transpiler import (ExpertParallelTranspiler,
+                                                   SequenceParallelTranspiler)
+    return (
+        ("sp_ring_flash", lambda m, s: SequenceParallelTranspiler(
+            2, mode="ring").transpile(m, s)),
+        ("ep_moe_dense", lambda m, s: ExpertParallelTranspiler(2)
+         .transpile(m, s)),
+        ("ep_moe_a2a_fp32", lambda m, s: ExpertParallelTranspiler(
+            2, dispatch="a2a").transpile(m, s)),
+        ("ep_moe_a2a_int8", lambda m, s: ExpertParallelTranspiler(
+            2, dispatch="a2a", dispatch_precision="int8").transpile(m, s)))
+
+
+def _mp_steps(exe, main, feed, fetch, scope, init, place, out=None):
+    """The path's run from ``init``: MP_STEPS steps on ``feed``, the
+    kernel counts set to 0 just before and read just after.  Returns the
+    record of losses (and the other fetches of step 1), ms per timed
+    step, peak and parameter bytes, launches, collective traffic; with
+    ``out`` (a variable fetched on every step, left on the card), its
+    step-1 value as ``out1`` (a host tensor)."""
+    from paddle_tpu_torch.fluid import telemetry
+    from paddle_tpu_torch.parallel import tensor_parallel as ptp
+    fluid.load_numpy_params(scope, init, place, program=main)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptp.reset_comm()
+    n0 = telemetry.step_events_recorded()
+    _reset_launches()
+    got, out1 = [], None
+    extra = [out] if out is not None else []
+    for i in range(MP_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        vals = exe.run(main, feed=feed, fetch_list=fetch + extra,
+                       scope=scope, return_numpy=False)
+        got.append([float(v.reshape(-1)[0]) for v in vals[:len(fetch)]])
+        if i == 0 and out is not None:
+            out1 = vals[-1].float().cpu()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (MP_STEPS - 1)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    params = main.global_block().all_parameters()
+    ev = telemetry.step_events()[-(telemetry.step_events_recorded() - n0):]
+    return dict(
+        losses=[g[0] for g in got], fetch1=got[0][1:], ms_per_step=ms,
+        **({"out1": out1} if out is not None else {}),
+        peak_mb=peak / 2**20, base_mb=base / 2**20,
+        param_mb=sum(scope.find_var(p.name).numel() *
+                     scope.find_var(p.name).element_size()
+                     for p in params) / 2**20,
+        opt_state_mb=(ev[-1].get("opt_state_bytes") or 0) / 2**20,
+        launches=launches,
+        comm_per_step={"%s@%s" % k: [v[0] / MP_STEPS, v[1] / MP_STEPS]
+                       for k, v in ptp.comm.items()},
+        recorded_comm_by=ev[-1]["comm_by"])
+
+
+def _one_process(main, startup, feed, fetch, init, out=None):
+    """The same program in this process (the reference of a two-rank
+    path): its _mp_steps record."""
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rec = _mp_steps(exe, main, feed, fetch, scope, init, fluid.CUDAPlace(0),
+                    out=out)
+    del scope
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _child_mp_bert(d):
+    """A rank of mp_bert: BERT-base (dropout off) through fleet with
+    mp_degree=2, then sp_degree=2 ring and Ulysses, each from phase
+    train's initial parameters and batch."""
+    from paddle_tpu_torch.fluid.incubate.fleet.collective import \
+        DistributedStrategy
+    rank, n, fleet, exe = _child_world("gloo")
+    init = {k: v.numpy() for k, v in torch.load(d / "init.pt").items()}
+    feed = dict(np.load(d / "feed.npz"))
+    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
+    res = dict(rank=rank, world=n, backend=torch.distributed.get_backend(),
+               paths={})
+    for name, kw in _mp_strategies():
+        main, startup, out = _build_pretrain(cfg, fleet.distributed_optimizer(
+            fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR),
+            strategy=DistributedStrategy(**kw)))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        rec = _mp_steps(exe, main, feed, [out["loss"]], scope, init,
+                        exe.place)
+        rec["annotated"] = len(getattr(main, "_mp_shardings", {}) or {})
+        res["paths"][name] = rec
+        del scope, main, startup
+        torch.cuda.empty_cache()
+    return res
+
+
+def _child_moe(d):
+    """A rank of moe: the MoE block at sp 2 (the flash ring) and at ep 2
+    (dense, a2a fp32, a2a int8), from the one-process startup weights;
+    then kernel_ring."""
+    rank, n, _fleet, exe = _child_world("gloo")
+    init = {k: v.numpy() for k, v in torch.load(d / "init.pt").items()}
+    ref_out = torch.load(d / "moe_out.pt")
+    feed = _moe_feed()
+    res = dict(rank=rank, world=n, paths={})
+    for name, transpile in _moe_runs():
+        main, startup, loss, aux, moe = _moe_program(transpile)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        rec = _mp_steps(exe, main, feed, [loss, aux], scope, init,
+                        exe.place, out=moe)
+        # the MoE op's step-1 output against one process's, over its
+        # largest entry: a dropped or misrouted token moves it by O(1)
+        got = rec.pop("out1")
+        rec["moe_out_rel_err"] = float((got - ref_out).abs().max() /
+                                       ref_out.abs().max())
+        w = [p for p in main.global_block().all_parameters()
+             if p.name.startswith("switch_moe") and len(p.shape) == 3]
+        rec["expert_mb"] = sum(scope.find_var(p.name).numel() * 4
+                               for p in w) / 2**20
+        res["paths"][name] = rec
+        del scope, main, startup
+        torch.cuda.empty_cache()
+    res["kernel_ring"] = _kernel_ring(rank)
+    return res
+
+
+def _kernel_ring(rank):
+    """The flash ring's forward and backward at the MoE block's attention
+    shape (B 8, H 12, S 512 as two shards of 256, D 64), fp32 and bf16,
+    on this rank's shard: against the einsum ring over the same group and
+    against the plain K2-K4 (attention_reference and its backward) over
+    the whole sequence; wall ms of both rings' forward + backward (their
+    exchanges go through the host on gloo, so wall, not device, time)."""
+    from paddle_tpu_torch.parallel import sequence_parallel as spm
+    B_, H_, S_, D_ = MOE_B, MOE_HEADS, MOE_S, MOE_HID // MOE_HEADS
+    Tl = S_ // 2
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(SEED)
+        q, k, v, do = (torch.randn(B_ * H_, S_, D_, generator=g) * 0.5
+                       for _ in range(4))
+        sl = slice(rank * Tl, (rank + 1) * Tl)
+        loc = [t[:, sl].contiguous().to("cuda", dt) for t in (q, k, v, do)]
+        scale = D_ ** -0.5
+
+        def flash_ring():
+            xs = [t.detach().requires_grad_() for t in loc[:3]]
+            o = spm.RingFlashFunction.apply(*xs, None, scale)
+            o.backward(loc[3])
+            return o.detach(), [x.grad for x in xs]
+
+        def einsum_ring():
+            xs = [t.detach().requires_grad_() for t in loc[:3]]
+            o = spm.ring_attention_einsum_bhsd(
+                *[x.reshape(B_, H_, Tl, D_) for x in xs], None,
+                scale=scale).reshape(B_ * H_, Tl, D_)
+            o.backward(loc[3])
+            return o.detach(), [x.grad for x in xs]
+
+        attention_ops.flash_attention.launches = 0
+        fo, fg = flash_ring()
+        launches = dict(k2=attention_ops.flash_attention.launches)
+        eo, eg = einsum_ring()
+        full = [t.to("cuda", dt) for t in (q, k, v, do)]
+        po, lse = attention_reference(*full[:3], None, scale, with_lse=True)
+        from paddle_tpu_torch.fluid.ops.attention_ops import \
+            flash_attention_bwd_reference
+        pdq, pdk, pdv, _ = flash_attention_bwd_reference(
+            *full[:3], None, scale, po, lse, full[3])
+        plain = [po[:, sl], [pdq[:, sl], pdk[:, sl], pdv[:, sl]]]
+
+        def err(a, b):
+            # max |a - b| over max |b|, each tensor at its own scale (dq
+            # and dk are ~0.03 at most here, o and dv ~0.1)
+            b = b.float()
+            return float((a.float() - b).abs().max() / b.abs().max())
+
+        names = ("o", "dq", "dk", "dv")
+        e_plain = {n: err(x, y) for n, x, y in
+                   zip(names, [fo] + fg, [plain[0]] + plain[1])}
+        e_einsum = {n: err(x, y) for n, x, y in
+                    zip(names, [fo] + fg, [eo] + eg)}
+        times = {}
+        for label, fn in (("flash", flash_ring), ("einsum", einsum_ring),
+                          ("einsum_again", einsum_ring),
+                          ("flash_again", flash_ring)):
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) * 1e3 / 5
+        out[str(dt).replace("torch.", "")] = dict(
+            max_rel_err_vs_plain=max(e_plain.values()),
+            max_rel_err_vs_einsum=max(e_einsum.values()),
+            rel_err_vs_plain=e_plain, rel_err_vs_einsum=e_einsum,
+            flash_ring_ms=min(times["flash"], times["flash_again"]),
+            einsum_ring_ms=min(times["einsum"], times["einsum_again"]),
+            k2_launches_forward=launches["k2"])
+    return out
+
+
+def _loss_rel_errs(recs, ref):
+    """Each step's largest relative loss difference of the ranks from
+    one process."""
+    return [max(abs(r["losses"][i] - ref["losses"][i]) /
+                abs(ref["losses"][i]) for r in recs)
+            for i in range(MP_STEPS)]
+
+
+def phase_mp_bert(train):
+    """tp_bert and sp_bert: BERT-base at phase train's configuration with
+    all dropout off, batch 32, from phase train's initial parameters and
+    batch, as two gloo ranks on card 0 with mp_degree=2, then
+    sp_degree=2 ring and Ulysses, MP_STEPS steps each; against the same
+    program in one process: step-1 loss, peak memory and parameter bytes
+    per rank, ms per step, the model-parallel collectives a step."""
+    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
+    init = {k: v.numpy() for k, v in train["init"].items()}
+    main, startup, out = _build_pretrain(cfg)
+    ref = _one_process(main, startup, train["feed"], [out["loss"]], init)
+    del main, startup
+    emit(phase="mp_bert_one_process", **ref)
+    d = _io_dir("mp_bert")
+    torch.save(train["init"], d / "init.pt")
+    np.savez(d / "feed.npz", **train["feed"])
+    torch.cuda.empty_cache()
+    ranks, wall = _launch_ranks("mp_bert", [0, 0], d)
+    L = cfg.num_layers
+    steps = MP_STEPS
+    by_path = {}
+    for name, _kw in _mp_strategies():
+        recs = [r["paths"][name] for r in ranks]
+        la = recs[0]["launches"]
+        errs = _loss_rel_errs(recs, ref)
+        loss_err = errs[0]
+        kernels = 0 if name == "sp_bert_ring" else L * steps
+        checks = {
+            "gloo_two_ranks": [r["rank"] for r in ranks] == [0, 1] and
+            all(r["backend"] == "gloo" for r in ranks),
+            "step1_loss_matches_one_process": loss_err <= MP_LOSS_RTOL,
+            # steps 2-4 follow a backward and an update through the
+            # model-parallel layer (the rotations' and all-to-alls'
+            # backward, the sharded optimizer state)
+            "later_losses_match_one_process": max(errs[1:]) <= MP_LOSS_RTOL,
+            "ranks_same_losses": recs[0]["losses"] == recs[1]["losses"],
+            "losses_finite": bool(np.isfinite(recs[0]["losses"]).all()),
+            "k2_k3_k4": all(la[k] == kernels for k in (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")),
+            "k5_0": la["flash_attention_bwd_dbias"] == 0,
+        }
+        if name == "tp_bert":
+            checks["params_below_one_process"] = all(
+                r["param_mb"] < ref["param_mb"] for r in recs)
+        emit(phase=name, seconds=wall, losses=[r["losses"] for r in recs],
+             one_process_losses=ref["losses"], step1_loss_rel_err=loss_err,
+             loss_rel_errs=errs,
+             ms_per_step=[r["ms_per_step"] for r in recs],
+             one_process_ms_per_step=ref["ms_per_step"],
+             peak_mb=[r["peak_mb"] for r in recs],
+             one_process_peak_mb=ref["peak_mb"],
+             param_mb=[r["param_mb"] for r in recs],
+             one_process_param_mb=ref["param_mb"],
+             opt_state_mb=[r["opt_state_mb"] for r in recs],
+             one_process_opt_state_mb=ref["opt_state_mb"],
+             comm_per_step=recs[0]["comm_per_step"],
+             annotated_weights=recs[0]["annotated"], launches=la,
+             checks=checks)
+        _fail_unless(name, checks)
+        by_path[name] = la
+    shutil.rmtree(d, ignore_errors=True)
+    return by_path
+
+
+def phase_moe():
+    """sp_ring_flash, ep_moe and kernel_ring: the MoE block at sp 2 (ring:
+    T_local 256, no bias, so the flash ring: K2 with the LSE twice a
+    forward, K3 and K4 twice a backward with the global LSE) and at ep 2
+    (dense, a2a fp32, a2a int8), two gloo ranks on card 0, from one
+    startup's weights; against the program in one process: the step-1
+    loss and aux loss, peak memory, expert bytes per rank, ms per step,
+    the a2a bytes by precision; then the flash ring's kernels against the
+    einsum ring and the plain K2-K4."""
+    main, startup, loss, aux, moe = _moe_program()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {p: scope.find_var(p).cpu() for p in
+            (v.name for v in main.list_vars() if v.persistable)
+            if scope.find_var(p) is not None}
+    del scope
+    ref = _one_process(main, startup, _moe_feed(), [loss, aux],
+                       {k: v.numpy() for k, v in init.items()}, out=moe)
+    ref_out = ref.pop("out1")
+    expert_mb = 2 * MOE_E * MOE_HID * MOE_F * 4 / 2**20
+    emit(phase="moe_one_process", expert_mb=expert_mb,
+         moe_out_max_abs=float(ref_out.abs().max()), **ref)
+    d = _io_dir("moe")
+    torch.save(init, d / "init.pt")
+    torch.save(ref_out, d / "moe_out.pt")
+    del ref_out
+    torch.cuda.empty_cache()
+    ranks, wall = _launch_ranks("moe", [0, 0], d)
+    by_path = {}
+    for name, _t in _moe_runs():
+        recs = [r["paths"][name] for r in ranks]
+        la = recs[0]["launches"]
+        out_tol = MOE_OUT_RTOL["int8" if name.endswith("int8") else "fp32"]
+        errs = _loss_rel_errs(recs, ref)
+        loss_err = errs[0]
+        aux_err = max(abs(r["fetch1"][0] - ref["fetch1"][0]) /
+                      abs(ref["fetch1"][0]) for r in recs)
+        out_err = max(r["moe_out_rel_err"] for r in recs)
+        flash = 2 * MP_STEPS if name == "sp_ring_flash" else MP_STEPS
+        checks = {
+            "step1_loss_matches_one_process": loss_err <= MP_LOSS_RTOL,
+            "later_losses_match_one_process": max(errs[1:]) <= MP_LOSS_RTOL,
+            # the routing, before any exchange
+            "step1_aux_matches_one_process": aux_err <= MP_LOSS_RTOL,
+            "step1_moe_out_matches_one_process": out_err <= out_tol,
+            "ranks_same_losses": recs[0]["losses"] == recs[1]["losses"],
+            "losses_finite": bool(np.isfinite(recs[0]["losses"]).all()),
+            "k2_k3_k4": all(la[k] == flash for k in (
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv")),
+            "k5_0": la["flash_attention_bwd_dbias"] == 0,
+        }
+        if name.startswith("ep_"):
+            checks["half_the_experts"] = all(
+                abs(r["expert_mb"] - expert_mb / 2) < 1e-6 for r in recs)
+        emit(phase=name, seconds=wall, losses=[r["losses"] for r in recs],
+             one_process_losses=ref["losses"], step1_loss_rel_err=loss_err,
+             loss_rel_errs=errs, aux=[r["fetch1"][0] for r in recs],
+             one_process_aux=ref["fetch1"][0], step1_aux_rel_err=aux_err,
+             step1_moe_out_rel_err=out_err, moe_out_tolerance=out_tol,
+             ms_per_step=[r["ms_per_step"] for r in recs],
+             one_process_ms_per_step=ref["ms_per_step"],
+             peak_mb=[r["peak_mb"] for r in recs],
+             one_process_peak_mb=ref["peak_mb"],
+             expert_mb=[r["expert_mb"] for r in recs],
+             comm_per_step=recs[0]["comm_per_step"],
+             recorded_comm_by=recs[0]["recorded_comm_by"], launches=la,
+             checks=checks)
+        _fail_unless(name, checks)
+        by_path[name] = la
+    ring = {r["rank"]: r["kernel_ring"] for r in ranks}
+    checks = {}
+    for dt, tol in RING_TOL.items():
+        for rk, rec in ring.items():
+            checks["%s_rank%d_vs_plain" % (dt, rk)] = \
+                rec[dt]["max_rel_err_vs_plain"] <= tol
+            checks["%s_rank%d_vs_einsum" % (dt, rk)] = \
+                rec[dt]["max_rel_err_vs_einsum"] <= tol
+            checks["%s_rank%d_k2_twice" % (dt, rk)] = \
+                rec[dt]["k2_launches_forward"] == 2
+    emit(phase="kernel_ring", shape=dict(B=MOE_B, H=MOE_HEADS, S=MOE_S,
+                                         T_local=MOE_S // 2,
+                                         D=MOE_HID // MOE_HEADS),
+         tolerance=RING_TOL, ranks=ring, checks=checks)
+    _fail_unless("kernel_ring", checks)
+    shutil.rmtree(d, ignore_errors=True)
+    return by_path, ring[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -6306,6 +6781,7 @@ def main():
     by_path["dp_two_ranks_sharded"], by_path["dp_two_ranks_int8"] = \
         phase_dp_two_ranks_sharded(train)
     by_path.update(phase_train_surface(train))
+    by_path.update(phase_mp_bert(train))
     del train
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
@@ -6331,6 +6807,8 @@ def main():
     by_path["dataset_train"] = phase_dataset_train()
     by_path["elastic_shrink"] = phase_elastic_shrink()
     phase_watchdog_stall()
+    moe_paths, ring = phase_moe()
+    by_path.update(moe_paths)
     book_paths, mt = phase_book_train()
     by_path.update(book_paths)
     phase_book_check(mt)
@@ -6373,6 +6851,10 @@ def main():
             # launches it with the LSE at BH = 384
             rows[-1]["training_with_lse"] = {
                 key: bwd["fwd_with_lse"][key] for key in keys}
+            # the flash ring (K2 with the LSE per step, K3/K4 with the
+            # global LSE) at the MoE block's shape, rank 0's wall ms of
+            # forward + backward beside the einsum ring's
+            rows[-1]["flash_ring"] = ring
         nmt_key = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq":
                    "dq", "flash_attention_bwd_dkv": "dkv"}.get(name)
         if nmt_key:

@@ -10,13 +10,15 @@ never imports ``jax`` or ``paddle_tpu``.  Its layout mirrors
 ``paddle_tpu`` so each module's counterpart is found by name.
 
 Subpackages load on first use (``paddle_tpu_torch.fluid``, ``.models``,
+``.parallel``,
 ``.reader``, ``.dataset``, ``.batch``), so ``python -m paddle_tpu_torch.distributed.
 launch`` supervises its ranks without importing torch.
 """
 
 import importlib
 
-_SUBPACKAGES = ("fluid", "models", "reader", "dataset", "distributed")
+_SUBPACKAGES = ("fluid", "models", "reader", "dataset", "distributed",
+               "parallel")
 
 
 def __getattr__(name):

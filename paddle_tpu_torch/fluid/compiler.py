@@ -30,13 +30,22 @@ a transpiled copy of the program —
   scope's per-parameter accumulators are carried into the rank's shards
   and then dropped from the scope, which is the memory the option saves.
 
+A program transpiled for tensor, sequence or expert parallelism keeps its
+model-parallel groups; the ranks its degree leaves are the replicas, and
+the copy's gradient all-reduce and startup broadcast run over the dp
+group (ring 0, ``fluid/model_parallel.py``).  Its gradients are
+all-reduced one by one, not coalesced: a sharded weight's gradient has
+the rank's shape, not the one the program declares.  With one replica
+the program runs as it is; weight-update sharding over the replicas is
+ROADMAP item 11b.
+
 With no process group (a world of one) the plain program runs.
 Concatenating the ranks' fetches gives the JAX package's one fetch.
 """
 
 import weakref
 
-from . import distributed, framework
+from . import distributed, framework, model_parallel
 from .executor import _CompiledProgramProxy
 
 
@@ -136,13 +145,29 @@ class CompiledProgram(_CompiledProgramProxy):
         dist = distributed._dist() if self._is_data_parallel else None
         if dist is None:
             return self._program
+        # a tensor/sequence/expert-parallel program: its dp replicas are
+        # the ranks its degree leaves (ring 0 of its runs is their group)
+        par = model_parallel.context(self._program)
+        replicas = dist.get_world_size()
+        if par:
+            replicas //= max(c.degree for c in par.values())
+            if replicas <= 1:
+                return self._program
+            if getattr(self._build_strategy, "zero_shard_optimizer_state",
+                       False):
+                raise NotImplementedError(
+                    "zero_shard_optimizer_state over the dp replicas of a "
+                    "tensor/sequence/expert-parallel program is ROADMAP "
+                    "item 11b (the dp x mp compositions)")
         key = (self._program.fingerprint, dist.get_world_size(),
                dist.get_rank())
         if self._dp is None or self._dp[0] != key:
             from .transpiler import GradAllReduce
-            world = dist.get_world_size()
+            world = replicas
             bs = self._build_strategy
             main, startup = self._program.clone(), framework.Program()
+            # the startup's broadcast runs over the dp group too
+            model_parallel.carry_degrees(self._program, startup)
             for p in main.global_block().all_parameters():
                 # the broadcast writes the scope's parameters back only
                 # if the startup copy declares them persistable
@@ -150,12 +175,14 @@ class CompiledProgram(_CompiledProgramProxy):
                     name=p.name, shape=p.shape, dtype=p.dtype,
                     persistable=True)
             t = GradAllReduce(
-                fuse_grad_size_mb=32 if bs.fuse_all_reduce_ops else 0,
+                fuse_grad_size_mb=32 if bs.fuse_all_reduce_ops and not par
+                else 0,
                 sync_batch_norm=world > 1 or bool(bs.sync_batch_norm),
                 weight_update_sharding=bool(
                     getattr(bs, "zero_shard_optimizer_state", False)))
             t.transpile(startup_program=startup, main_program=main,
-                        rank=dist.get_rank(), endpoints=[], nranks=world)
+                        rank=dist.get_rank(), endpoints=[],
+                        nranks=0 if par else world)
             self._dp = (key, main, startup, t.wus_state_sources)
             self._synced = weakref.WeakSet()
         _key, main, startup, sources = self._dp

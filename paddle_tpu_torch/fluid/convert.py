@@ -20,6 +20,12 @@ carried like any other::
     names = [v.name for v in jax_main.list_vars() if v.persistable]
     arrays = {n: np.asarray(jax_scope.find_var(n)) for n in names}
     fluid.load_numpy_params(port_scope, arrays, fluid.CUDAPlace(0))
+
+Under tensor or expert parallelism the JAX package holds every weight at
+its global shape (GSPMD shards the storage); pass the transpiled
+``program=`` and each rank keeps its shard: the slice on the sharded dim
+for mp, the expert slice for ep, and the same slice of the weight's
+optimizer state (``model_parallel.shard_state``).
 """
 
 import numpy as np
@@ -28,11 +34,18 @@ import torch
 from .executor import device_for_place
 
 
-def load_numpy_params(scope, arrays, place):
+def load_numpy_params(scope, arrays, place, program=None):
     """Write ``{var name: np.ndarray}`` into ``scope`` as torch tensors on
     ``place``'s device.  Arrays are copied; dtypes are kept (float64
-    stays float64 — cast before calling if the program wants float32)."""
+    stays float64 — cast before calling if the program wants float32).
+    With ``program`` (transpiled for tensor or expert parallelism, in a
+    world of ranks) a sharded weight and its optimizer state keep this
+    rank's slice of the global array."""
+    from . import model_parallel
     device = device_for_place(place)
+    par = model_parallel.context(program) if program is not None else {}
     for name, arr in arrays.items():
         t = torch.from_numpy(np.array(arr, copy=True))
+        if par:
+            t = model_parallel.shard_state(program, name, t, par)
         scope.set_var(name, t.to(device))

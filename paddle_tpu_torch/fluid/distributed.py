@@ -23,7 +23,9 @@ program are ``torch.distributed`` calls on a process group.
 - :func:`shutdown` destroys the process group.
 - :func:`ring_group` / :func:`register_ring`: ``ring_id`` → process
   group.  Ring 0 is the world; further rings are groups that the
-  ``c_comm_init`` op builds (ops/collective_ops.py).
+  ``c_comm_init`` op builds (ops/collective_ops.py).  A model-parallel
+  program's run resolves its ring 0 to its dp group itself
+  (``lowering.ExecState.ring_group``).
   :func:`ring_levels`: a ring's two levels (node groups and the group of
   node roots) for hierarchical allreduce.
 
@@ -146,6 +148,7 @@ def init(coordinator_address=None, num_processes=None, process_id=None,
                   num_processes=dist.get_world_size())
     _rings.clear()
     _levels.clear()
+    _forget_model_parallel_groups()
     telemetry.set_process_index(_state["process_id"],
                                 _state["num_processes"])
     return _state["process_id"], _state["num_processes"]
@@ -174,6 +177,7 @@ def shutdown():
     _state.update(connected=False, process_id=0, num_processes=1)
     _rings.clear()
     _levels.clear()
+    _forget_model_parallel_groups()
     telemetry.set_process_index(None)
     d = _dist()
     if was and d is not None:
@@ -209,6 +213,12 @@ def comm_device():
     if backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def _forget_model_parallel_groups():
+    mesh = sys.modules.get(__name__.rsplit(".", 1)[0] + ".mesh_utils")
+    if mesh is not None:
+        mesh.reset_model_parallel_coords()
 
 
 def register_ring(ring_id, group):

@@ -22,6 +22,7 @@ import torch
 
 from . import distributed
 from . import flags
+from . import model_parallel
 from . import framework
 from . import preemption
 from . import profiler
@@ -431,6 +432,12 @@ class _DispatchPlan:
             block, set(self.state_out) | set(self.fetch_names))
         self.steps_per_run = int(steps_per_run)
         self.is_window = bool(window)
+        # tensor / sequence / expert parallelism: this rank's groups
+        # and, for tp/sp, how each op runs on its shard
+        # (fluid/model_parallel.py); {} and None otherwise
+        self.par = model_parallel.context(program)
+        self.shard = model_parallel.plan(program, block, feed_names,
+                                         fetch_names, self.par)
         # the first dispatch of a plan carries its first-call costs; the
         # step event stamps its wall time as compile_s, then clears this
         self.fresh = True
@@ -621,13 +628,19 @@ class Executor:
         policy = flags.nan_inf_policy()
         nan_log = [] if policy == "raise" else None
         carry, fetches, oks, comm = {}, [], [], []
-        rank = distributed.process_index()
+        rank = model_parallel.dp_rank(plan.par) if plan.par else \
+            distributed.process_index()
+        shard = plan.shard
         for i in range(K):
             env = {n: carry.get(n, v) for n, v in state_vals.items()}
             if plan.is_window:
                 env.update((n, v[i]) for n, v in feeds.items())
             else:
                 env.update(feeds)
+            if shard is not None:
+                for n in shard.feeds:
+                    if n in env:
+                        env[n] = shard.slice_feed(n, env[n])
             # AMP: contrib.mixed_precision.decorate tags the program, as
             # the JAX executor reads it (executor.py:1972-1988)
             state = ExecState(program.blocks, step0 + i, program.random_seed,
@@ -636,12 +649,12 @@ class Executor:
                               amp_keep=program._amp_keep, nan_log=nan_log,
                               rank=rank, hierarchical=getattr(
                                   program, "_collective_hierarchical",
-                                  None))
+                                  None), parallel=plan.par)
             # only taped forward ops turn autograd on, inside run_block
             try:
                 with torch.no_grad():
                     run_block(plan.block, env, state, plan.taped,
-                              plan.release)
+                              plan.release, shard)
             finally:
                 state.tape.clear()
             comm.extend(state.comm_log)
@@ -650,6 +663,9 @@ class Executor:
                 raise KeyError("fetch targets %s were not produced by the "
                                "program" % missing)
             got = [env[n] for n in plan.fetch_names]
+            if shard is not None and shard.fetch:
+                got = [shard.gather_fetch(n, v)
+                       for n, v in zip(plan.fetch_names, got)]
             new = {n: env[n] for n in plan.state_out}
             if policy == "skip":
                 ok = _finite_verdict(got, new.values())
@@ -724,7 +740,8 @@ class Executor:
         t1 = time.perf_counter_ns()
         profiler.device_profile_end(k)
         for n in plan.state_out:
-            scope.set_var(n, new_state[n])
+            scope.set_var(n, model_parallel.shard_state(
+                program, n, new_state[n], plan.par))
         if plan.is_window:
             profiler.record_window(k)
         if verdicts is not None:

@@ -284,6 +284,29 @@ class Block:
                 tuple(op._sig() for op in self.ops))
 
 
+# Program-level model-parallel annotations the transpilers set
+# (tensor_parallel / sequence_parallel / expert_parallel; JAX
+# framework.py:339): what clone() carries over and what the fingerprint
+# folds in, so a plan built before a transpile is never reused after it.
+PROGRAM_ANNOTATIONS = (
+    ("_mp_degree", 0), ("_mp_shardings", {}),
+    ("_sp_degree", 0), ("_sp_mode", None), ("_sp_feed_dims", {}),
+    ("_ep_degree", 0),
+)
+
+
+def annotation_key(program):
+    """The program's model-parallel annotations as a hashable tuple."""
+    out = []
+    for name, default in PROGRAM_ANNOTATIONS:
+        val = getattr(program, name, default)
+        if isinstance(val, dict):
+            val = tuple(sorted((k, tuple(v) if isinstance(v, (list, tuple))
+                                else v) for k, v in val.items()))
+        out.append(val)
+    return tuple(out)
+
+
 class Program:
     """A whole program: list of nested blocks (framework.py:2775).
     ``_version``/``fingerprint`` key the executor's dispatch-plan cache."""
@@ -349,6 +372,7 @@ class Program:
         h.update(repr(tuple(b._sig() for b in self.blocks)).encode())
         h.update(repr((self.random_seed, self._is_test, self._amp_dtype,
                        self._amp_keep)).encode())
+        h.update(repr(annotation_key(self)).encode())
         fp = h.hexdigest()
         self._fingerprint_cache = (self._version, fp)
         return fp
@@ -421,6 +445,11 @@ class Program:
         p._dp_sharded_state = set(self._dp_sharded_state)
         p._wus_degree = self._wus_degree
         p._wus_padded_numel = dict(self._wus_padded_numel)
+        for name, default in PROGRAM_ANNOTATIONS:
+            if hasattr(self, name):
+                val = getattr(self, name)
+                setattr(p, name, dict(val) if isinstance(val, dict)
+                        else val)
         p.current_block_idx = 0
         p._bump_version()
         return p

@@ -16,8 +16,10 @@ The strategy's ``weight_update_sharding``, ``allreduce_precision`` (with
 ``quant_block_size`` and ``error_feedback``) and
 ``use_hierarchical_allreduce`` (with ``hierarchical_allreduce_inter_nranks``,
 the node count) go to the transpile, as in the JAX package.  Model
-parallelism (``mp_degree``/``sp_degree``/``ep_degree`` > 1) is ROADMAP
-queue 1 item 11 and raises naming it.
+parallelism (``mp_degree``/``sp_degree`` with ``sp_mode``/``ep_degree``
+with ``ep_dispatch`` and ``ep_dispatch_precision``, > 1) applies the
+tensor, sequence and expert transpilers instead; the rest of the world
+is the data-parallel replicas (``fluid/model_parallel.py``).
 """
 
 from ..base.fleet_base import Fleet, DistributedOptimizer
@@ -96,14 +98,11 @@ class CollectiveOptimizer(DistributedOptimizer):
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
         strategy = self._strategy
-        degrees = {k: getattr(strategy, k, 1)
+        degrees = {k: getattr(strategy, k, 1) or 1
                    for k in ("mp_degree", "sp_degree", "ep_degree")}
         if any(d > 1 for d in degrees.values()):
-            raise NotImplementedError(
-                "DistributedStrategy(%s): tensor, sequence and expert "
-                "parallelism are not ported yet (ROADMAP queue 1 item 11)"
-                % ", ".join("%s=%d" % kv for kv in sorted(degrees.items())
-                            if kv[1] > 1))
+            return self._minimize_model_parallel(
+                loss, startup_program, parameter_list, no_grad_set, degrees)
         if getattr(strategy, "local_sgd", False):
             t = LocalSGD(nrings=strategy.nrings,
                          k_steps=strategy.local_sgd_steps)
@@ -142,6 +141,70 @@ class CollectiveOptimizer(DistributedOptimizer):
         t.transpile(startup_program=startup, main_program=main, rank=rank,
                     endpoints=endpoints, nranks=nranks if endpoints else 0,
                     **kwargs)
+        return optimize_ops, params_grads
+
+    def _minimize_model_parallel(self, loss, startup_program,
+                                 parameter_list, no_grad_set, degrees):
+        """``mp/sp/ep_degree > 1`` (JAX collective/__init__.py:118-150):
+        minimize, then the tensor, sequence and expert transpiles.  The
+        ranks the degree leaves form the dp groups; with more than one
+        replica the gradients are all-reduced over the dp group
+        (``GradAllReduce`` on ring 0, which the model-parallel layer maps
+        to the dp group), one by one: a sharded weight's gradient has the
+        rank's shape, which a coalesced bucket of the program's shapes
+        would not fit.  LocalSGD and hierarchical allreduce are refused,
+        as in the JAX package, and so is a world the degrees do not
+        divide."""
+        strategy = self._strategy
+        if getattr(strategy, "local_sgd", False) or \
+                getattr(strategy, "use_hierarchical_allreduce", False):
+            raise ValueError(
+                "mp/sp/ep_degree>1 cannot be combined with local_sgd or "
+                "use_hierarchical_allreduce")
+        fleet_obj = self._fleet or fleet
+        world = fleet_obj.worker_num() if fleet_obj._is_initialized \
+            else distributed.process_count()
+        degree = max(degrees.values())
+        if world > 1 and world % degree:
+            raise ValueError(
+                "DistributedStrategy(%s) does not divide the world of %d "
+                "rank(s)" % (", ".join("%s=%d" % kv for kv in
+                                       sorted(degrees.items()) if kv[1] > 1),
+                             world))
+        from ....transpiler.expert_parallel import ExpertParallelTranspiler
+        from ....transpiler.sequence_parallel import \
+            SequenceParallelTranspiler
+        from ....transpiler.tensor_parallel import TensorParallelTranspiler
+        optimize_ops, params_grads = self._optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        main = loss.block.program
+        startup = startup_program or default_startup_program()
+        if degrees["mp_degree"] > 1:
+            TensorParallelTranspiler(degrees["mp_degree"]).transpile(
+                main, startup)
+        if degrees["sp_degree"] > 1:
+            SequenceParallelTranspiler(
+                degrees["sp_degree"],
+                mode=getattr(strategy, "sp_mode", "ring")).transpile(
+                    main, startup)
+        if degrees["ep_degree"] > 1:
+            ExpertParallelTranspiler(
+                degrees["ep_degree"],
+                dispatch=getattr(strategy, "ep_dispatch", "dense"),
+                dispatch_precision=getattr(strategy,
+                                           "ep_dispatch_precision",
+                                           "fp32")).transpile(main, startup)
+        if world // degree > 1:
+            GradAllReduce(
+                fuse_grad_size_mb=0,
+                allreduce_precision=getattr(strategy,
+                                            "allreduce_precision", None),
+                use_bf16_allreduce=getattr(strategy,
+                                           "use_bf16_allreduce", False)
+            ).transpile(startup_program=startup, main_program=main,
+                        rank=fleet_obj.worker_index()
+                        if fleet_obj._is_initialized else 0,
+                        endpoints=[], nranks=0)
         return optimize_ops, params_grads
 
 

@@ -39,7 +39,7 @@ from .metric_op import accuracy                              # noqa: F401
 from .tensor import (assign, create_parameter, fill_constant,  # noqa: F401
                      cast, concat, sums, fill_constant_batch_size_like,
                      zeros_like, range, isfinite)
-from .rnn import (fused_attention, dynamic_lstm,  # noqa: F401
+from .rnn import (fused_attention, switch_moe, dynamic_lstm,  # noqa: F401
                   linear_chain_crf, crf_decoding, cos_sim, nce,
                   beam_search, beam_search_decode)
 from .sequence import (sequence_mask, sequence_pool,  # noqa: F401

@@ -1,6 +1,6 @@
 """Recurrent, structured-prediction and generation layers (counterpart
 paddle_tpu/fluid/layers/rnn.py; reference ``python/paddle/fluid/layers/
-nn.py``): ``fused_attention``, and the book models' ``dynamic_lstm``,
+nn.py``): ``fused_attention``, ``switch_moe``, and the book models' ``dynamic_lstm``,
 ``linear_chain_crf``, ``crf_decoding``, ``cos_sim``, ``nce``,
 ``beam_search`` and ``beam_search_decode``.  Every sequence layer takes
 an explicit ``length`` Variable ``[batch]`` over padded ``[batch, time,
@@ -223,3 +223,55 @@ def fused_attention(q, k, v, attn_bias=None, scale=1.0, causal=False,
                             "__op_seed__":
                                 helper.main_program.next_op_seed()})
     return out
+
+
+def switch_moe(x, num_experts, ffn_dim, capacity_factor=1.25, act="relu",
+               param_attr=None, with_aux_loss=True, name=None):
+    """Switch-routed mixture-of-experts FFN block (ops/moe_ops.py; JAX
+    layers/rnn.py:299).
+
+    x [..., D] → (out [..., D], aux_loss [1]) — ``aux_loss`` is the
+    switch load-balance term (add a small multiple to the training
+    loss), or None when ``with_aux_loss=False``.  Beyond-reference
+    feature (the reference predates MoE); expert-parallel execution via
+    ``fluid.transpiler.ExpertParallelTranspiler`` or fleet
+    ``DistributedStrategy(ep_degree=N)``.
+    """
+    helper = LayerHelper("switch_moe", param_attr=param_attr, name=name)
+    D = int(x.shape[-1])
+    E, F = int(num_experts), int(ffn_dim)
+
+    if param_attr is False:
+        raise ValueError("switch_moe requires parameters; param_attr=False "
+                         "is not supported")
+
+    def attr_for(suffix):
+        # three distinct parameters: a user-supplied NAMED ParamAttr must
+        # not collapse them onto one variable, so suffix a COPY's name
+        # (copy.copy keeps subclass fields like WeightNormParamAttr.dim;
+        # rebuilding via ParamAttr(**__dict__) would TypeError on them)
+        import copy
+        from ..param_attr import ParamAttr
+        attr = copy.copy(ParamAttr._to_attr(param_attr))
+        if getattr(attr, "name", None):
+            attr.name = attr.name + "." + suffix
+        return attr
+
+    router_w = helper.create_parameter(attr_for("router"), [D, E], x.dtype)
+    w1 = helper.create_parameter(attr_for("w1"), [E, D, F], x.dtype)
+    w2 = helper.create_parameter(attr_for("w2"), [E, F, D], x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    outputs = {"Out": [out]}
+    aux = None
+    if with_aux_loss:
+        aux = helper.create_variable_for_type_inference("float32")
+        aux.shape = (1,)
+        outputs["AuxLoss"] = [aux]
+    helper.append_op("switch_moe",
+                     inputs={"X": [x], "RouterW": [router_w],
+                             "W1": [w1], "W2": [w2]},
+                     outputs=outputs,
+                     attrs={"capacity_factor": float(capacity_factor),
+                            "act": act})
+    return out, aux

@@ -21,9 +21,11 @@ detached tensors, and the executor clears the tape when ``run`` ends,
 also when it raises.
 """
 
+import contextlib
+
 import torch
 
-from . import flags
+from . import distributed, flags
 from .data_types import torch_dtype
 from .framework import op_sub_block_indices
 from .registry import get_op_def
@@ -37,7 +39,7 @@ class ExecState:
 
     def __init__(self, blocks, step, seed, device, is_test=False,
                  amp_dtype=None, amp_keep=False, nan_log=None, rank=0,
-                 hierarchical=None):
+                 hierarchical=None, parallel=None):
         self.blocks = blocks    # program blocks
         self.step = step        # host int, increments per run
         self.seed = seed        # program random seed
@@ -65,6 +67,31 @@ class ExecState:
         # (species, precision, bytes, grad bucket, axis) of every
         # collective the run issued (ops/collective_ops.py)
         self.comm_log = []
+        # {axis: mesh_utils.Coords} of the program's model-parallel
+        # degrees in this world (fluid/model_parallel.py); the random
+        # ops of replicated computation fold ``rank``, the dp rank, and
+        # ops running on shards the global rank
+        self.parallel = parallel or {}
+        # ring 0 of such a program with more than one dp replica: its dp
+        # group (None: the world)
+        self.dp_group = next((c.dp_group for c in self.parallel.values()
+                              if c.dp_size > 1), None)
+
+    def ring_group(self, ring_id):
+        """The process group of ``ring_id`` in this run: ring 0 is the dp
+        group of a model-parallel program with more than one replica (its
+        ``GradAllReduce`` averages over the replicas only), the world
+        otherwise; any other ring is ``distributed.ring_group``'s.  Only
+        this run sees the dp group: the process's ring table is left as
+        it is for every other program."""
+        if not int(ring_id or 0) and self.dp_group is not None:
+            return self.dp_group
+        return distributed.ring_group(ring_id)
+
+    def ring_size(self, ring_id=0):
+        """Ranks in ring ``ring_id`` of this run (1 without a world)."""
+        d = distributed._dist()
+        return 1 if d is None else d.get_world_size(self.ring_group(ring_id))
 
     def record_comm(self, species, precision, nbytes, grad_bucket=False,
                     axis="dp", sizes=None):
@@ -175,18 +202,21 @@ class LowerCtx:
         return gen
 
 
-def run_block(block, env, state, taped=None, release=None):
+def run_block(block, env, state, taped=None, release=None, shard=None):
     """Run every op of ``block`` through its lowering rule, in order.
     ``taped`` ({op index: input names}, from :func:`plan_tape`) names
     the forward ops that record on the tape; None or empty runs no op
     with autograd (inference).  ``release`` ({op index: names}, from
     :func:`plan_release`) drops temporaries from ``env`` after the last
-    op that names them."""
+    op that names them.  ``shard`` (``model_parallel.ShardPlan``) says
+    how each op of a tensor- or sequence-parallel program runs on this
+    rank."""
     taped = taped or {}
     release = release or {}
     nan_log = state.nan_log
+    planned = shard.ops if shard is not None else {}
     for i, op in enumerate(block.ops):
-        dispatch(op, env, state, block, taped.get(i))
+        dispatch(op, env, state, block, taped.get(i), planned.get(i))
         if nan_log is not None:
             _log_finite(op, env, nan_log)
         for n in release.get(i, ()):
@@ -232,13 +262,19 @@ def plan_release(block, keep):
     return out
 
 
-def dispatch(op, env, state, block, diff_names=None):
+def dispatch(op, env, state, block, diff_names=None, plan=None):
+    """Run one op: taped (``diff_names``, the inputs its grad op asks a
+    gradient for), as a grad op, or plainly.  ``plan``
+    (``model_parallel.OpPlan``) runs it as the rank's shard plan says,
+    through :func:`_run_taped` whether taped or not."""
     if op.type in _STRUCTURAL_OPS:
         return
+    if plan is not None:
+        op = plan.op
     ctx = LowerCtx(env, op, state, block)
     try:
-        if diff_names is not None:
-            _run_taped(ctx, op, diff_names)
+        if diff_names is not None or plan is not None:
+            _run_taped(ctx, op, diff_names, plan)
         elif op.type.endswith("_grad"):
             tape_grad_lower(ctx, op)
         else:
@@ -302,31 +338,54 @@ def plan_tape(block):
             tape_key(op.outputs) in wants}
 
 
-def _run_taped(ctx, op, diff_names):
+def _run_taped(ctx, op, diff_names, plan=None):
     """Run a forward op with autograd on, on detached inputs, and leave
     its (leaves, outputs) on the tape; the environment gets the outputs
-    detached."""
-    env = ctx.env
+    detached.
+
+    ``plan`` (``model_parallel.OpPlan``) adds the rank's transforms
+    inside the op's autograd graph: ``xin`` on the inputs (``copy_to``,
+    ``scatter_to``, ``gather_from``) and ``xout`` on the outputs
+    (``reduce_from``); an op running on shards (``plan.rank`` set) draws
+    its random numbers with that global rank folded in.  A planned op
+    with ``diff_names`` None runs without autograd and records
+    nothing."""
+    env, state = ctx.env, ctx.state
     sub = {}
     for names in op.inputs.values():
         for n in names:
             if n:
                 sub[n] = env[n]
     leaves = {}
-    for n in diff_names:
+    for n in diff_names or ():
         if sub[n].is_floating_point():
             leaves[n] = sub[n] = sub[n].detach().requires_grad_()
-    with torch.enable_grad():
-        get_op_def(op.type).lower(LowerCtx(sub, op, ctx.state, ctx.block),
-                                  op)
+    xin, xout = (plan.xin, plan.xout) if plan is not None else ({}, {})
+    saved = state.rank
+    if plan is not None and plan.rank is not None:
+        state.rank = plan.rank
+    try:
+        with torch.enable_grad() if diff_names is not None \
+                else contextlib.nullcontext():
+            for n, fn in xin.items():
+                sub[n] = fn(sub[n])
+            get_op_def(op.type).lower(LowerCtx(sub, op, state, ctx.block),
+                                      op)
+            for n, fn in xout.items():
+                if n in sub:
+                    sub[n] = fn(sub[n])
+    finally:
+        state.rank = saved
     outs = {}
     for names in op.outputs.values():
         for n in names:
             if n and n in sub:
                 outs[n] = sub[n]
-                env[n] = sub[n].detach()
-    ctx.state.tape.setdefault(tape_key(op.outputs), []).append(
-        (leaves, outs))
+                env[n] = sub[n].detach() if diff_names is not None \
+                    else sub[n]
+    if diff_names is not None:
+        state.tape.setdefault(tape_key(op.outputs), []).append(
+            (leaves, outs))
 
 
 def tape_grad_lower(ctx, op):

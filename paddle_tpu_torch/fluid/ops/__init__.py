@@ -17,3 +17,4 @@ from . import control_flow_ops  # noqa: F401
 from . import generation_ops  # noqa: F401
 from . import distributed_ops  # noqa: F401
 from . import lod_machinery_ops  # noqa: F401
+from . import moe_ops        # noqa: F401

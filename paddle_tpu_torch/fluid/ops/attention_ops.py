@@ -23,7 +23,12 @@ launches, and nothing else.
 at pallas_ops.py:403): K2 with the LSE forward, K3 and K4 backward, and
 K5 only when the bias needs a gradient.  ``fused_attention`` routes
 through it whenever attention dropout is off, and through the exact
-composition with a dropout mask otherwise (pallas_ops.py:682).
+composition with a dropout mask otherwise (pallas_ops.py:682).  Under
+sequence parallelism it runs ring attention, Ulysses or the q-row gather
+route over the sp group (``paddle_tpu_torch/parallel/
+sequence_parallel.py``), whose blocks are these same kernels: the flash
+ring launches K2 with the LSE on every ring step and K3/K4 with the
+global LSE.
 """
 
 import ctypes
@@ -392,22 +397,89 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def attention_dropout_composition(q, k, v, bias, scale, causal, keep,
-                                  dropout):
+                                  dropout, q_offset=0):
     """``_attn_core`` (pallas_ops.py:521) on ``[B, H, S, D]``: scores and
     softmax in float32, the probabilities kept where ``keep`` and divided
-    by ``1 − dropout`` (upscale_in_train), then ``p·V`` in q's dtype.
+    by ``1 − dropout`` (upscale_in_train; ``keep`` None keeps all), then
+    ``p·V`` in q's dtype.  ``q_offset`` is the global index of q's first
+    row (a rank's sequence shard), which aligns the causal mask.
     Differentiable; the op runs it on the tape, which keeps its
     residuals, so the mask is drawn once."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
     if causal:
-        allowed = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool,
-                             device=q.device).tril()
-        s = s.masked_fill(~allowed, _NEG)
+        qi = q_offset + torch.arange(q.shape[2], device=q.device)
+        ki = torch.arange(k.shape[2], device=q.device)
+        s = s.masked_fill(~(qi[:, None] >= ki[None, :]), _NEG)
     p = torch.softmax(s, dim=-1)
-    p = torch.where(keep, p / (1.0 - dropout), torch.zeros_like(p))
+    if keep is not None:
+        p = torch.where(keep, p / (1.0 - dropout), torch.zeros_like(p))
     return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
+
+
+def _sp_fused_attention(ctx, q, k, v, bias, scale, causal, dropout):
+    """The sequence-parallel routes of ``fused_attention``
+    (``_sp_attention`` and ``_sp_gather_attention``,
+    pallas_ops.py:440-616) on this rank's q rows ``[B, H, S_q/P, D]``.
+
+    ``__sp__`` (set by ``fluid/model_parallel.py``) says which inputs
+    arrive sharded on their sequence dim.  Equal lengths without dropout
+    and with sharded k/v take ring attention or Ulysses over the sp group
+    (``sp_mode``); cross-attention and attention dropout take the gather
+    route: q rows stay sharded, k/v are all-gathered (their gradient
+    reduce-scattered), then flash attention on the rows (dropout off) or
+    the composition with the rank's keep mask (the rank is folded into
+    the op's generator seed).  A replicated input that the rank's rows
+    use gets its gradient summed over the group (``copy_to``); a
+    replicated bias is cut to the rank's q rows."""
+    from ...parallel import sequence_parallel as spm
+    from ...parallel.tensor_parallel import (copy_to,
+                                             gather_reduce_scatter,
+                                             scatter_to)
+    sp = ctx.state.parallel["sp"]
+    group, P = sp.group, sp.degree
+    sharded = ctx.attr("__sp__")
+    B, H, S_l, D = q.shape
+    S_q = S_l * P
+    kv_sharded = sharded.get("K", False) and sharded.get("V", False)
+    S_kv = k.shape[2] * (P if kv_sharded else 1)
+    if causal and S_q != S_kv:
+        raise ValueError(
+            "fused_attention: causal=True needs S_q == S_kv (got %d vs "
+            "%d); pass an explicit additive bias instead" % (S_q, S_kv))
+    bias_sharded = False
+    if bias is not None:
+        if bias.dim() == 3:             # [B|1, S_q, S_kv]: insert head dim
+            bias = bias.unsqueeze(1)
+        bias_sharded = sharded.get("BiasQK", False)
+        hb = H if bias.shape[1] == H else 1
+        bias = bias.to(q.dtype).expand(
+            B, hb, S_l if bias_sharded else S_q, S_kv)
+    ring_ok = kv_sharded and S_q == S_kv and not dropout
+    mode = ctx.attr("sp_mode", "ring") or "ring"
+    if ring_ok and mode == "ulysses":
+        return spm.ulysses_attention_bhsd(q, k, v, group, causal, scale,
+                                          bias, bias_sharded)
+    if bias is not None and not bias_sharded:
+        bias = scatter_to(bias, group, 2, axis="sp")
+    if ring_ok:
+        return spm.ring_attention_bhsd(q, k, v, group, causal, scale,
+                                       bias=bias)
+    if kv_sharded:
+        k = gather_reduce_scatter(k, group, 2)
+        v = gather_reduce_scatter(v, group, 2)
+    else:
+        k, v = copy_to(k, group, "sp"), copy_to(v, group, "sp")
+    if not dropout and not causal:
+        qf = q.reshape(B * H, S_l, D).contiguous()
+        kf = k.reshape(B * H, S_kv, D).contiguous()
+        vf = v.reshape(B * H, S_kv, D).contiguous()
+        out = FlashAttentionFunction.apply(qf, kf, vf, bias, scale, False)
+        return out.reshape(B, H, S_l, D)
+    keep = keep_mask(ctx, dropout, (B, H, S_l, S_kv)) if dropout else None
+    return attention_dropout_composition(q, k, v, bias, scale, causal, keep,
+                                         dropout, q_offset=sp.rank * S_l)
 
 
 @register_op("fused_attention")
@@ -422,7 +494,12 @@ def _fused_attention(ctx, op):
     op) it goes through :class:`FlashAttentionFunction`, else straight to
     :func:`flash_attention` without the LSE.  With attention dropout on
     it runs :func:`attention_dropout_composition`, the keep mask drawn
-    from the op's generator."""
+    from the op's generator.
+
+    Stamped for sequence parallelism (``sp_axis``) and run on a rank's
+    sequence shard (an sp group of more than one rank), it takes the
+    routes of :func:`_sp_fused_attention`; outside such a world it runs
+    as above, as the JAX op does off the mesh."""
     q = ctx.i("Q")
     k = ctx.i("K")
     v = ctx.i("V")
@@ -432,10 +509,11 @@ def _fused_attention(ctx, op):
     dropout = float(ctx.attr("attn_dropout", 0.0) or 0.0)
     if ctx.attr("is_test", False) or ctx.state.is_test:
         dropout = 0.0
-    if ctx.attr("sp_axis", None):
-        raise NotImplementedError(
-            "fused_attention: the sequence-parallel routes are not ported "
-            "yet (ROADMAP.md, port queue: 'sequence-parallel attention')")
+    if ctx.attr("sp_axis", None) and ctx.attr("__sp__", None) and \
+            ctx.attr("__sp__").get("Q"):
+        ctx.set("Out", _sp_fused_attention(ctx, q, k, v, bias, scale,
+                                           causal, dropout))
+        return
     B, H, S_q, D = q.shape
     S_kv = k.shape[2]
     if causal and S_q != S_kv:

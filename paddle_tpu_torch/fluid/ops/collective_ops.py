@@ -41,6 +41,10 @@ later op reads a tensor before its collective lands and no collective
 reads a tensor before the op that wrote it.  ``c_sync_calc_stream`` and
 ``c_sync_comm_stream`` are therefore pass-throughs.
 
+``c_alltoall`` (the tiled exchange, fp32/bf16/int8 wire) and
+``ring_attention`` (over the run's sp group, named by ``axis_name``)
+complete the family.
+
 Every collective issued counts one in ``calls[op type]`` (read and reset
 by the chip check) and logs its per-rank wire bytes on the run's state
 (``ExecState.record_comm``): the executor adds them to
@@ -79,7 +83,7 @@ def _world(ctx):
     d = distributed._dist()
     if d is None:
         return None
-    group = distributed.ring_group(ctx.attr("ring_id", 0))
+    group = ctx.state.ring_group(ctx.attr("ring_id", 0))
     return d, group, d.get_world_size(group)
 
 
@@ -475,13 +479,45 @@ register_op("broadcast")(_broadcast)
 
 @register_op("c_alltoall")
 def _c_alltoall(ctx, op):
-    raise NotImplementedError(
-        "c_alltoall belongs to the model-parallel family, which is not "
-        "ported yet (ROADMAP queue 1 item 11)")
+    """All-to-all over the op's ring (split dim 0, concat dim 0), the
+    collective behind Ulysses-style sequence parallelism (JAX
+    collective_ops.py:389), at the wire precision: int8 quantizes each
+    token (last-dim row) against its own scale with no error feedback,
+    a 1-D payload takes bf16 instead, a non-float payload stays exact.
+    Differentiable: the gradient takes the same exchange back."""
+    from ...parallel.expert_parallel import all_to_all
+    from ..quantized_collectives import alltoall_wire_bytes
+    x = ctx.i("X")
+    w = _world(ctx)
+    if w is None:
+        ctx.set("Out", x)
+        return
+    _d, group, _n = w
+    precision = _precision(ctx)
+    if precision == "int8" and x.dim() < 2:
+        precision = "bf16"     # per-token scales need a feature axis
+    eff = precision if x.is_floating_point() else "fp32"
+    ctx.set("Out", all_to_all(x, group, 0, 0, eff, axis="dp"))
+    _count(ctx, "a2a", eff, alltoall_wire_bytes(x.shape, eff,
+                                                itemsize=x.element_size()))
 
 
 @register_op("ring_attention")
 def _ring_attention(ctx, op):
-    raise NotImplementedError(
-        "ring_attention belongs to the model-parallel family, which is "
-        "not ported yet (ROADMAP queue 1 item 11)")
+    """Exact attention over a sequence sharded on a NAMED axis (JAX
+    collective_ops.py:415): Q/K/V ``[B, T_local, H, D]``.  The axis comes
+    from the ``axis_name`` attr (default ``sp``), never from the ring id,
+    so a data-parallel ring is never mistaken for a sequence shard; with
+    an sp group of more than one rank in this run the op is ring
+    attention over it (``parallel.ring_attention``), otherwise
+    single-rank local attention."""
+    from ...parallel.sequence_parallel import local_attention, ring_attention
+    q, k, v = ctx.i("Q"), ctx.i("K"), ctx.i("V")
+    causal = bool(ctx.attr("causal", False))
+    want = ctx.attr("axis_name", "sp")
+    par = (getattr(ctx.state, "parallel", None) or {}).get(want)
+    if par is not None and par.degree > 1:
+        ctx.set("Out", ring_attention(q, k, v, par.group, causal=causal))
+        calls[op.type] += 1
+    else:
+        ctx.set("Out", local_attention(q, k, v, causal=causal))

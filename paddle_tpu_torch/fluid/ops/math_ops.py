@@ -7,7 +7,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import distributed
 from ..registry import register_op
 from ..flags import matmul_precision
 from ..lowering import amp_operands
@@ -63,10 +62,11 @@ def _scale(ctx, op):
     bias = ctx.attr("bias", 0.0)
     if ctx.attr("__dp_mean__", False):
         # the gradient mean the collective transpiler inserts: divide by
-        # the world this rank runs in (1 without one), as the JAX rule
-        # divides by its mapped axis's size, whatever nranks the program
-        # was transpiled for (0 means any world)
-        ctx.set("Out", x / distributed.process_count())
+        # the ranks of this run's ring 0 (the world, 1 without one; a
+        # model-parallel program's dp group), as the JAX rule divides by
+        # its mapped axis's size, whatever nranks the program was
+        # transpiled for (0 means any world)
+        ctx.set("Out", x / ctx.state.ring_size(0))
         return
     if ctx.attr("bias_after_scale", True):
         out = x * scale + bias

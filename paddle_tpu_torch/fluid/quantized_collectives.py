@@ -35,8 +35,10 @@ after it into one fused multiply-add, depending on how it fuses the
 program around it, so the JAX package's partial sums, residuals and
 what follows from them may differ from these by one fp32 rounding.
 
-The int8 all-to-all of activations (the MoE dispatch) belongs to ROADMAP
-queue 1 item 11 and is not here.
+The all-to-all of activations (the MoE dispatch, Ulysses' head swap) is
+:func:`quantized_all_to_all`: fp32 as it is, bf16 cast, or int8 against
+one max-abs scale per token (last-dim row) with no error feedback, as a
+token crosses the wire once.
 """
 
 import torch
@@ -287,3 +289,66 @@ def allreduce_wire_bytes(numel, precision, block_size=DEFAULT_BLOCK_SIZE,
     like for like."""
     return 2 * phase_wire_bytes(numel, precision, block_size=block_size,
                                 itemsize=itemsize, world_size=world_size)
+
+
+# ---------------------------------------------------------------------------
+# The all-to-all of activations (the MoE dispatch)
+# ---------------------------------------------------------------------------
+
+def quantized_all_to_all(x, group, split_axis=0, concat_axis=0,
+                         precision="fp32", axis="ep"):
+    """Tiled all-to-all over ``group`` (``lax.all_to_all(...,
+    tiled=True)``: ``x`` cut into N chunks along ``split_axis``, chunk j
+    to rank j, the received chunks concatenated along ``concat_axis`` in
+    rank order) with the wire in ``precision``:
+
+    - ``fp32``: the exchange as it is (also any non-float payload);
+    - ``bf16``: the payload cast to bf16 and back;
+    - ``int8``: each last-dim row quantized against its own max-abs
+      scale (the blocks' rule, :func:`_block_quantize`), the int8 rows
+      and the fp32 scales exchanged, dequantized on arrival; no error
+      feedback.  ``split_axis``/``concat_axis`` must not be the last
+      axis, which carries the scale.
+
+    Not differentiable by itself (``paddle_tpu_torch.parallel.
+    all_to_all`` is the autograd node).  Counts one call and the
+    per-rank wire bytes (:func:`alltoall_wire_bytes`) under ``("a2a",
+    axis)`` in ``parallel.tensor_parallel.comm``."""
+    from ..parallel.expert_parallel import _exchange
+    from ..parallel.tensor_parallel import count
+    if precision not in PRECISIONS:
+        raise ValueError("unknown a2a precision %r" % (precision,))
+    eff = precision if x.is_floating_point() else "fp32"
+    count("a2a", axis, alltoall_wire_bytes(x.shape, eff,
+                                           itemsize=x.element_size()))
+    if eff == "fp32":
+        return _exchange(x, group, split_axis, concat_axis)
+    if eff == "bf16":
+        return _exchange(x.to(torch.bfloat16), group, split_axis,
+                         concat_axis).to(x.dtype)
+    if split_axis >= x.dim() - 1 or concat_axis >= x.dim() - 1:
+        raise ValueError(
+            "int8 all_to_all splits/concats leading axes only (the last "
+            "axis carries the per-token scale); got split_axis=%d, "
+            "concat_axis=%d for ndim=%d" % (split_axis, concat_axis,
+                                            x.dim()))
+    q, scale = _block_quantize(x)
+    q2 = _exchange(q, group, split_axis, concat_axis)
+    s2 = _exchange(scale, group, split_axis, concat_axis)
+    return _block_dequantize(q2, s2).to(x.dtype)
+
+
+def alltoall_wire_bytes(shape, precision, itemsize=4):
+    """Per-rank wire bytes of ONE tiled all-to-all of ``shape``: the
+    tensor crosses the wire once; int8 adds the fp32 per-token scales
+    (one per last-dim row)."""
+    shape = tuple(int(d) for d in shape)
+    numel = 1
+    for d in shape:
+        numel *= d
+    if precision == "bf16":
+        return 2 * numel
+    if precision == "int8":
+        tokens = numel // shape[-1] if len(shape) > 1 else 1
+        return numel + 4 * tokens
+    return int(itemsize) * numel

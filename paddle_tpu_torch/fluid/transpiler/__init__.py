@@ -2,14 +2,18 @@
 the collective family for synchronous data parallel, and the
 parameter-server family (``DistributeTranspiler`` with sliced and
 pserver-resident sparse tables, ``GeoSgdTranspiler``, the RoundRobin and
-HashName placements).  The model-parallel transpilers are ROADMAP queue
-1 item 11."""
+HashName placements), and the model-parallel family: tensor, sequence
+and expert parallelism (``TensorParallelTranspiler``,
+``SequenceParallelTranspiler``, ``ExpertParallelTranspiler``)."""
 
 from .collective import Collective, GradAllReduce, LocalSGD  # noqa: F401
 from .distribute_transpiler import (DistributeTranspiler,  # noqa: F401
                                     DistributeTranspilerConfig)
 from .geo_sgd_transpiler import GeoSgdTranspiler  # noqa: F401
 from .ps_dispatcher import HashName, RoundRobin  # noqa: F401
+from .tensor_parallel import TensorParallelTranspiler  # noqa: F401
+from .sequence_parallel import SequenceParallelTranspiler  # noqa: F401
+from .expert_parallel import ExpertParallelTranspiler  # noqa: F401
 
 
 def memory_optimize(input_program, skip_opt_set=None, print_log=False,

@@ -212,9 +212,9 @@ def test_default_place_is_the_card():
 
 def test_unported_routes_raise_naming_the_roadmap(pair):
     """The training program (train-mode dropout) now runs on CPUPlace;
-    the route still left for a later slice raises, naming ROADMAP.md,
-    instead of computing something else: a fused_attention op stamped for
-    sequence parallelism.  Loading a saved inference model is ported
+    a fused_attention op stamped for sequence parallelism, which used to
+    raise naming ROADMAP.md, runs the plain route outside a world.
+    Loading a saved inference model is ported
     (tests/test_torch_inference.py): it loads onto the card unless asked
     for the CPU, and never falls back to the host."""
     main = pair["pprogs"][0]
@@ -232,6 +232,11 @@ def test_unported_routes_raise_naming_the_roadmap(pair):
     for op in sp.global_block().ops:
         if op.type == "fused_attention":
             op._set_attr("sp_axis", "sp")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        exe.run(sp, feed=pair["feed"], fetch_list=[pair["penc"]],
-                scope=pair["pscope"])
+    # the sequence-parallel routes are ported: with no sp group in this
+    # process the stamped op runs the plain route, as the JAX op does off
+    # the mesh (the two-rank routes: tests/test_torch_sequence_parallel.py)
+    sp_got, = exe.run(sp, feed=pair["feed"], fetch_list=[pair["penc"]],
+                      scope=pair["pscope"])
+    plain, = exe.run(main.clone(for_test=True), feed=pair["feed"],
+                     fetch_list=[pair["penc"]], scope=pair["pscope"])
+    np.testing.assert_array_equal(sp_got, plain)

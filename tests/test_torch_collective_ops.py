@@ -72,6 +72,9 @@ CASES = [
     ("sync_calc_stream", "c_sync_calc_stream", {}, "randn"),
     ("sync_comm_stream", "c_sync_comm_stream", {}, "randn"),
     ("wait_compute", "c_wait_compute", {}, "randn"),
+    ("alltoall", "c_alltoall", {}, "randn"),
+    ("alltoall_bf16", "c_alltoall", {"precision": "bf16"}, "randn"),
+    ("alltoall_int8", "c_alltoall", {"precision": "int8"}, "randn"),
 ]
 BF16_CASES = {c[0] for c in CASES if c[0].endswith("bf16")} - {
     "allreduce_max_bf16", "broadcast_root1_bf16"}   # these stay exact
@@ -106,11 +109,10 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_pack(script, out_dir, nproc=NPROC, args=(), launcher_args=(),
-             timeout=240):
-    """Run ``script worker <out_dir> args...`` as ``nproc`` ranks under
-    the port's launcher (gloo rendezvous on a free port); returns the
-    launcher's CompletedProcess.  Each rank's output is in
+def start_pack(script, out_dir, nproc=NPROC, args=(), launcher_args=()):
+    """Start ``script worker <out_dir> args...`` as ``nproc`` ranks under
+    the port's launcher (gloo rendezvous on a free port) and return the
+    launcher's Popen without waiting.  Each rank's output is in
     ``out_dir/logs/workerlog.<rank>``."""
     out_dir = Path(out_dir)
     env = dict(os.environ)
@@ -125,8 +127,29 @@ def run_pack(script, out_dir, nproc=NPROC, args=(), launcher_args=(),
            "--coordinator", "127.0.0.1:%d" % free_port(),
            "--log_dir", str(out_dir / "logs"), "--grace_period", "5",
            *launcher_args, str(script), "worker", str(out_dir), *args]
-    return subprocess.run(cmd, env=env, cwd=str(REPO), timeout=timeout,
-                          capture_output=True, text=True)
+    return subprocess.Popen(cmd, env=env, cwd=str(REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def wait_pack(proc, timeout=240):
+    """The CompletedProcess of a :func:`start_pack` launcher; on a
+    timeout the launcher is killed and TimeoutExpired raised."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def run_pack(script, out_dir, nproc=NPROC, args=(), launcher_args=(),
+             timeout=240):
+    """Run ``script worker <out_dir> args...`` as ``nproc`` ranks under
+    the port's launcher and wait for it (:func:`start_pack`)."""
+    return wait_pack(start_pack(script, out_dir, nproc, args,
+                                launcher_args), timeout)
 
 
 def pack_logs(out_dir, nproc=NPROC):
@@ -233,7 +256,7 @@ def test_op_matches_paddle_tpu_over_two_ranks(pack, case):
     assert got.shape == want.shape
     if cid in BF16_CASES:
         np.testing.assert_allclose(got, want, rtol=BF16_RTOL, atol=1e-6)
-    elif op_type == "c_allreduce_prod":
+    elif op_type == "c_allreduce_prod" or cid.endswith("int8"):
         np.testing.assert_allclose(got, want, rtol=1e-6)
     else:
         np.testing.assert_array_equal(got, want)
@@ -262,6 +285,8 @@ def test_pack_ran_two_gloo_ranks(pack):
     ("broadcast_root1", "broadcast_fp32", 2 * 4 * ROWS * COLS),
     ("allgather", "allgather_fp32", NPROC * 4 * ROWS * COLS),
     ("reducescatter_bf16", "reducescatter_bf16", 2 * ROWS * COLS),
+    ("alltoall", "a2a_fp32", 4 * ROWS * COLS),
+    ("alltoall_int8", "a2a_int8", ROWS * COLS + 4 * ROWS),
 ])
 def test_each_collective_counts_one_call_and_its_wire_bytes(
         pack, cid, species, nbytes):
@@ -317,11 +342,37 @@ def test_world_of_one_ops_are_identity():
     ("ring_attention", {}, "item 11"),
 ])
 def test_unported_collectives_raise_naming_their_item(op_type, attrs, item):
-    x = np.ones((ROWS, COLS), np.float32)
-    with pytest.raises(NotImplementedError, match=item):
-        fluid.Executor(fluid.CPUPlace()).run(
-            one_op_program(fluid, op_type, attrs), feed={"x": x},
-            fetch_list=["out"], scope=fluid.Scope())
+    """The two ops of ROADMAP ``item`` that used to raise run now: with no
+    process group ``c_alltoall`` is the identity and ``ring_attention``
+    is local attention, as the JAX ops are outside a mapped axis (their
+    two-rank runs: the ``alltoall`` cases above and
+    tests/test_torch_sequence_parallel.py)."""
+    exe = fluid.Executor(fluid.CPUPlace())
+    if op_type == "c_alltoall":
+        x = global_input("randn", 5)[:ROWS]
+        out, = exe.run(one_op_program(fluid, op_type, attrs),
+                       feed={"x": x}, fetch_list=["out"],
+                       scope=fluid.Scope())
+        np.testing.assert_array_equal(out, x)
+        return
+    import paddle_tpu.fluid as jfluid
+    rng = np.random.RandomState(3)
+    feed = {n: rng.randn(2, 8, 2, 4).astype(np.float32) for n in "qkv"}
+    got = []
+    for pkg in (jfluid, fluid):
+        main = pkg.Program()
+        with pkg.program_guard(main, pkg.Program()):
+            vs = [pkg.layers.data(name=n, shape=[2, 8, 2, 4],
+                                  dtype="float32", append_batch_size=False)
+                  for n in "qkv"]
+            out = main.current_block().create_var(name="attn_out",
+                                                  dtype="float32")
+            main.current_block().append_op(
+                op_type, inputs={"Q": [vs[0]], "K": [vs[1]], "V": [vs[2]]},
+                outputs={"Out": [out]}, attrs=dict(attrs, causal=True))
+        got.append(np.asarray(pkg.Executor(pkg.CPUPlace()).run(
+            main, feed=feed, fetch_list=[out], scope=pkg.Scope())[0]))
+    np.testing.assert_allclose(got[1], got[0], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("op_type", ["c_allreduce_sum", "c_allgather",

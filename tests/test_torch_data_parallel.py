@@ -46,8 +46,9 @@ rank feeds and fetches its local rows).
 In this process (no process group): the transpiled programs equal the
 JAX package's op for op (weight-update sharding, the int8 wire and
 hierarchical allreduce included), the fleet and ``BuildStrategy`` knobs
-of those options reach the transpile, and the options of ROADMAP item 11
-raise naming it (fleet's parameter-server mode is
+of those options reach the transpile, fleet's ``mp_degree`` refuses a
+program with no Megatron pair as the JAX package does, and ``places``
+raises naming the launcher (fleet's parameter-server mode is
 tests/test_torch_fleet_ps.py).  Weight-update sharding over two ranks is
 tests/test_torch_weight_update_sharding.py.
 """
@@ -972,7 +973,9 @@ def test_unported_options_raise_naming_their_item(what):
         CollectiveOptimizer, DistributedStrategy)
     main, startup, loss = programs(fluid, fc_net)
     if what == "fleet_mp":
-        item, err = "item 11", NotImplementedError
+        # mp_degree is ported: like the JAX package's, the transpile
+        # refuses a program with no Megatron pair (one fc)
+        item, err = "no Megatron matmul pair", ValueError
         with fluid.program_guard(fluid.Program(), fluid.Program()):
             x = fluid.layers.data(name="x", shape=[6], dtype="float32")
             lo = fluid.layers.mean(fluid.layers.fc(x, size=1))
