@@ -326,6 +326,22 @@ non-zero exit (nothing is caught):
    parameters a rank below one process's; ms per step, peak memory,
    parameter and optimizer-state bytes a rank, the model-parallel
    collectives a step (calls and wire bytes).
+29b. pp_bert, pp_mp_bert, mp_sp_bert: pipelines and the compositions,
+   gloo ranks on card 0 (``dp_child pp_bert``, ``dp_child
+   pp_mp_bert``), BERT-base at phase 9's configuration with all dropout
+   off from phase 9's initial parameters and batch, 1 + 3 steps each,
+   against mp_bert's run of the same program in this process: pp_bert,
+   two stages of six layers (``device_guard`` at layer 6,
+   PipelineOptimizer with 4 microbatches, ``mask_pos`` re-based to its
+   microbatch) as two ranks; pp_mp_bert, the same with the Megatron
+   pairs at mp 2 (dp 1 x pp 2 x mp 2) as four ranks; mp_sp_bert,
+   BERT-base through fleet at mp 2 x sp 2 Ulysses with no pipeline, in
+   the same four.  Every step's loss within 1e-4, every rank the same
+   losses, per rank and step 48 K2, 24 K3 and 24 K4 on a pipeline (the
+   backward recomputes each stage's forward) and 12 each on mp_sp_bert,
+   0 K5; parameter bytes a rank below one process's (a pipeline's at
+   most 0.6 of it), half of each paired weight a rank, 4 sends a rank
+   a step; ms per step, peak memory, the collectives a step.
 30. moe: the MoE block of tests/test_moe_transformer_composition.py at
    fluid/benchmark.py:329's widths (batch 8, S 512, hidden 768, 12
    heads, 8 experts of ffn 3072, capacity 1.25), two gloo ranks on card
@@ -369,7 +385,10 @@ c.phase_elastic_shrink()'``.  The book phases alone (no build needed):
 c.phase_book_train(); c.phase_book_check(mt)'``.  The training surface
 and the wrappers alone: ``python3 -c 'import chip_smoke as c;
 c.phase_device(); c.phase_build(); t = c.phase_train();
-c.phase_train_surface(t); c.phase_wrappers()'``.
+c.phase_train_surface(t); c.phase_wrappers()'``.  The model-parallel
+phases and the pipelines alone: ``python3 -c 'import chip_smoke as c;
+c.phase_device(); c.phase_build(); t = c.phase_train(); p, ref =
+c.phase_mp_bert(t); c.phase_pp_bert(t, ref)'``.
 """
 
 import contextlib
@@ -4091,7 +4110,9 @@ def dp_child(mode, d):
     d = Path(d)
     child = {"resnet": _child_resnet, "wus": _child_wus,
              "sharded": _child_sharded, "elastic": _child_elastic,
-             "mp_bert": _child_mp_bert, "moe": _child_moe}.get(mode)
+             "mp_bert": _child_mp_bert, "moe": _child_moe,
+             "pp_bert": _child_pp_bert,
+             "pp_mp_bert": _child_pp_mp_bert}.get(mode)
     res = child(d) if child else _child_train(d, mode)
     name = res.pop("file", "rank%d.json" % res["rank"])
     (d / name).write_text(json.dumps(res))
@@ -6666,7 +6687,7 @@ def phase_mp_bert(train):
         _fail_unless(name, checks)
         by_path[name] = la
     shutil.rmtree(d, ignore_errors=True)
-    return by_path
+    return by_path, ref
 
 
 def phase_moe():
@@ -6759,6 +6780,259 @@ def phase_moe():
     return by_path, ring[0]
 
 
+# ---------------------------------------------------------------------------
+# Pipelines and the compositions: two or four gloo ranks on card 0
+# ---------------------------------------------------------------------------
+
+PP_MICRO = 4                  # pp_bert, pp_mp_bert: microbatches a step
+PP_PARAM_SHARE = 0.6          # parameter bytes a rank over one process's,
+#                               at most (shard_params holds ~1/2)
+PP_PEAK_SHARE = 0.6           # peak memory a rank over one process's, at
+#                               most (a stage gathers only what it reads)
+
+
+def _pp_program(cfg, tp=False):
+    """BERT-base pretraining in two stages, from models/bert.py's
+    pieces: stage pp:0 the embeddings, the attention bias and layers
+    0-5, stage pp:1 layers 6-11, the MLM and NSP heads and the loss;
+    Adam TRAIN_LR under PipelineOptimizer(PP_MICRO).  Parameters are
+    created in build_pretrain's order, so they carry its names.  ``tp``
+    applies TensorParallelTranspiler(2) after the optimizer."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    S_, hid = cfg.max_seq_len, cfg.hidden_size
+    half = cfg.num_layers // 2
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        with fluid.device_guard("pp:0"):
+            src_ids = L.data(name="src_ids", shape=[S_, 1], dtype="int64")
+            pos_ids = L.data(name="pos_ids", shape=[S_, 1], dtype="int64")
+            sent_ids = L.data(name="sent_ids", shape=[S_, 1],
+                              dtype="int64")
+            input_mask = L.data(name="input_mask", shape=[S_, 1],
+                                dtype="float32")
+            emb = L.embedding(src_ids, size=[cfg.vocab_size, hid],
+                              param_attr=fluid.ParamAttr(
+                                  name="word_embedding",
+                                  initializer=fluid.initializer
+                                  .TruncatedNormal(scale=0.02)))
+            pos = L.embedding(pos_ids, size=[cfg.max_position, hid],
+                              param_attr=bert._param("pos"))
+            sent = L.embedding(sent_ids, size=[cfg.type_vocab_size, hid],
+                               param_attr=bert._param("sent"))
+            x = L.layer_norm(emb + pos + sent, begin_norm_axis=2)
+            mask2d = L.matmul(input_mask, input_mask, transpose_y=True)
+            attn_bias = L.unsqueeze(L.scale(mask2d, scale=1e4, bias=-1.0,
+                                            bias_after_scale=False), [1])
+            attn_bias.stop_gradient = True
+            for _ in range(half):
+                x = bert.encoder_layer(x, attn_bias, cfg)
+        with fluid.device_guard("pp:1"):
+            mask_pos = L.data(name="mask_pos", shape=[1], dtype="int32")
+            mask_label = L.data(name="mask_label", shape=[1], dtype="int64")
+            nsp_label = L.data(name="nsp_label", shape=[1], dtype="int64")
+            for _ in range(half, cfg.num_layers):
+                x = bert.encoder_layer(x, attn_bias, cfg)
+            mlm, nsp = bert.pretrain_heads(x, mask_pos, cfg)
+            loss = L.mean(L.softmax_with_cross_entropy(mlm, mask_label)) + \
+                L.mean(L.softmax_with_cross_entropy(nsp, nsp_label))
+        fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR),
+            num_microbatches=PP_MICRO).minimize(loss)
+    if tp:
+        fluid.transpiler.TensorParallelTranspiler(2).transpile(main, startup)
+    return main, startup, loss
+
+
+def _pp_feed(feed, seq_len):
+    """The batch as the pipeline is fed it: ``mask_pos`` re-based to its
+    microbatch, index - k·(B/M)·S for microbatch k (the indices address
+    the whole [B·S, H] output; the pipeline cuts every feed into M)."""
+    out = dict(feed)
+    rows = len(feed["src_ids"]) // PP_MICRO
+    per = len(feed["mask_pos"]) // PP_MICRO
+    mp = feed["mask_pos"].copy()
+    for k in range(PP_MICRO):
+        mp[k * per:(k + 1) * per] -= k * rows * seq_len
+    out["mask_pos"] = mp
+    return out
+
+
+PP_SPAN_STEPS = 2             # pp paths: steps more, their phases' spans
+
+
+def _pp_spans(exe, main, feed, loss, scope):
+    """Host ms a step of each phase of the pipeline's step (its spans,
+    FLAGS_trace_spans), over PP_SPAN_STEPS more steps after the path's
+    run; the card is synchronised before each phase ends only where a
+    gloo exchange stages through the host."""
+    from paddle_tpu_torch.fluid import telemetry
+    n0 = telemetry.step_events_recorded()
+    telemetry.enable_spans(True)
+    try:
+        for _ in range(PP_SPAN_STEPS):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.enable_spans(False)
+    ev = telemetry.step_events()[-(telemetry.step_events_recorded() - n0):]
+    out = {}
+    for e in ev:
+        if e.get("kind") == "span" and e["span"].startswith("pipeline_"):
+            key = e["span"][len("pipeline_"):]
+            out[key] = out.get(key, 0.0) + e["dur_ns"] / 1e6 / PP_SPAN_STEPS
+    return out
+
+
+def _pp_run(exe, cfg, init, feed, tp=False):
+    """One pipelined path's _mp_steps record on this rank, with the
+    paired weights' shapes as it holds them and as declared, and the
+    host ms a step of each phase of the schedule."""
+    main, startup, loss = _pp_program(cfg, tp)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = _pp_feed(feed, cfg.max_seq_len)
+    rec = _mp_steps(exe, main, feed, [loss], scope, init, exe.place)
+    rec["phase_ms"] = _pp_spans(exe, main, feed, loss, scope)
+    block = main.global_block()
+    rec["paired"] = {n: [list(scope.find_var(n).shape),
+                         list(block.var(n).shape)]
+                     for n in getattr(main, "_mp_shardings", {}) or {}}
+    del scope, main, startup
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _child_pp_bert(d):
+    """A rank (a stage) of pp_bert: BERT-base in two stages, dropout
+    off, from phase train's initial parameters and batch."""
+    rank, n, _fleet, exe = _child_world("gloo")
+    init = {k: v.numpy() for k, v in torch.load(d / "init.pt").items()}
+    feed = dict(np.load(d / "feed.npz"))
+    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
+    return dict(rank=rank, world=n, backend=torch.distributed.get_backend(),
+                paths={"pp_bert": _pp_run(exe, cfg, init, feed)})
+
+
+def _child_pp_mp_bert(d):
+    """A rank of the four: pp_mp_bert (the two stages with
+    TensorParallelTranspiler(2): dp 1 x pp 2 x mp 2), then mp_sp_bert
+    (BERT-base through fleet with mp_degree=2, sp_degree=2 Ulysses)."""
+    from paddle_tpu_torch.fluid.incubate.fleet.collective import \
+        DistributedStrategy
+    rank, n, fleet, exe = _child_world("gloo")
+    init = {k: v.numpy() for k, v in torch.load(d / "init.pt").items()}
+    feed = dict(np.load(d / "feed.npz"))
+    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
+    res = dict(rank=rank, world=n, backend=torch.distributed.get_backend(),
+               paths={"pp_mp_bert": _pp_run(exe, cfg, init, feed, tp=True)})
+    main, startup, out = _build_pretrain(cfg, fleet.distributed_optimizer(
+        fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR),
+        strategy=DistributedStrategy(mp_degree=2, sp_degree=2,
+                                     sp_mode="ulysses")))
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rec = _mp_steps(exe, main, feed, [out["loss"]], scope, init, exe.place)
+    block = main.global_block()
+    rec["paired"] = {nm: [list(scope.find_var(nm).shape),
+                          list(block.var(nm).shape)]
+                     for nm in main._mp_shardings}
+    res["paths"]["mp_sp_bert"] = rec
+    return res
+
+
+def phase_pp_bert(train, ref):
+    """pp_bert, pp_mp_bert and mp_sp_bert: BERT-base at phase train's
+    configuration with all dropout off, from its initial parameters and
+    batch, against ``ref`` (mp_bert's run of the same program in this
+    process): two stages of six layers, PP_MICRO microbatches, as two
+    gloo ranks on card 0; the same with the Megatron pairs at mp 2 as
+    four ranks; and BERT-base at mp 2 x sp 2 (Ulysses) with no pipeline
+    in the same four.  Every step's loss within MP_LOSS_RTOL, every rank
+    the same losses, the K2-K4 counts a rank (a pipeline's recompute
+    runs each stage's forward again: 2 x 6 layers x PP_MICRO K2, 6 x
+    PP_MICRO K3 and K4 a step), parameter bytes a rank below one
+    process's (the pipeline's at most PP_PARAM_SHARE of it, its peak at
+    most PP_PEAK_SHARE), each rank holding half of every paired weight;
+    ms per step, peak memory and the collectives a step (the pipeline's
+    sends: calls and bytes)."""
+    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
+    L = cfg.num_layers
+    d = _io_dir("pp_bert")
+    torch.save(train["init"], d / "init.pt")
+    np.savez(d / "feed.npz", **train["feed"])
+    torch.cuda.empty_cache()
+    ranks2, wall2 = _launch_ranks("pp_bert", [0, 0], d)
+    ranks4, wall4 = _launch_ranks("pp_mp_bert", [0, 0, 0, 0], d)
+    steps = MP_STEPS
+    pipe = {"flash_attention_fwd": 2 * (L // 2) * PP_MICRO,
+            "flash_attention_bwd_dq": (L // 2) * PP_MICRO,
+            "flash_attention_bwd_dkv": (L // 2) * PP_MICRO}
+    by_path = {}
+    for name, ranks, wall in (("pp_bert", ranks2, wall2),
+                              ("pp_mp_bert", ranks4, wall4),
+                              ("mp_sp_bert", ranks4, wall4)):
+        recs = [r["paths"][name] for r in ranks]
+        errs = _loss_rel_errs(recs, ref)
+        per_step = pipe if name != "mp_sp_bert" else dict.fromkeys(pipe, L)
+        checks = {
+            "gloo_ranks": [r["rank"] for r in ranks] ==
+            list(range(len(ranks))) and
+            all(r["backend"] == "gloo" for r in ranks),
+            "step1_loss_matches_one_process": errs[0] <= MP_LOSS_RTOL,
+            "later_losses_match_one_process": max(errs[1:]) <= MP_LOSS_RTOL,
+            "ranks_same_losses": all(r["losses"] == recs[0]["losses"]
+                                     for r in recs),
+            "losses_finite": bool(np.isfinite(recs[0]["losses"]).all()),
+            "k2_k3_k4_per_rank": all(
+                r["launches"][k] == c * steps
+                for r in recs for k, c in per_step.items()),
+            "k5_0": all(r["launches"]["flash_attention_bwd_dbias"] == 0
+                        for r in recs),
+            "params_below_one_process": all(
+                r["param_mb"] < ref["param_mb"] for r in recs),
+        }
+        if name != "mp_sp_bert":
+            checks["params_about_half"] = all(
+                r["param_mb"] <= PP_PARAM_SHARE * ref["param_mb"]
+                for r in recs)
+            checks["peak_below_share"] = all(
+                r["peak_mb"] <= PP_PEAK_SHARE * ref["peak_mb"]
+                for r in recs)
+            checks["sends_each_step"] = all(
+                r["comm_per_step"].get("send@pp", [0])[0] == PP_MICRO
+                for r in recs)
+        if name != "pp_bert":
+            checks["half_of_each_paired_weight"] = all(
+                r["paired"] and all(
+                    2 * int(np.prod(a)) == int(np.prod(b))
+                    for a, b in r["paired"].values()) for r in recs)
+            checks["mp_allreduces"] = all(
+                r["comm_per_step"].get("allreduce@mp", [0])[0] > 0
+                for r in recs)
+        emit(phase=name, seconds=wall, ranks=len(ranks),
+             losses=[r["losses"] for r in recs],
+             one_process_losses=ref["losses"], step1_loss_rel_err=errs[0],
+             loss_rel_errs=errs,
+             ms_per_step=[r["ms_per_step"] for r in recs],
+             one_process_ms_per_step=ref["ms_per_step"],
+             peak_mb=[r["peak_mb"] for r in recs],
+             one_process_peak_mb=ref["peak_mb"],
+             peak_share=[r["peak_mb"] / ref["peak_mb"] for r in recs],
+             param_mb=[r["param_mb"] for r in recs],
+             one_process_param_mb=ref["param_mb"],
+             param_share=[r["param_mb"] / ref["param_mb"] for r in recs],
+             opt_state_mb=[r["opt_state_mb"] for r in recs],
+             comm_per_step=[r["comm_per_step"] for r in recs],
+             phase_ms=[r.get("phase_ms") for r in recs],
+             paired_weights=len(recs[0]["paired"]),
+             launches=[r["launches"] for r in recs], checks=checks)
+        _fail_unless(name, checks)
+        by_path[name] = recs[0]["launches"]
+    shutil.rmtree(d, ignore_errors=True)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -6781,8 +7055,10 @@ def main():
     by_path["dp_two_ranks_sharded"], by_path["dp_two_ranks_int8"] = \
         phase_dp_two_ranks_sharded(train)
     by_path.update(phase_train_surface(train))
-    by_path.update(phase_mp_bert(train))
-    del train
+    mp_paths, mp_ref = phase_mp_bert(train)
+    by_path.update(mp_paths)
+    by_path.update(phase_pp_bert(train, mp_ref))
+    del train, mp_ref
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
     resnet = phase_resnet_train()

@@ -21,8 +21,11 @@ weight-update sharding and hierarchical allreduce, ``LocalSGD``,
 ``elastic`` and ``python -m paddle_tpu_torch.distributed.launch`` with
 its relaunches); the reference's book models (sub-blocks with
 ``StaticRNN``/``DynamicRNN`` over the ``recurrent`` op, the sequence,
-LSTM, CRF, NCE and beam-search ops, ``nets`` and ``metrics``) (see
-ROADMAP.md's port queue).
+LSTM, CRF, NCE and beam-search ops, ``nets`` and ``metrics``); tensor,
+sequence and expert parallelism and their compositions
+(``model_parallel``); pipelines (``device_guard``,
+``optimizer.PipelineOptimizer``, ``pipeline``) (see ROADMAP.md's port
+queue).
 """
 
 # op registrations must load before anything runs programs
@@ -78,6 +81,8 @@ from .reader import DataLoader, PyReader
 from . import dataset
 from .dataset import DatasetFactory
 from . import distributed
+from . import pipeline
+from .pipeline import device_guard
 from . import elastic
 from . import mesh_utils
 from . import transpiler

@@ -34,10 +34,10 @@ A program transpiled for tensor, sequence or expert parallelism keeps its
 model-parallel groups; the ranks its degree leaves are the replicas, and
 the copy's gradient all-reduce and startup broadcast run over the dp
 group (ring 0, ``fluid/model_parallel.py``).  Its gradients are
-all-reduced one by one, not coalesced: a sharded weight's gradient has
-the rank's shape, not the one the program declares.  With one replica
-the program runs as it is; weight-update sharding over the replicas is
-ROADMAP item 11b.
+all-reduced one by one, not coalesced, each at the shape the rank holds
+(a sharded weight's gradient has the rank's shape, not the one the
+program declares), and so is weight-update sharding's exchange over the
+replicas.  With one replica the program runs as it is.
 
 With no process group (a world of one) the plain program runs.
 Concatenating the ranks' fetches gives the JAX package's one fetch.
@@ -150,15 +150,9 @@ class CompiledProgram(_CompiledProgramProxy):
         par = model_parallel.context(self._program)
         replicas = dist.get_world_size()
         if par:
-            replicas //= max(c.degree for c in par.values())
+            replicas = next(iter(par.values())).dp_size
             if replicas <= 1:
                 return self._program
-            if getattr(self._build_strategy, "zero_shard_optimizer_state",
-                       False):
-                raise NotImplementedError(
-                    "zero_shard_optimizer_state over the dp replicas of a "
-                    "tensor/sequence/expert-parallel program is ROADMAP "
-                    "item 11b (the dp x mp compositions)")
         key = (self._program.fingerprint, dist.get_world_size(),
                dist.get_rank())
         if self._dp is None or self._dp[0] != key:
@@ -190,7 +184,9 @@ class CompiledProgram(_CompiledProgramProxy):
             step = scope.step_counter
             exe.run(startup, scope=scope)
             scope.step_counter = step
-            _carry_into_shards(scope, sources, dist.get_rank())
+            _carry_into_shards(scope, sources,
+                               next(iter(par.values())).dp_rank if par
+                               else dist.get_rank())
             self._synced.add(scope)
         return main
 

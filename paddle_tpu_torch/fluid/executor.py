@@ -432,12 +432,28 @@ class _DispatchPlan:
             block, set(self.state_out) | set(self.fetch_names))
         self.steps_per_run = int(steps_per_run)
         self.is_window = bool(window)
-        # tensor / sequence / expert parallelism: this rank's groups
-        # and, for tp/sp, how each op runs on its shard
+        # a pipelined program (PipelineOptimizer): its stages, checked
+        # before the layout as the JAX package checks them
+        pplan = None
+        if getattr(program, "_pipeline_config", None):
+            from . import pipeline
+            pplan = pipeline.build_plan(
+                program, feed_names,
+                program._pipeline_config["num_microbatches"])
+        # tensor / sequence / expert parallelism and pipelines: this
+        # rank's groups and, for tp/sp, how each op runs on its shard
         # (fluid/model_parallel.py); {} and None otherwise
         self.par = model_parallel.context(program)
         self.shard = model_parallel.plan(program, block, feed_names,
                                          fetch_names, self.par)
+        self.pipeline = None
+        if pplan is not None:
+            pipeline.check_program(program, pplan,
+                                   model_parallel.degrees(program),
+                                   fetch_names)
+            self.pipeline = pipeline.PipelineStep(
+                program, pplan, self.par, self.shard, feed_names,
+                set(state_in) | set(self.state_out))
         # the first dispatch of a plan carries its first-call costs; the
         # step event stamps its wall time as compile_s, then clears this
         self.fresh = True
@@ -623,6 +639,8 @@ class Executor:
         """The inner-step loop of one dispatch from step ``step0``:
         returns (per-step fetch lists, final state, verdicts or None).
         The scope's variables are not touched."""
+        if plan.pipeline is not None:
+            return self._execute_pipeline(plan, scope, feeds, step0)
         state_vals = self._state(plan, scope)
         K = plan.steps_per_run
         policy = flags.nan_inf_policy()
@@ -686,6 +704,23 @@ class Executor:
         if oks:
             verdicts = torch.stack(oks) if plan.is_window else oks[0]
         return fetches, carry, verdicts, comm
+
+    def _execute_pipeline(self, plan, scope, feeds, step0):
+        """``_execute`` of a pipelined program: one GPipe step
+        (``fluid/pipeline.py``) per inner step, the state carried from
+        step to step as the scope would hold it."""
+        state_vals = self._state(plan, scope)
+        carry, fetches, comm = {}, [], []
+        for i in range(plan.steps_per_run):
+            vals = {n: carry.get(n, v) for n, v in state_vals.items()}
+            f = {n: v[i] for n, v in feeds.items()} if plan.is_window \
+                else feeds
+            loss, new, log = plan.pipeline.run(vals, f, step0 + i,
+                                               self.device, plan.state_out)
+            comm.extend(log)
+            carry.update(new)
+            fetches.append([loss for _ in plan.fetch_names])
+        return fetches, carry, None, comm
 
     def _check_collective(self, program):
         """A transpiled program runs only in a world of exactly the ranks

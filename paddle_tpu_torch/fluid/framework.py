@@ -266,6 +266,9 @@ class Block:
         attrs = dict(attrs) if attrs else {}
         if OP_ROLE_KEY not in attrs:
             attrs[OP_ROLE_KEY] = self.program._current_role
+        stage = getattr(self.program, "_current_pipeline_stage", None)
+        if stage is not None and "pipeline_stage" not in attrs:
+            attrs["pipeline_stage"] = stage   # set by fluid.device_guard
         scope_path = current_name_scope()
         if scope_path and "op_namescope" not in attrs:
             attrs["op_namescope"] = scope_path

@@ -164,7 +164,9 @@ class CollectiveOptimizer(DistributedOptimizer):
         fleet_obj = self._fleet or fleet
         world = fleet_obj.worker_num() if fleet_obj._is_initialized \
             else distributed.process_count()
-        degree = max(degrees.values())
+        degree = 1
+        for d in degrees.values():
+            degree *= max(int(d), 1)
         if world > 1 and world % degree:
             raise ValueError(
                 "DistributedStrategy(%s) does not divide the world of %d "

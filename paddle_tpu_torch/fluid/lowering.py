@@ -76,6 +76,10 @@ class ExecState:
         # group (None: the world)
         self.dp_group = next((c.dp_group for c in self.parallel.values()
                               if c.dp_size > 1), None)
+        # a pipeline's microbatch (fluid/pipeline.py): folded into every
+        # random op's seed, so each microbatch draws its own masks and
+        # the backward's recompute of a microbatch replays them
+        self.stream = None
 
     def ring_group(self, ring_id):
         """The process group of ``ring_id`` in this run: ring 0 is the dp
@@ -186,7 +190,8 @@ class LowerCtx:
         ``fix_seed`` is set) or else (program seed, op seed, step), with
         the rank folded in on ranks other than 0 (the JAX package folds
         the replica's axis index into every per-op key,
-        paddle_tpu/fluid/lowering.py:193-205).  The streams differ from JAX's ``jax.random`` keys (paddle_tpu/fluid/
+        paddle_tpu/fluid/lowering.py:193-205), and a pipeline's
+        microbatch (``ExecState.stream``) after it.  The streams differ from JAX's ``jax.random`` keys (paddle_tpu/fluid/
         lowering.py), so the two packages' random draws never match;
         tests carry weights across instead (convert.py) and compare
         random ops by statistics."""
@@ -197,6 +202,8 @@ class LowerCtx:
                     int(self.state.step)) % (2 ** 63)
         if self.state.rank:
             seed = (seed * 1000003 + self.state.rank) % (2 ** 63)
+        if self.state.stream is not None:
+            seed = (seed * 1000003 + self.state.stream + 1) % (2 ** 63)
         gen = torch.Generator(device=self.state.device)
         gen.manual_seed(seed)
         return gen

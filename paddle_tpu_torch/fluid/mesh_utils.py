@@ -9,9 +9,10 @@ launcher gave it, so there is no mesh to build and no ``shard_map``:
 the collectives of a program are ``torch.distributed`` calls on a
 process group (``ops/collective_ops.py``).  What is left is the device
 query: which ``torch.device`` values this process drives, and the
-model-parallel layout: where a rank sits among the ``(dp, mp|sp|ep)``
-groups that tensor, sequence and expert parallelism run over
-(:func:`model_parallel_coords`).
+model-parallel layout: where a rank sits among the groups of each axis
+of a ``(dp, mp, sp, ep)`` or pipelined ``(dp, pp, mp, sp, ep)`` layout,
+row-major over the world's ranks as the JAX package's meshes lay out
+its devices (:func:`layout_coords`).
 """
 
 import torch
@@ -49,80 +50,137 @@ def ordered_devices(platform=None):
 
 
 # ---------------------------------------------------------------------------
-# Model-parallel groups (counterpart of the JAX package's (dp, mp|sp|ep)
-# mesh, paddle_tpu/fluid/executor.py:_model_parallel_axes)
+# Model-parallel groups (counterpart of the JAX package's meshes:
+# ("dp", mp|sp|ep...) for tensor, sequence and expert parallelism,
+# paddle_tpu/fluid/executor.py:_model_parallel_axes, and ("dp", "pp",
+# "mp"[, "sp"][, "ep"]) for a pipeline, paddle_tpu/fluid/pipeline.py)
 # ---------------------------------------------------------------------------
 
 AXES = ("mp", "sp", "ep")
 
 
+def _unravel(rank, dims):
+    """Row-major coordinates of ``rank`` over ``dims``."""
+    out = []
+    for d in reversed(dims):
+        out.append(rank % d)
+        rank //= d
+    return out[::-1]
+
+
+def _ravel(coords, dims):
+    r = 0
+    for c, d in zip(coords, dims):
+        r = r * d + c
+    return r
+
+
+def _line(coords, dims, i):
+    """The ranks whose coordinates equal ``coords`` except on axis ``i``."""
+    out = []
+    for j in range(dims[i]):
+        c = list(coords)
+        c[i] = j
+        out.append(_ravel(c, dims))
+    return out
+
+
 class Coords:
-    """Where this rank sits in a ``(dp, axis)`` layout of ``world`` ranks:
-    the model-parallel group of ``axis`` is ``degree`` consecutive ranks
-    (rank // degree names it), the dp group the ranks at the same place
-    in every such group.
+    """Where rank ``global_rank`` sits on ``axis`` of a row-major layout
+    of the world's ranks over ``layout`` ((name, size) pairs, ``dp``
+    first).
 
-    ``group`` is the process group of this rank's model-parallel group
+    ``group`` is the process group of this rank's line along ``axis``
     (None when it is the whole world, the default group), ``dp_group``
-    the group of its dp replicas (None when there is one replica or when
-    it is the world).  ``rank`` is this rank's index in ``group``,
-    ``dp_rank`` its index in ``dp_group``."""
+    the group of its dp replicas, the line along ``dp`` (None when there
+    is one replica or when it is the world).  ``rank`` is this rank's
+    coordinate on ``axis``, ``dp_rank`` its coordinate on ``dp``;
+    ``group_ranks`` and ``dp_ranks`` list the world ranks of both
+    lines."""
 
-    def __init__(self, axis, degree, world, global_rank, group=None,
+    def __init__(self, axis, layout, global_rank, group=None,
                  dp_group=None):
-        if degree < 1 or world % degree:
-            raise ValueError(
-                "%s_degree=%d does not divide a world of %d rank(s)"
-                % (axis, degree, world))
+        names = [n for n, _ in layout]
+        dims = [int(d) for _, d in layout]
+        coords = _unravel(global_rank, dims)
+        i, k = names.index(axis), names.index("dp")
         self.axis = axis
-        self.degree = int(degree)
-        self.world = int(world)
-        self.global_rank = int(global_rank)
-        self.dp_size = world // degree
-        self.rank = global_rank % degree
-        self.dp_rank = global_rank // degree
-        self.group_ranks = list(range(self.dp_rank * degree,
-                                      (self.dp_rank + 1) * degree))
-        self.dp_ranks = list(range(self.rank, world, degree))
+        self.degree = dims[i]
+        self.layout = tuple(zip(names, dims))
+        self.coords = dict(zip(names, coords))
+        self.dp_size = dims[k]
+        self.rank = coords[i]
+        self.dp_rank = coords[k]
+        self.group_ranks = _line(coords, dims, i)
+        self.dp_ranks = _line(coords, dims, k)
         self.group = group
         self.dp_group = dp_group
+
+    def fold(self, axes):
+        """This rank's row-major index over ``dp`` and ``axes`` (the
+        axes whose shards a computation runs on): ranks that differ only
+        on the other axes compute the same values and share it.  With
+        the default layout, ``fold([axis])`` is the global rank."""
+        r = 0
+        for name, d in self.layout:
+            if name == "dp" or name in axes:
+                r = r * d + self.coords[name]
+        return r
 
 
 _coords = {}
 
 
-def model_parallel_coords(axis, degree):
-    """:class:`Coords` of this rank for ``axis`` at ``degree``, with its
-    process groups: built on first use by ``new_group`` on every rank in
-    the same order (every model-parallel group, then every dp group), as
-    the ops of one program reach it on every rank together.  In a world
-    of one (no process group) the degree must be 1."""
-    if axis not in AXES:
-        raise ValueError("model-parallel axis must be one of %s, got %r"
-                         % (AXES, axis))
+def layout_coords(layout):
+    """{axis: :class:`Coords`} of this rank for every axis of ``layout``
+    ((name, size) pairs, ``dp`` first, row-major over the world's first
+    ranks) but ``dp`` and the axes of size 1, with the process groups of
+    every axis of more than one rank: built on first use by
+    ``new_group`` on every rank in the same order (each axis of the
+    layout in turn, its lines in row-major order), as the ops of one
+    program reach it on every rank together.  A rank past the layout's
+    ranks gets {}; without a world the layout must hold one rank."""
+    layout = tuple((str(n), int(s)) for n, s in layout)
     d = distributed._dist()
     world = d.get_world_size() if d is not None else 1
-    key = (axis, int(degree), world)
+    total = 1
+    for _n, s in layout:
+        total *= s
+    if total > world:
+        raise ValueError("the layout %s needs %d ranks, the world has %d"
+                         % (dict(layout), total, world))
+    key = (layout, world)
     if key in _coords and _coords[key][0] is d:
         return _coords[key][1]
     me = d.get_rank() if d is not None else 0
-    c = Coords(axis, degree, world, me)
-    if d is None or degree == 1:
-        pass
-    elif degree == world:
-        c.group = None                   # the default group: every rank
-    else:
-        for g in range(world // degree):
-            grp = d.new_group(ranks=list(range(g * degree,
-                                               (g + 1) * degree)))
-            if g == c.dp_rank:
-                c.group = grp
-        for j in range(degree):
-            grp = d.new_group(ranks=list(range(j, world, degree)))
-            if j == c.rank:
-                c.dp_group = grp
-    _coords[key] = (d, c)
-    return c
+    names = [n for n, _ in layout]
+    dims = [s for _, s in layout]
+    inside = me < total
+    mine = _unravel(me, dims) if inside else None
+    groups = {}
+    for i, (name, size) in enumerate(layout):
+        if d is None or size == 1:
+            continue
+        if size == world:
+            groups[name] = None          # the default group: every rank
+            continue
+        others = [j for j in range(len(dims)) if j != i]
+        for line in range(total // size):
+            c = [0] * len(dims)
+            for j, v in zip(others, _unravel(line, [dims[j]
+                                                   for j in others])):
+                c[j] = v
+            grp = d.new_group(ranks=_line(c, dims, i))
+            if inside and all(c[j] == mine[j] for j in others):
+                groups[name] = grp
+    out = {}
+    for name, size in layout:
+        if name == "dp" or size == 1 or not inside:
+            continue
+        out[name] = Coords(name, layout, me, group=groups.get(name),
+                           dp_group=groups.get("dp"))
+    _coords[key] = (d, out)
+    return out
 
 
 def reset_model_parallel_coords():

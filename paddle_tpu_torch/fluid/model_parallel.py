@@ -7,19 +7,25 @@ over a ``(dp, mp|sp|ep)`` mesh and lets GSPMD partition the rest.  The
 port has no GSPMD: each rank is a process (``fluid/distributed.py``), so
 the executor places the collectives itself, from the same annotations:
 
-- :func:`context` — the rank's :class:`mesh_utils.Coords` for each degree
-  above 1: an mp/sp/ep group of ``degree`` consecutive ranks and a dp
-  group across them.  A world the degree does not divide is refused; a
-  process with no world runs the program unsharded (the JAX package's
-  ops run unsharded off the mesh too).  With more than one dp replica,
-  the program's runs resolve ring 0 to the dp group
-  (``lowering.ExecState.ring_group``), so a ``GradAllReduce`` transpile
-  (fleet's, ``with_data_parallel``'s) averages gradients over the
-  replicas only; every other program keeps the world as ring 0.
+- :func:`context` — the rank's :class:`mesh_utils.Coords` for each axis
+  above 1 of the program's layout: ``("dp", mp, sp, ep)`` row-major over
+  the world with the model axes trailing, as the JAX package builds its
+  mesh (compiler.py:148-160, executor.py:2065-2067), or, for a
+  pipelined program, ``("dp", "pp", "mp"[, "sp"][, "ep"])``
+  (``fluid/pipeline.py``).  Each axis has its own process groups.  A
+  world the degrees do not divide is refused; a process with no world
+  runs the program unsharded (the JAX package's ops run unsharded off
+  the mesh too).  With more than one dp replica, the program's runs
+  resolve ring 0 to the dp group (``lowering.ExecState.ring_group``),
+  so a ``GradAllReduce`` transpile (fleet's, ``with_data_parallel``'s)
+  averages gradients over the replicas only; every other program keeps
+  the world as ring 0.
 - :func:`plan` — per forward op of the main block, what it reads and
-  writes: which variables are this rank's shard, and on which dim.
-  Sequence feeds are sliced on their sequence dim; a weight of
-  ``_mp_shardings`` is held as the rank's slice.  Then, op by op:
+  writes: which variables are this rank's shard, and on which dim of
+  which axis.  Sequence feeds are sliced on their sequence dim over sp;
+  a weight of ``_mp_shardings`` is held as the rank's slice.  Then, op
+  by op and axis by axis (mp, then sp, each rule seeing the op as the
+  previous axis left it), over that axis's group:
 
   * an op that can run on the shard of its sharded input (see
     ``_RULES``: elementwise ops and activations, softmax and layer norm
@@ -37,13 +43,16 @@ the executor places the collectives itself, from the same annotations:
     all-gathered first (``gather_from``) and computes the unsharded
     result, the same on every rank of the group.
 
-  Under these rules every rank holds the exact gradient of what it
-  holds, so no parameter gradient needs a further collective, and the
-  loss, which only a reduction can produce, is replicated.  A fetch of a
-  sharded variable is all-gathered.  Ops that run on shards fold the
-  rank into their generator seed (a rank-local dropout mask); replicated
-  ops fold only the dp rank, so every rank of a group draws the same
-  mask.
+  So a variable can be sharded on two axes at once: the sequence dim
+  over sp and the feature dim over mp, between a column and a row
+  matmul of a sequence-parallel program.  Under these rules every rank
+  holds the exact gradient of what it holds, so no parameter gradient
+  needs a further collective, and the loss, which only a reduction can
+  produce, is replicated.  A fetch of a sharded variable is
+  all-gathered.  Ops that run on shards fold the rank's coordinates on
+  dp and on those axes into their generator seed (a rank-local dropout
+  mask); replicated ops fold only the dp rank, so every rank of a group
+  draws the same mask.
 - :func:`shard_state` — a value written to the scope with the global
   size of a sharded weight (the startup's initial value, or the same
   weight's optimizer state) keeps the rank's slice.  The parity tests
@@ -52,8 +61,7 @@ the executor places the collectives itself, from the same annotations:
 
 Expert parallelism needs no plan: ``switch_moe`` (``ops/moe_ops.py``)
 runs its dispatch over the ep group itself, and the rest of the program
-is replicated over it.  One degree above 1 per program: the compositions
-(dp x mp x sp and pipelines) are ROADMAP item 11b.
+is replicated over it.
 """
 
 import torch
@@ -74,27 +82,69 @@ def degrees(program):
             if int(getattr(program, attr, 0) or 0) > 1}
 
 
-def context(program):
-    """{axis: Coords} for the program's degrees in this process's world
-    ({} without a world, or without a degree above 1).  Raises when a
-    degree does not divide the world, or for more than one degree."""
+def _pipeline_stages(program):
+    if not getattr(program, "_pipeline_config", None):
+        return 1
+    from .pipeline import num_stages
+    return num_stages(program)
+
+
+def layout(program, world):
+    """The program's rank layout over a world of ``world`` ranks:
+    (name, size) pairs, ``dp`` first, then ``pp`` for a pipelined
+    program, then its degrees above 1 in ``mesh_utils.AXES`` order (mp
+    always with a pipeline).  Raises when the degrees do not divide the
+    world, or when a pipeline's world is smaller than its stages times
+    its degrees (the JAX package's RuntimeError)."""
     want = degrees(program)
-    if not want or distributed._dist() is None:
+    stages = _pipeline_stages(program)
+    model = 1
+    for d in want.values():
+        model *= d
+    if stages > 1:
+        mp, sp, ep = (want.get(a, 1) for a in mesh_utils.AXES)
+        total = stages * model
+        if world < total:
+            raise RuntimeError(
+                "pipeline needs %d stages x mp=%d x sp=%d x ep=%d = %d "
+                "devices, have %d" % (stages, mp, sp, ep, total, world))
+        dp = world // total if world % total == 0 else 1
+        return [("dp", dp), ("pp", stages), ("mp", mp)] + \
+            [(a, want[a]) for a in ("sp", "ep") if a in want]
+    if world % model:
+        raise ValueError(
+            "%s does not divide the world of %d rank(s)"
+            % (" x ".join("%s_degree=%d" % (a, want[a])
+                          for a in mesh_utils.AXES if a in want), world))
+    return [("dp", world // model)] + \
+        [(a, want[a]) for a in mesh_utils.AXES if a in want]
+
+
+def context(program):
+    """{axis: Coords} of the program's :func:`layout` in this process's
+    world, for every axis above 1 ({} with neither a degree above 1 nor
+    pipeline stages, or with degrees but no world)."""
+    if _pipeline_stages(program) < 2 and (
+            not degrees(program) or distributed._dist() is None):
         return {}
-    if len(want) > 1:
-        raise NotImplementedError(
-            "%s in one program: composing the model-parallel degrees "
-            "(dp x mp x sp, pipelines) is ROADMAP item 11b; this slice "
-            "runs one of mp, sp, ep at a time"
-            % ", ".join("%s_degree=%d" % kv for kv in sorted(want.items())))
-    world = distributed.process_count()
+    return mesh_utils.layout_coords(layout(program,
+                                           distributed.process_count()))
+
+
+def local_shapes(program, par):
+    """{weight: the shape this rank holds} for each weight of
+    ``program._mp_shardings`` whose axis is in ``par``."""
     out = {}
-    for axis, d in want.items():
-        if world % d:
-            raise ValueError(
-                "%s_degree=%d does not divide the world of %d rank(s)"
-                % (axis, d, world))
-        out[axis] = mesh_utils.model_parallel_coords(axis, d)
+    block = program.global_block()
+    for name, (axis, dim) in (getattr(program, "_mp_shardings", None)
+                              or {}).items():
+        c = par.get(axis)
+        var = block._find_var_recursive(name)
+        if c is None or var is None or not var.shape:
+            continue
+        shape = list(var.shape)
+        shape[dim] //= c.degree
+        out[name] = tuple(shape)
     return out
 
 
@@ -157,8 +207,9 @@ class OpPlan:
     """How one op runs: ``op`` (an attr-overridden copy where a shape
     attr was rewritten), ``xin``/``xout`` ({name: fn} applied to inputs
     before and outputs after the rule, inside the op's autograd graph)
-    and ``rank`` (the global rank its random draws fold in when it runs
-    on shards; None for replicated computation)."""
+    and ``rank`` (the number its random draws fold in when it runs on
+    shards: the rank's row-major index over dp and the axes it runs on
+    shards of; None for replicated computation)."""
 
     __slots__ = ("op", "xin", "xout", "rank")
 
@@ -168,8 +219,8 @@ class OpPlan:
 
 class ShardPlan:
     """The plan of one block: ``ops`` {op index: OpPlan}, ``feeds`` and
-    ``fetch`` {name: dim} to slice on feeding and gather on fetching,
-    ``coords`` of the sharded axis."""
+    ``fetch`` {name: [(axis, dim)]} to slice on feeding and gather on
+    fetching, ``coords`` {axis: Coords} of the sharded axes."""
 
     def __init__(self, coords):
         self.coords = coords
@@ -178,16 +229,18 @@ class ShardPlan:
         self.fetch = {}
 
     def slice_feed(self, name, value):
-        d = self.feeds.get(name)
-        return value if d is None else split(value, self.coords.group, d)
+        for axis, d in self.feeds.get(name, ()):
+            value = split(value, self.coords[axis].group, d)
+        return value
 
     def gather_fetch(self, name, value):
-        d = self.fetch.get(name)
-        if d is None:
+        dims = self.fetch.get(name)
+        if not dims:
             return value
         with torch.no_grad():
-            return gather_from(value, self.coords.group, d,
-                               self.coords.axis)
+            for axis, d in dims:
+                value = gather_from(value, self.coords[axis].group, d, axis)
+        return value
 
 
 class _Ctx:
@@ -451,55 +504,81 @@ def _override(op, attrs):
     return nop
 
 
+def _compose(maps):
+    """{name: fn} of several axes' transforms, each name's applied in the
+    axes' order."""
+    out = {}
+    for m in maps:
+        for n, fn in m.items():
+            prev = out.get(n)
+            out[n] = fn if prev is None else \
+                (lambda t, f=prev, g=fn: g(f(t)))
+    return out
+
+
 def plan(program, block, feed_names, fetch_names, par):
     """The :class:`ShardPlan` of ``block`` for the world's ``par``
     ({axis: Coords}), or None when no tensor or sequence degree is
     active (expert parallelism needs none)."""
-    axis = "mp" if "mp" in par else "sp" if "sp" in par else None
-    if axis is None:
+    axes = [a for a in ("mp", "sp") if a in par]
+    if not axes:
         return None
-    coords = par[axis]
-    out = ShardPlan(coords)
-    sh = {}
-    if axis == "sp":
+    out = ShardPlan({a: par[a] for a in axes})
+    sh = {a: {} for a in axes}
+    if "sp" in sh:
+        P = par["sp"].degree
         dims = getattr(program, "_sp_feed_dims", None) or {}
         for n in feed_names:
             d = dims.get(n)
             v = block._find_var_recursive(n)
             shape = list(v.shape or ()) if v is not None else []
             if d is not None and len(shape) > d and shape[d] and \
-                    shape[d] > 0 and shape[d] % coords.degree == 0:
-                sh[n] = out.feeds[n] = d
-    else:
+                    shape[d] > 0 and shape[d] % P == 0:
+                sh["sp"][n] = d
+                out.feeds[n] = [("sp", d)]
+    if "mp" in sh:
         for n, (ax, d) in (getattr(program, "_mp_shardings", None)
                            or {}).items():
-            if ax == axis:
-                sh[n] = d
+            if ax == "mp":
+                sh["mp"][n] = d
     for i, op in enumerate(block.ops):
         if int(op.attr("op_role", 0) or 0) & (OpRole.Backward |
                                               OpRole.Optimize):
             continue
-        if not any(n in sh for n in op.input_arg_names()):
-            for n in op.output_arg_names():
-                sh.pop(n, None)
-            continue
-        c = _Ctx(op, block, sh, program, coords)
-        rule = _RULES.get(op.type)
-        got = rule(c) if rule is not None else None
-        if got is None:
-            # every other op: the unsharded result, the same on every rank
-            xin = {n: c.gather(sh[n]) for n in op.input_arg_names()
-                   if n in sh}
-            for n in op.output_arg_names():
-                sh.pop(n, None)
-            out.ops[i] = OpPlan(op, xin, {}, None)
-            continue
-        xin, xout, outs = got[:3]
-        attrs = got[3] if len(got) > 3 else None
-        for n in op.output_arg_names():
-            sh.pop(n, None)
-        sh.update(outs)
-        out.ops[i] = OpPlan(_override(op, attrs) if attrs else op, xin,
-                            xout, coords.global_rank)
-    out.fetch = {n: sh[n] for n in fetch_names if n in sh}
+        cur, xins, xouts, on_shards, touched = op, [], [], [], False
+        for a in axes:
+            s = sh[a]
+            if not any(n in s for n in cur.input_arg_names()):
+                for n in cur.output_arg_names():
+                    s.pop(n, None)
+                continue
+            touched = True
+            c = _Ctx(cur, block, s, program, par[a])
+            rule = _RULES.get(cur.type)
+            got = rule(c) if rule is not None else None
+            if got is None:
+                # every other op: the unsharded result on this axis, the
+                # same on every rank of its group
+                xins.append({n: c.gather(s[n])
+                             for n in cur.input_arg_names() if n in s})
+                for n in cur.output_arg_names():
+                    s.pop(n, None)
+                continue
+            xin, xout, outs = got[:3]
+            attrs = got[3] if len(got) > 3 else None
+            for n in cur.output_arg_names():
+                s.pop(n, None)
+            s.update(outs)
+            xins.append(xin)
+            xouts.append(xout)
+            on_shards.append(a)
+            if attrs:
+                cur = _override(cur, attrs)
+        if touched:
+            fold = par[axes[0]].fold(on_shards) if on_shards else None
+            out.ops[i] = OpPlan(cur, _compose(xins), _compose(xouts), fold)
+    for n in fetch_names:
+        dims = [(a, sh[a][n]) for a in axes if n in sh[a]]
+        if dims:
+            out.fetch[n] = dims
     return out

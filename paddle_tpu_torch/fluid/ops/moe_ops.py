@@ -17,6 +17,14 @@ experts and back; their wire bytes are recorded as the JAX op records
 them (``2 · alltoall_wire_bytes``).  When the tokens or experts do not
 divide over the ep group the island cannot engage: the op warns and
 takes the dense layout, as the JAX op does.
+
+In a data-parallel run (a ``GradAllReduce`` transpile stamps the op
+``__dp_tokens__``) the replicas' tokens are routed together, as GSPMD
+routes the JAX package's global batch.  The dense layout keeps each
+rank's tokens where they are: only the per-expert counts (for the slot
+positions) and the ``[E, C, D]`` slots cross ring 0, with the
+load-balance statistics; the a2a island shards the tokens over (dp, ep)
+jointly, its capacity per shard, its statistics summed over both.
 """
 
 import math
@@ -24,7 +32,9 @@ import warnings
 
 from ...parallel.expert_parallel import (ACTS, switch_moe_dense,
                                          switch_moe_sharded)
-from ...parallel.tensor_parallel import copy_to, gather_from, scatter_to
+from ...parallel.tensor_parallel import (copy_to, gather_from,
+                                        group_size, reduce_from,
+                                        scatter_to)
 from ..quantized_collectives import alltoall_wire_bytes
 from ..registry import register_op
 
@@ -37,6 +47,21 @@ def _ep_coords(ctx):
     par = getattr(ctx.state, "parallel", None) or {}
     c = par.get("ep")
     return c if c is not None and c.degree > 1 else None
+
+
+def _dp_group(ctx):
+    """Ring 0's group when the op routes a data-parallel run's tokens
+    together and the ring has more than one rank, else None."""
+    if not ctx.attr("__dp_tokens__", False):
+        return None
+    from .. import distributed
+    d = distributed._dist()
+    if d is None:
+        return None
+    g = ctx.state.ring_group(0)
+    if g is None:
+        g = d.group.WORLD
+    return g if d.get_world_size(g) > 1 else None
 
 
 @register_op("switch_moe")
@@ -52,6 +77,7 @@ def _switch_moe(ctx, op):
     cf = float(ctx.attr("capacity_factor", 1.25))
     act = ACTS[ctx.attr("act", "relu")]
     ep = _ep_coords(ctx)
+    dpg = _dp_group(ctx)
     D = x.shape[-1]
     E = router_w.shape[-1]
     N = 1
@@ -66,7 +92,8 @@ def _switch_moe(ctx, op):
             xl = scatter_to(xf, g, 0, axis="ep")
             out_l, aux = switch_moe_sharded(
                 xl, copy_to(router_w, g, "ep"), w1, w2, g,
-                capacity_factor=cf, act=act, dispatch_precision=precision)
+                capacity_factor=cf, act=act, dispatch_precision=precision,
+                dp_group=dpg)
             out = gather_from(out_l, g, 0, axis="ep")
             C = max(1, int(math.ceil(cf * (N // ep.degree) / E)))
             ctx.state.record_comm(
@@ -86,9 +113,18 @@ def _switch_moe(ctx, op):
 
     out, gates, onehot = switch_moe_dense(
         xf, router_w, w1, w2, cf, act,
-        *((ep.group, ep.degree) if ep is not None else ()))
+        *((ep.group, ep.degree) if ep is not None else (None, 1)),
+        dp_group=dpg)
     ctx.set("Out", out.reshape(x.shape).to(x.dtype))
     if op.output("AuxLoss"):
-        # E · Σ_e frac_e · prob_e in float32, like the router
-        aux = (E * (onehot.mean(dim=0) * gates.mean(dim=0)).sum())
+        # E · Σ_e frac_e · prob_e in float32, like the router; over the
+        # replicas' tokens the sums' gradient is summed too, because
+        # each replica's loss carries the one global aux loss
+        if dpg is None:
+            frac, prob = onehot.mean(dim=0), gates.mean(dim=0)
+        else:
+            n = float(N * group_size(dpg))
+            frac, prob = (copy_to(reduce_from(t.sum(dim=0), dpg, "dp"),
+                                  dpg, "dp") / n for t in (onehot, gates))
+        aux = E * (frac * prob).sum()
         ctx.set("AuxLoss", aux.reshape(1))

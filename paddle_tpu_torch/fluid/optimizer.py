@@ -941,6 +941,12 @@ class GradientMergeOptimizer:
         return optimize_ops, params_grads
 
 
+# PipelineOptimizer lives in pipeline.py with device_guard (the GPipe
+# schedule is executor-level machinery); re-exported here to match the
+# reference namespace (optimizer.py:2664).
+from .pipeline import PipelineOptimizer  # noqa: E402,F401
+
+
 class RecomputeOptimizer:
     """Gradient checkpointing (JAX optimizer.py:1089; the reference's
     RecomputeOptimizer contract): ``_set_checkpoints([...])`` names the

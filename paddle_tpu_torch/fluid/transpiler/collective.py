@@ -243,6 +243,12 @@ class GradAllReduce(Collective):
             from ..ir import get_pass
             get_pass("sync_batch_norm_pass")(self.main_program)
         block = self.main_program.global_block()
+        # under GSPMD the JAX package's switch_moe routes the global
+        # batch's tokens (one capacity, one load-balance loss): each
+        # replica's op routes its ring's tokens together (ops/moe_ops.py)
+        for op in block.ops:
+            if op.type == "switch_moe":
+                op.attrs["__dp_tokens__"] = True
         inserts = self._collect_grads(block)
         if self.weight_update_sharding:
             self._transpile_wus(block, inserts)
@@ -290,10 +296,16 @@ class GradAllReduce(Collective):
         position, so earlier buckets' exchanges are already in flight
         while later grads are still being produced."""
         import numpy as np
+        from .. import model_parallel
+        # a model-parallel program's sharded weight has a gradient of the
+        # shape the rank holds
+        prog = block.program
+        local = model_parallel.local_shapes(prog,
+                                            model_parallel.context(prog))
         cur, cur_bytes, cur_dtype = [], 0, None
         for idx, pname, gname in inserts:
             p = block._find_var_recursive(pname)
-            shape = tuple(int(s) for s in p.shape)
+            shape = tuple(int(s) for s in local.get(pname, p.shape))
             numel = int(np.prod(shape)) if shape else 1
             nbytes = numel * 4
             if cur and (not limit_bytes or cur_dtype != p.dtype or
@@ -371,11 +383,15 @@ class GradAllReduce(Collective):
                 "weight_update_sharding does not compose with "
                 "hierarchical allreduce: the sharded exchange is "
                 "single-level, as in the JAX package")
+        main, startup = self.main_program, self.startup_program
         N = int(self.nranks) if self.nranks else 0
         if not N:
-            # no endpoints: the world this process is in
-            N = distributed.process_count()
-        main, startup = self.main_program, self.startup_program
+            # no endpoints: the ranks ring 0 spans in this world — the
+            # dp replicas of a model-parallel program, else the world
+            from .. import model_parallel
+            par = model_parallel.context(main)
+            N = next(iter(par.values())).dp_size if par \
+                else distributed.process_count()
         main._wus_degree = startup._wus_degree = N
         for prog in (main, startup):
             if not hasattr(prog, "_dp_sharded_state"):

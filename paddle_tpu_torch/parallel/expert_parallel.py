@@ -20,7 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .tensor_parallel import (gather_from, group_size, reduce_from,
+from .tensor_parallel import (all_gather, copy_to, gather_from,
+                              group_rank, group_size, reduce_from,
                               scatter_to)
 
 ACTS = {
@@ -81,16 +82,21 @@ def all_to_all(x, group, split_axis=0, concat_axis=0, precision="fp32",
                            axis)
 
 
-def route_tokens(xf, router_w, E, capacity):
+def route_tokens(xf, router_w, E, capacity, offset=None):
     """Top-1 switch routing in float32: ``(gates [N, E], expert [N],
     gate [N], onehot [N, E], combine [N, E, C])``.  Ties go to the first
     expert (``argmax``); a token takes the next free slot of its expert
-    in token order and is dropped past ``capacity``."""
+    in token order, after the slots ``offset(onehot)`` [E] says tokens
+    ahead of these took (None: none), and is dropped past
+    ``capacity``."""
     gates = torch.softmax(xf.float() @ router_w.float(), dim=-1)
     expert = torch.argmax(gates, dim=-1)
     gate = torch.gather(gates, 1, expert.unsqueeze(1)).squeeze(1)
     onehot = F.one_hot(expert, E).to(torch.float32)
-    pos = (torch.cumsum(onehot, dim=0) - 1.0) * onehot
+    pos = torch.cumsum(onehot, dim=0) - 1.0
+    if offset is not None:
+        pos = pos + offset(onehot)
+    pos = pos * onehot
     keep = (pos < capacity).to(torch.float32) * onehot
     slot = F.one_hot(pos.to(torch.int64).clamp(0, capacity - 1),
                      capacity).to(torch.float32)
@@ -126,7 +132,8 @@ def switch_moe(x, router_w, w1, w2, group=None, capacity_factor=1.0,
 
 def switch_moe_sharded(x, router_w, w1_local, w2_local, group=None,
                        capacity_factor=1.25, act=torch.relu,
-                       dispatch_precision="fp32", stat_group="same"):
+                       dispatch_precision="fp32", stat_group="same",
+                       dp_group=None):
     """The GShard island (``switch_moe_sharded``, expert_parallel.py:80):
     several experts per rank and the all-to-all dispatch.
 
@@ -137,7 +144,10 @@ def switch_moe_sharded(x, router_w, w1_local, w2_local, group=None,
     ``C = ceil(cf · Nl / E)``.  The two exchanges move ``[E, C, D]`` slot
     tensors at ``dispatch_precision``.  The aux statistics are summed
     over ``stat_group`` (default: ``group``), so the load-balance loss is
-    global.  Returns ``(out [Nl, D], aux scalar)``."""
+    global, and over ``dp_group`` too when the dp replicas' tokens share
+    one routing: there the sum's gradient is summed over the replicas
+    as well, because their averaged gradients each carry the loss.
+    Returns ``(out [Nl, D], aux scalar)``."""
     ep = group_size(group)
     Nl, D = x.shape
     E = w1_local.shape[0] * ep
@@ -155,25 +165,49 @@ def switch_moe_sharded(x, router_w, w1_local, w2_local, group=None,
     out = out * gate.to(out.dtype).unsqueeze(1)
     sg = group if stat_group == "same" else stat_group
     n_tot = float(Nl * group_size(sg))
-    frac = reduce_from(onehot.sum(dim=0), sg, "ep") / n_tot
-    prob = reduce_from(gates.sum(dim=0), sg, "ep") / n_tot
-    return out, E * torch.sum(frac * prob)
+    frac = reduce_from(onehot.sum(dim=0), sg, "ep")
+    prob = reduce_from(gates.sum(dim=0), sg, "ep")
+    if dp_group is not None:
+        n_tot *= group_size(dp_group)
+        frac, prob = (copy_to(reduce_from(t, dp_group, "dp"), dp_group,
+                              "dp") for t in (frac, prob))
+    return out, E * torch.sum((frac / n_tot) * (prob / n_tot))
 
 
-def switch_moe_dense(xf, router_w, w1, w2, cf, act, group=None, ep=1):
+def switch_moe_dense(xf, router_w, w1, w2, cf, act, group=None, ep=1,
+                     dp_group=None):
     """The dense global formulation (``moe_ops._switch_moe``'s einsums)
     with the expert dim over ``group``: routing, capacity
     ``ceil(cf · N / E)`` and the ``[E, C, D]`` dispatch are computed on
     every rank from all N tokens; each rank runs its ``E/ep`` experts
     (``w1 [E_l, D, F]``, ``w2 [E_l, F, D]``) on its slice of the slots,
     and the expert outputs are all-gathered back.  ``ep`` 1 is one rank
-    holding every expert.  Returns ``(out [N, D], gates, onehot)``."""
+    holding every expert.
+
+    With ``dp_group`` the replicas' tokens are one batch, rank-major, as
+    GSPMD sees the JAX package's global batch: N counts every replica's
+    tokens, a token's slot follows those its expert took on the lower
+    replicas (their per-expert counts all-gathered), and the slots are
+    summed over the replicas (each holds one token, so the sum is
+    exact; its gradient passes unchanged, since a rank's loss reads only
+    its own tokens' slots).  Dispatch and combine stay on this rank's
+    tokens.  Returns ``(out, gates, onehot)`` of this rank's tokens."""
     N = xf.shape[0]
     E = router_w.shape[-1]
-    C = max(1, int(math.ceil(cf * N / E)))
-    gates, _e, gate, onehot, combine = route_tokens(xf, router_w, E, C)
+    dp = group_size(dp_group) if dp_group is not None else 1
+    C = max(1, int(math.ceil(cf * N * dp / E)))
+
+    def lower_replicas(onehot):
+        with torch.no_grad():
+            counts = all_gather(onehot.sum(dim=0), dp_group, 0, axis="dp")
+            return counts.view(dp, E)[:group_rank(dp_group)].sum(dim=0)
+
+    gates, _e, gate, onehot, combine = route_tokens(
+        xf, router_w, E, C, lower_replicas if dp > 1 else None)
     combine = combine.to(xf.dtype)
     dispatch = torch.einsum("nec,nd->ecd", combine, xf)        # [E, C, D]
+    if dp > 1:
+        dispatch = reduce_from(dispatch, dp_group, "dp")
     if ep > 1:
         dispatch = scatter_to(dispatch, group, 0, axis="ep")
     hidden = act(torch.einsum("ecd,edf->ecf", dispatch, w1))

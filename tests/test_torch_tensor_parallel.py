@@ -30,7 +30,9 @@ every sharded weight.
 A second pack of four ranks runs the Megatron MLP at mp 2 through
 ``with_data_parallel``, two dp replicas of two mp ranks, against JAX's
 data-parallel run of the same program; then, in the same processes, a
-plain data-parallel program, whose ring 0 must still be the world.
+plain data-parallel program, whose ring 0 must still be the world, and
+the mp program again with ``zero_shard_optimizer_state`` over the two
+replicas, against the same JAX run.
 """
 
 import json
@@ -491,24 +493,34 @@ def worker_dp_mp(out_dir):
         float(np.abs(np.asarray(dp_scope.find_var(p.name)) -
                      np.asarray(one_scope.find_var(p.name))).max())
         for p in main.global_block().all_parameters())
-    # weight-update sharding over the replicas is item 11b
+    # weight-update sharding over the two replicas: each rank holds 1/2
+    # of the Momentum state of its mp shard
     main, startup, loss = build(fluid, megatron_mlp)
     tp(2)(fluid, main, startup)
-    bs = fluid.BuildStrategy()
-    bs.zero_shard_optimizer_state = True
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    fluid.load_numpy_params(scope, init, fluid.CPUPlace(), program=main)
     prog = fluid.CompiledProgram(main).with_data_parallel(
-        loss_name=loss.name, build_strategy=bs)
-    try:
-        fluid.Executor(fluid.CPUPlace()).run(
-            prog, feed=rows(feeds[0], rank // 2, 2), fetch_list=[loss],
-            scope=fluid.Scope())
-        res["zero_shard"] = None
-    except NotImplementedError as e:
-        res["zero_shard"] = str(e)
+        loss_name=loss.name, build_strategy=zero_strategy(fluid))
+    res["zero_losses"] = [
+        float(exe.run(prog, feed=rows(f, rank // 2, 2), fetch_list=[loss],
+                      scope=scope)[0].reshape(-1)[0]) for f in feeds]
+    res["zero_state"] = {n: list(scope.find_var(n).shape)
+                         for n in scope.var_names()
+                         if n.startswith("wus_") or "velocity" in n}
+    res["params"] = {n: list(scope.find_var(n).shape)
+                     for n in ("fc_0.w_0", "fc_1.w_0", "fc_2.w_0")}
     dist.barrier("end")
     with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
         json.dump(res, f)
     dist.shutdown()
+
+
+def zero_strategy(pkg):
+    bs = pkg.BuildStrategy()
+    bs.zero_shard_optimizer_state = True
+    return bs
 
 
 @pytest.fixture(scope="module")
@@ -558,10 +570,30 @@ def test_plain_data_parallel_after_a_tp_run_spans_the_world(pack_dp_mp):
         assert r["dp_param_err"] <= PRIM_TOL, r
 
 
-def test_weight_update_sharding_of_tp_replicas_is_refused(pack_dp_mp):
-    ranks, _ = pack_dp_mp
+def test_weight_update_sharding_of_tp_replicas_matches_jax(pack_dp_mp):
+    """``zero_shard_optimizer_state`` over the two dp replicas of the mp
+    program: the replicas' mean loss is JAX's data-parallel run's, step
+    after step (the sharded update equals the replicated one; JAX's own
+    run with the option raises a sharding mismatch on its dp 4 x mp 2
+    mesh); each rank holds half of the Momentum state of its mp shard of
+    each weight (the per-parameter velocities are gone), and its shard
+    of each paired weight."""
+    ranks, zero = pack_dp_mp
+    for a, b in ((0, 1), (2, 3)):
+        np.testing.assert_allclose(ranks[a]["zero_losses"],
+                                   ranks[b]["zero_losses"], rtol=1e-6,
+                                   atol=1e-6)
+    mean = (np.asarray(ranks[0]["zero_losses"]) +
+            np.asarray(ranks[2]["zero_losses"])) / 2
+    np.testing.assert_allclose(mean, zero, rtol=LOSS_TOL, atol=LOSS_TOL)
+    # fc_0.w_0 [32, 128] column-sharded, fc_1.w_0 [128, 32] row-sharded:
+    # 2048 elements a rank each, 1024 of its velocity a replica
     for r in ranks:
-        assert "ROADMAP item 11b" in r["zero_shard"]
+        assert r["params"] == {"fc_0.w_0": [32, 64], "fc_1.w_0": [64, 32],
+                               "fc_2.w_0": [32, 8]}
+        assert not [n for n in r["zero_state"] if not n.startswith("wus_")]
+        sizes = sorted(int(np.prod(s)) for s in r["zero_state"].values())
+        assert 1024 in sizes and max(sizes) == 1024, r["zero_state"]
 
 
 @pytest.fixture(scope="module")
@@ -746,12 +778,17 @@ def test_fc_parallel_layers_and_head_split_match_jax():
 
 
 def test_dp_by_mp_layout_of_a_larger_world():
-    from paddle_tpu_torch.fluid import mesh_utils
-    c = mesh_utils.Coords("mp", 2, 8, 5)
+    from paddle_tpu_torch.fluid import mesh_utils, model_parallel
+    main, _startup, _loss = build(fluid, megatron_mlp)
+    tp(2)(fluid, main, _startup)
+    layout = model_parallel.layout(main, 8)
+    assert layout == [("dp", 4), ("mp", 2)]
+    c = mesh_utils.Coords("mp", layout, 5)
     assert (c.rank, c.dp_rank, c.dp_size) == (1, 2, 4)
     assert c.group_ranks == [4, 5] and c.dp_ranks == [1, 3, 5, 7]
+    main._mp_degree, main._sp_degree = 1, 3
     with pytest.raises(ValueError, match="does not divide"):
-        mesh_utils.Coords("sp", 3, 8, 0)
+        model_parallel.layout(main, 8)
 
 
 def test_sharded_weights_load_unsharded_without_a_world():
