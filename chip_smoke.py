@@ -302,7 +302,7 @@ non-zero exit (nothing is caught):
    mark 5, hidden 512, depth 8), rnn_encoder_decoder (a StaticRNN
    decoder; dictionary 30,000, word 16, hidden 32, T 8) and
    machine_translation (a DynamicRNN decoder; the same widths), each
-   20 steps (2 warm-up) over its first 4 batches: finite losses, no port
+   12 steps (2 warm-up) over its first 4 batches: finite losses, no port
    kernel launched; ms per step, one profiled step's launches and busy
    share, peak memory; then machine_translation's beam decode (beam 2,
    8 steps) from the trained weights.
@@ -318,9 +318,9 @@ non-zero exit (nothing is caught):
    (``dp_child mp_bert``): BERT-base at phase 9's configuration with
    all dropout off (batch 32, fp32, Adam 1e-4), from phase 9's initial
    parameters and batch, through fleet with mp_degree=2 (tp_bert), then
-   sp_degree=2 ring and Ulysses (sp_bert_ring, sp_bert_ulysses), 1 + 3
+   sp_degree=2 ring and Ulysses (sp_bert_ring, sp_bert_ulysses), 1 + 2
    steps each, against the same program in this process: every step's
-   loss within 1e-4 (steps 2-4 after the layer's backward and sharded
+   loss within 1e-4 (steps 2-3 after the layer's backward and sharded
    update), both ranks' losses equal, 12 K2/K3/K4 a step (0 on the
    ring, whose padding bias takes the einsum ring) and 0 K5; tp_bert's
    parameters a rank below one process's; ms per step, peak memory,
@@ -329,7 +329,7 @@ non-zero exit (nothing is caught):
 29b. pp_bert, pp_mp_bert, mp_sp_bert: pipelines and the compositions,
    gloo ranks on card 0 (``dp_child pp_bert``, ``dp_child
    pp_mp_bert``), BERT-base at phase 9's configuration with all dropout
-   off from phase 9's initial parameters and batch, 1 + 3 steps each,
+   off from phase 9's initial parameters and batch, 1 + 2 steps each,
    against mp_bert's run of the same program in this process: pp_bert,
    two stages of six layers (``device_guard`` at layer 6,
    PipelineOptimizer with 4 microbatches, ``mask_pos`` re-based to its
@@ -359,7 +359,29 @@ non-zero exit (nothing is caught):
    over the whole sequence (1e-4 fp32, 2e-2 bf16, of each of o, dq, dk
    and dv's own largest entry); wall ms of both rings (their exchanges
    go through the host on gloo).
-31. kernels: one JSON line listing every ported kernel, with its
+31. control_flow: the programs of the JAX package's control-flow and
+   LoD tests (While counting and filling a tensor array, cond, Switch,
+   IfElse, the rank table, the LoD tensor / array round trip,
+   shrink_rnn_memory, split / merge), the branch gradients
+   (conditional_block_grad taken and not, cond_grad) and a tensor array
+   written past its capacity, on the card against the port's CPU path:
+   integers equal, floats within 1e-6, their closed forms; the host
+   syncs each makes (a While of N iterations reads its condition N + 1
+   times).
+32. cost_ledger: ``Executor.cost_record`` of BERT-base training (phase
+   9's configuration), the ResNet-50 step of phase 12 and the BERT-base
+   serving buckets (``warmup(ledger=True)``): FLOPs, bytes, peak,
+   ``estimated_step_s``, the measured ms a step (``timing.timed_steps``)
+   and the FLOPs a second as a share of the dtype's peak.  Fails unless
+   the counted FLOPs of mul / matmul / conv2d and their grads lie within
+   2% of the analytic count from the ops' shapes, and K1-K4's counted
+   FLOPs equal their launches times their ``kernel_work``.
+33. op_bench: ``fluid/benchmark.py``'s resnet50 (batch 256) and bert
+   (batch 64) suites on the card, one row per entry (ms fwd + bwd,
+   TFLOP/s, GB/s, the ledger's counted FLOPs); fails on an entry that
+   errs or whose counted conv / mul / matmul FLOPs miss the estimate by
+   more than 2%.  Then the whole run's wall time.
+34. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's, the wrappers', the
    parameter server's, ResNet-50 inference's and the book models'; the
    data-parallel and model-parallel paths' as their rank 0 counted
@@ -388,7 +410,10 @@ c.phase_device(); c.phase_build(); t = c.phase_train();
 c.phase_train_surface(t); c.phase_wrappers()'``.  The model-parallel
 phases and the pipelines alone: ``python3 -c 'import chip_smoke as c;
 c.phase_device(); c.phase_build(); t = c.phase_train(); p, ref =
-c.phase_mp_bert(t); c.phase_pp_bert(t, ref)'``.
+c.phase_mp_bert(t); c.phase_pp_bert(t, ref)'``.  The control flow,
+the ledger and the per-op bench alone: ``python3 -c 'import chip_smoke
+as c; c.phase_device(); c.phase_build(); c.phase_control_flow();
+c.phase_cost_ledger(); c.phase_op_bench()'``.
 """
 
 import contextlib
@@ -406,6 +431,8 @@ import numpy as np
 import torch
 
 import paddle_tpu_torch.fluid as fluid
+from paddle_tpu_torch.fluid import timing
+from paddle_tpu_torch.fluid.costmodel import kernel_work, stored_bytes
 from paddle_tpu_torch.fluid.ops import _kernels, attention_ops
 from paddle_tpu_torch.fluid.ops.attention_ops import (
     attention_delta, attention_reference, dbias_reference, dkv_reference,
@@ -735,9 +762,9 @@ def phase_kernel():
     library_ms = cuda_time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=bias, scale=scale))
-    flops = 4.0 * B * H * S * S * D
-    nbytes = 4 * q.numel() * q.element_size() + bias.numel() * \
-        bias.element_size()
+    flops, nbytes = kernel_work("K2", bh=B * H, sq=S, sk=S, d=D,
+                                esz=q.element_size(),
+                                bias_bytes=stored_bytes(bias))
     timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                   **_attention_bound(nbytes, flops))
     emit(phase="kernel_time", shape=[B * H, S, D], dtype="float32",
@@ -1129,10 +1156,10 @@ LN_SHAPE = (BT * S, H * D)    # K6: BERT-base's training hidden state
 
 
 def k1_work(n, hw, c, o, esz):
-    """(bytes, flops) of one K1 launch: x read once, w read once, out
-    written once (scale/shift absent on the op path), 2·M·K·N flops."""
-    flops = 2.0 * n * hw * hw * 9 * c * o
-    nbytes = esz * (n * hw * hw * c + 9 * c * o + n * hw * hw * o)
+    """(bytes, flops) of one K1 launch (``costmodel.kernel_work``): x
+    read once, w read once, out written once (scale/shift absent on the
+    op path), 2·M·K·N flops."""
+    flops, nbytes = kernel_work("K1", n=n, h=hw, w=hw, c=c, o=o, esz=esz)
     return nbytes, flops
 
 
@@ -1144,10 +1171,11 @@ def k1_bound(n, hw, c, esz=2):
 
 
 def k6_bound(M, Dm, esz=4):
-    """K6's least time: x read and y written once, scale and bias read
-    once; mean, centre, square, variance, scale and shift ~8 flops per
-    entry."""
-    return _bound(esz * 2 * M * Dm + 4 * 2 * Dm, 8.0 * M * Dm)
+    """K6's least time (``costmodel.kernel_work``): x read and y written
+    once, scale and bias read once; mean, centre, square, variance,
+    scale and shift ~8 flops per entry."""
+    flops, nbytes = kernel_work("K6", m=M, d=Dm, esz=esz)
+    return _bound(nbytes, flops)
 
 
 def phase_bounds():
@@ -1343,10 +1371,8 @@ def phase_kernel_bwd():
     q, k, v, b, scale, dO, lse, delta, _c = args
     for name, fn in kernels:
         _check_no_host_sync(lambda fn=fn: fn(*args))
-    esz = q.element_size()
-    qkv = q.numel() * esz
-    side = b.numel() * b.element_size() + 2 * lse.numel() * 4
-    sq = BH * S * S
+    shape = dict(bh=BH, sq=S, sk=S, d=D, esz=q.element_size(),
+                 bias_bytes=stored_bytes(b))
     q4, k4, v4 = (t.detach().view(BT, H, S, D).requires_grad_()
                   for t in (q, k, v))
     mask = b.detach().clone().requires_grad_()
@@ -1370,9 +1396,9 @@ def phase_kernel_bwd():
          kernels=sorted({e.key for e in prof.key_averages()
                          if "fmha" in e.key or "ttention" in e.key}))
     plain = dict(dq=dq_reference, dkv=dkv_reference, dbias=dbias_reference)
-    work = dict(dq=(5 * qkv + side, 6.0 * sq * D),
-                dkv=(6 * qkv + side, 8.0 * sq * D),
-                dbias=(4 * qkv + side + sq * esz, 4.0 * sq * D))
+    # (bytes, flops) of each launch (costmodel.kernel_work)
+    work = {name: kernel_work(k, **shape)[::-1] for name, k in
+            (("dq", "K3"), ("dkv", "K4"), ("dbias", "K5"))}
     out = {}
     for name, fn in kernels:
         timing = dict(ms=cuda_time_ms(lambda fn=fn: fn(*args)),
@@ -1397,8 +1423,7 @@ def phase_kernel_bwd():
         library_ms=cuda_time_ms(lambda: sdpa(q4.detach(), k4.detach(),
                                              v4.detach(), attn_mask=b,
                                              scale=scale)),
-        **_attention_bound(4 * qkv + b.numel() * 4 + lse.numel() * 4,
-                           4.0 * sq * D))
+        **_attention_bound(*kernel_work("K2", lse=True, **shape)[::-1]))
     emit(phase="kernel_time", kernel="flash_attention_fwd with_lse",
          shape=[BH, S, D], bias=list(b.shape), dtype="float32",
          roofline_share=k2["bound_ms"] / k2["ms"], **k2)
@@ -1421,11 +1446,6 @@ def _pad_bias_view(lengths, dtype, dev):
          torch.as_tensor(lengths, device=dev)[:, None]).float()
     bias = ((m - 1.0) * 1e4).reshape(len(lengths), 1, 1, NS).to(dtype)
     return bias.expand(len(lengths), 1, NS, NS)
-
-
-def _causal_share(S_q, S_kv):
-    """The share of the score matrix that a causal mask keeps."""
-    return (S_q * (S_q + 1) / 2) / (S_q * S_kv)
 
 
 def phase_kernel_nmt():
@@ -1476,12 +1496,9 @@ def phase_kernel_nmt():
         args, _ = _bwd_args(tt, dt, causal, True)
         q, k, v, b, scale, dO, lse, delta, _c = args
         esz = q.element_size()
-        qkv = q.numel() * esz
-        # K2 writes the LSE; K3 and K4 read it and delta
-        bias = 0 if b is None else NB * NS * esz
-        lse_bytes = lse.numel() * 4
-        share = _causal_share(NS, NS) if causal else 1.0
-        sq = BH * NS * NS * share
+        # the pad bias is read as a stride-0 view: [NB, NS] entries
+        shape = dict(bh=BH, sq=NS, sk=NS, d=D, esz=esz, causal=causal,
+                     bias_bytes=0 if b is None else NB * NS * esz)
         peak_bound = (_attention_bound if dt == torch.float32 else
                       lambda nb, fl: _bound(nb, fl, PEAK_BF16_FLOPS))
         q4, k4, v4 = (x.detach().view(NB, NH, NS, D).requires_grad_()
@@ -1491,9 +1508,11 @@ def phase_kernel_nmt():
         o4 = sdpa(q4, k4, v4, scale=scale, **kw)
         lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
             o4, (q4, k4, v4), g4, retain_graph=True))
-        work = dict(fwd=(4 * qkv + bias + lse_bytes, 4.0 * sq * D),
-                    dq=(5 * qkv + bias + 2 * lse_bytes, 6.0 * sq * D),
-                    dkv=(6 * qkv + bias + 2 * lse_bytes, 8.0 * sq * D))
+        # (bytes, flops) of each launch (costmodel.kernel_work; K2 with
+        # the LSE, K3 and K4 read it and delta)
+        work = dict(fwd=kernel_work("K2", lse=True, **shape)[::-1],
+                    dq=kernel_work("K3", **shape)[::-1],
+                    dkv=kernel_work("K4", **shape)[::-1])
         fns = dict(
             fwd=(lambda: flash_attention(q, k, v, b, scale, causal=causal,
                                          with_lse=True),
@@ -4902,7 +4921,7 @@ def phase_elastic_shrink():
 
 
 
-BOOK_STEPS = 20               # book_train: 2 warm-up + 18 timed steps
+BOOK_STEPS = 12               # book_train: 2 warm-up + 10 timed steps
 BOOK_FEEDS = 4                # distinct batches of each program, in turn
 BOOK_CHECK_BATCH = {          # book_check: the CNNs' CPU side stays cheap
     "image_classification_resnet": 16, "image_classification_vgg": 16}
@@ -6341,7 +6360,7 @@ def phase_ps_two_trainers(cluster, ref):
 # Tensor, sequence and expert parallelism: two gloo ranks on card 0
 # ---------------------------------------------------------------------------
 
-MP_STEPS = 4                  # 1 warm-up + 3 timed steps a path
+MP_STEPS = 3                  # 1 warm-up + 2 timed steps a path
 MP_LOSS_RTOL = 1e-4           # every step's loss, two ranks vs one process
 MOE_OUT_RTOL = {"fp32": 1e-4,  # the MoE output at step 1 vs one process,
                 "int8": 2.0 / 127}  # over its largest entry (int8: the
@@ -7033,11 +7052,531 @@ def phase_pp_bert(train, ref):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# The device-cost ledger, the per-op bench and control flow
+# ---------------------------------------------------------------------------
+
+# the products the ledger's analytic check covers, with their grad ops
+CONTRACTION_OPS = ("mul", "mul_grad", "matmul", "matmul_grad", "conv2d",
+                   "conv2d_grad")
+# the grad slots of each product's grad op
+_GRAD_SLOTS = {"mul": ("X", "Y"), "matmul": ("X", "Y"),
+               "conv2d": ("Input", "Filter")}
+LEDGER_TOL = 0.02             # counted vs analytic contraction FLOPs
+LEDGER_STEPS = 3              # timed steps a ledger path (after 1 warm-up)
+OP_BENCH_STEPS = 4            # per-op bench: steps a window (doubled until
+#                               it is at least 20 ms and 4 fence reads)
+OP_BENCH_BERT_BATCH = 64      # benchmark.bert_suite's batch
+
+
+def _prod(xs):
+    return float(np.prod([int(x) for x in xs])) if len(xs) else 1.0
+
+
+def _contraction_flops(op_type, shapes, outputs, attrs):
+    """2·M·N·K of one mul / matmul / conv2d op, or of the gradients its
+    grad op computes (one product each), from the op's input shapes."""
+    grad = op_type.endswith("_grad")
+    base = op_type[:-len("_grad")] if grad else op_type
+    if base == "mul":
+        x, y = shapes["X"][0], shapes["Y"][0]
+        xn = int(attrs.get("x_num_col_dims", 1))
+        yn = int(attrs.get("y_num_col_dims", 1))
+        f = 2.0 * _prod(x[:xn]) * _prod(x[xn:]) * _prod(y[yn:])
+    elif base == "matmul":
+        x, y = list(shapes["X"][0]), list(shapes["Y"][0])
+        if attrs.get("transpose_X"):
+            x[-2], x[-1] = x[-1], x[-2]
+        if attrs.get("transpose_Y"):
+            y[-2], y[-1] = y[-1], y[-2]
+        batch = _prod(np.broadcast_shapes(tuple(x[:-2]), tuple(y[:-2])))
+        f = 2.0 * batch * x[-2] * x[-1] * y[-1]
+    else:
+        n, c, h, w = shapes["Input"][0]
+        if attrs.get("data_format", "NCHW") == "NHWC":
+            n, h, w, c = shapes["Input"][0]
+        o, cg, kh, kw = shapes["Filter"][0]
+        st = list(attrs.get("strides", [1, 1]))
+        pd = list(attrs.get("paddings", [0, 0]))
+        dl = list(attrs.get("dilations", [1, 1]) or [1, 1])
+        ph = pd[0] + (pd[1] if len(pd) == 4 else pd[0])
+        pw = (pd[2] + pd[3]) if len(pd) == 4 else 2 * pd[1]
+        ho = (h + ph - dl[0] * (kh - 1) - 1) // st[0] + 1
+        wo = (w + pw - dl[1] * (kw - 1) - 1) // st[1] + 1
+        f = 2.0 * n * o * ho * wo * cg * kh * kw
+    if not grad:
+        return f
+    return f * sum(1 for slot in _GRAD_SLOTS[base]
+                   if any(outputs.get(slot + "@GRAD", [])))
+
+
+def _ledger_path(name, exe, main, feed, fetch, scope, kernels):
+    """One path's ledger record on the card, its measured ms a step and
+    the two checks: counted contraction FLOPs of mul / matmul / conv2d
+    and their grads within LEDGER_TOL of the analytic count from the
+    ops' shapes, and each hand kernel's counted FLOPs equal to its
+    launches in the capture times ``kernels[k]`` (its kernel_work at
+    the path's shape: a list of (launches, flops) per shape)."""
+    _reset_launches()
+    rec = exe.cost_record(main, feed=feed, fetch_list=fetch, scope=scope,
+                          tag=name, shape_ops=CONTRACTION_OPS)
+    launches = _launches()
+
+    def step(i):
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    detail = {}
+    dt, _ = timing.timed_steps(step, LEDGER_STEPS, warmup=1, detail=detail)
+    ms = dt / LEDGER_STEPS * 1e3
+    counted = sum(v["flops_est"] for op, v in rec["attribution"].items()
+                  if op[len("fluid_"):] in CONTRACTION_OPS)
+    analytic = sum(_contraction_flops(*e) for e in rec["op_shapes"])
+    peak = PEAK_BF16_FLOPS if rec["peak_dtype"] in ("bfloat16", "float16") \
+        else PEAK_FP32_FLOPS
+    hk = rec["hand_kernels"]
+    names = {"K1": "conv3x3_bn_relu", "K2": "flash_attention_fwd",
+             "K3": "flash_attention_bwd_dq", "K4": "flash_attention_bwd_dkv",
+             "K5": "flash_attention_bwd_dbias", "K6": "layer_norm"}
+    kernel_ok = {}
+    for k, per_shape in kernels.items():
+        n = sum(c for c, _f in per_shape)
+        want = sum(c * f for c, f in per_shape)
+        got = hk.get(k, {"calls": 0, "flops": 0.0})
+        kernel_ok[k] = dict(launches=launches[names[k]], calls=got["calls"],
+                            flops=got["flops"], want_flops=want,
+                            ok=got["calls"] == n == launches[names[k]] and
+                            got["flops"] == want)
+    emit(phase="cost_ledger", path=name, sig=rec["sig"],
+         flops=rec["flops"], tflop=rec["flops"] / 1e12,
+         transcendentals=rec["transcendentals"],
+         bytes_accessed=rec["bytes_accessed"],
+         argument_bytes=rec["argument_bytes"],
+         output_bytes=rec["output_bytes"], temp_bytes=rec["temp_bytes"],
+         peak_bytes=rec["peak_bytes"], peak_mb=rec["peak_bytes"] / 2**20,
+         aten_calls=rec["aten_calls"],
+         hand_kernel_calls=rec["hand_kernel_calls"],
+         estimated_step_ms=rec["estimated_step_s"] * 1e3,
+         peak_dtype=rec["peak_dtype"], ms_per_step=ms,
+         flops_per_s=rec["flops"] / (ms * 1e-3),
+         share_of_peak=rec["flops"] / (ms * 1e-3) / peak,
+         fence=dict(rtt_s=detail["fence_rtt_s"],
+                    wall_s=detail["window_wall_s"]),
+         contraction_counted=counted, contraction_analytic=analytic,
+         contraction_rel=abs(counted - analytic) / analytic,
+         hand_kernels=kernel_ok, top_ops=rec["top_ops"][:6])
+    checks = {"contraction_flops_within_2pct":
+              abs(counted - analytic) <= LEDGER_TOL * analytic,
+              "kernel_work_times_launches":
+              all(v["ok"] for v in kernel_ok.values()),
+              "peak_measured": rec["peak_bytes"] is not None and
+              rec["peak_bytes"] > rec["argument_bytes"]}
+    _fail_unless("cost_ledger " + name, checks)
+    return rec, ms
+
+
+def phase_cost_ledger():
+    """Device-cost ledger records (``Executor.cost_record``) of BERT-base
+    training at phase train's configuration, the ResNet-50 step of
+    resnet_train and the BERT-base serving buckets
+    (``warmup(ledger=True)``), each beside its measured ms a step
+    (``timing.timed_steps``) and its FLOPs a second as a share of its
+    dtype's peak; fails unless the counted contraction FLOPs match the
+    analytic count within 2% and K1-K5's counted FLOPs equal their
+    launches times their kernel_work."""
+    t0 = time.perf_counter()
+    out = {}
+    # BERT-base training, phase train's configuration
+    cfg = bert.base_config(attn_dropout=0.0)
+    main, startup, o = _build_pretrain(cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = _train_feed(cfg, BT, SEED)
+    L = cfg.num_layers
+    heads, seq = cfg.num_heads, cfg.max_seq_len
+    att = dict(bh=BT * heads, sq=seq, sk=seq,
+               d=cfg.hidden_size // heads, esz=4)
+    kernels = {"K2": [(L, kernel_work("K2", lse=True, **att)[0])],
+               "K3": [(L, kernel_work("K3", **att)[0])],
+               "K4": [(L, kernel_work("K4", **att)[0])]}
+    rec, ms = _ledger_path("bert_train", exe, main, feed, [o["loss"]],
+                           scope, kernels)
+    out["bert_train"] = dict(tflop=rec["flops"] / 1e12, ms=ms)
+    del main, startup, scope, exe
+    torch.cuda.empty_cache()
+    # ResNet-50, resnet_train's program (pure bf16, K1 on)
+    from paddle_tpu_torch.fluid import flags
+    flags.set_flag("conv_pallas", True)
+    main, startup, loss = _resnet_program()
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).to("cuda")
+            for k, v in _resnet_feed(RN_BATCH, SEED).items()}
+    kernels = {"K1": [(n, kernel_work("K1", n=RN_BATCH, h=hw, w=hw, c=c, o=c,
+                                      esz=2)[0])
+                      for hw, c, n in RESNET_K1_SHAPES]}
+    rec, ms = _ledger_path("resnet50_train", exe, main, feed, [loss], scope,
+                           kernels)
+    out["resnet50_train"] = dict(tflop=rec["flops"] / 1e12, ms=ms)
+    del main, startup, scope, exe, feed
+    torch.cuda.empty_cache()
+    # BERT-base serving buckets
+    cfg = bert.base_config()
+    main, startup, enc = _build_bert(cfg)
+    infer = main.clone(for_test=True)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    specs = {n: ((cfg.max_seq_len, 1), "float32" if n == "input_mask"
+                 else "int64") for n in FEEDS}
+    sv = fluid.ServingExecutor(program=infer, feed_specs=specs,
+                               fetch_list=[enc], scope=scope, executor=exe,
+                               max_batch=8)
+    _reset_launches()
+    sv.warmup(ledger=True)
+    sv.close()
+    recs = sv.ledger_records
+    rows, checks = [], {}
+    f1 = recs[1]["flops"]
+    for b in sv.buckets:
+        r = recs[b]
+        feeds = {n: np.zeros((b,) + sample, dtype)
+                 for n, (sample, dtype) in specs.items()}
+        dt, _ = timing.timed_steps(
+            lambda i, f=feeds: exe.run(infer, feed=f, fetch_list=[enc],
+                                       scope=scope, return_numpy=False),
+            LEDGER_STEPS, warmup=1)
+        ms = dt / LEDGER_STEPS * 1e3
+        k2 = kernel_work("K2", bh=b * cfg.num_heads, sq=cfg.max_seq_len,
+                         sk=cfg.max_seq_len,
+                         d=cfg.hidden_size // cfg.num_heads, esz=4)[0]
+        rows.append(dict(bucket=b, tag=r["tag"], flops=r["flops"],
+                         bytes_accessed=r["bytes_accessed"],
+                         peak_mb=r["peak_bytes"] / 2**20,
+                         estimated_step_ms=r["estimated_step_s"] * 1e3,
+                         ms_per_batch=ms, peak_dtype=r["peak_dtype"],
+                         share_of_peak=r["flops"] / (ms * 1e-3) /
+                         PEAK_FP32_FLOPS,
+                         k2_calls=r["hand_kernels"]["K2"]["calls"]))
+        checks["b%d_flops_linear" % b] = \
+            abs(r["flops"] - b * f1) <= 1e-9 * b * f1
+        checks["b%d_k2_work" % b] = \
+            r["hand_kernels"]["K2"]["calls"] == cfg.num_layers and \
+            r["hand_kernels"]["K2"]["flops"] == cfg.num_layers * k2
+    emit(phase="cost_ledger", path="bert_serving", buckets=rows,
+         checks=checks)
+    _fail_unless("cost_ledger serving", checks)
+    out["bert_serving"] = {r["bucket"]: dict(tflop=r["flops"] / 1e12,
+                                             ms=r["ms_per_batch"])
+                           for r in rows}
+    emit(phase="cost_ledger_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+def phase_op_bench():
+    """``fluid/benchmark.py``'s resnet50 suite (batch 256) and bert suite
+    (batch 64) on the card: one row per entry, ms (fwd + bwd), TFLOP/s
+    by the JAX package's estimates, GB/s, and the ledger's counted
+    FLOPs; fails on any entry that errs, and unless the counted FLOPs of
+    every conv2d / mul / matmul entry lie within 2% of the estimate."""
+    from paddle_tpu_torch.fluid import benchmark
+    t0 = time.perf_counter()
+    checks = {}
+    for suite, entries in (
+            ("resnet50", benchmark.resnet50_suite(RN_BATCH)),
+            ("bert", benchmark.bert_suite(OP_BENCH_BERT_BATCH))):
+        rows = benchmark.run_suite(entries, steps=OP_BENCH_STEPS, warmup=2,
+                                   place=fluid.CUDAPlace(0), progress=False)
+        for r in rows:
+            emit(phase="op_bench", suite=suite, key=r["key"], op=r["op"],
+                 count=r["count"], ms=r["ms"], total_ms=r["total_ms"],
+                 tflops=r.get("tflops"), gbps=r.get("gbps"),
+                 flops_est=r.get("flops"),
+                 counted_flops=r.get("counted_flops"),
+                 error=r.get("error"))
+            ok = "error" not in r and r["ms"] > 0
+            if ok and r["op"] in ("conv2d", "mul", "matmul"):
+                ok = abs(r["counted_flops"] - r["flops"]) <= \
+                    LEDGER_TOL * r["flops"]
+            checks["%s: %s" % (suite, r["key"])] = ok
+        print(benchmark.format_table(
+            rows, "%s per-op costs on %s" % (suite, _card())), flush=True)
+    emit(phase="op_bench_done", seconds=time.perf_counter() - t0,
+         entries=len(checks))
+    _fail_unless("op_bench", checks)
+
+
+def _cf_programs(pkg=fluid):
+    """The control-flow programs of the JAX package's control-flow and
+    LoD tests and the branch gradients: {name: (build, feed)}, each
+    build returning its fetch list under program_guard."""
+    L = pkg.layers
+
+    def while_acc():
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int64", value=10)
+        acc = L.fill_constant(shape=[1], dtype="float32", value=0.0)
+        cond = L.less_than(x=i, y=limit)
+        w = L.While(cond=cond)
+        with w.block():
+            one = L.fill_constant(shape=[1], dtype="float32", value=2.0)
+            L.assign(acc + one, output=acc)
+            L.increment(x=i, value=1, in_place=True)
+            L.less_than(x=i, y=limit, cond=cond)
+        return [i, acc]
+
+    def while_array():
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        limit = L.fill_constant(shape=[1], dtype="int64", value=5)
+        arr = L.create_array("float32", max_len=8)
+        x = L.fill_constant(shape=[3], dtype="float32", value=1.0)
+        cond = L.less_than(x=i, y=limit)
+        w = L.While(cond=cond)
+        with w.block():
+            L.array_write(x * L.cast(i, "float32"), i, array=arr)
+            L.increment(x=i, value=1, in_place=True)
+            L.less_than(x=i, y=limit, cond=cond)
+        st = L.tensor.create_tensor("float32")
+        n = L.array_length(arr)
+        pkg.default_main_program().current_block().append_op(
+            "tensor_array_to_tensor", inputs={"X": [arr]},
+            outputs={"Out": [st], "OutIndex": []},
+            attrs={"axis": 0, "use_stack": True})
+        return [st, n]
+
+    def cond_fn(flag, grad):
+        def build():
+            x = L.data(name="x", shape=[4], dtype="float32",
+                       append_batch_size=False)
+            x.stop_gradient = False
+            pred = L.greater_than(L.fill_constant([1], "float32", flag),
+                                  L.fill_constant([1], "float32", 0.5))
+            out = L.cond(pred, lambda: L.reduce_sum(x * 2.0),
+                         lambda: L.reduce_mean(x + 2.0))
+            return [out] + (list(pkg.gradients(out, [x])) if grad else [])
+        return build
+
+    def cond_outer():
+        lr = L.tensor.create_global_var(shape=[1], value=1.0,
+                                        dtype="float32", persistable=True,
+                                        name="cond_lr")
+        L.assign(L.fill_constant([1], "float32", 1.0), output=lr)
+        pred = L.greater_than(L.fill_constant([1], "float32", 1.0),
+                              L.fill_constant([1], "float32", 0.0))
+
+        def true_fn():
+            L.assign(L.fill_constant([1], "float32", 42.0), output=lr)
+
+        L.cond(pred, true_fn, lambda: None)
+        return [lr]
+
+    def switch(step_val):
+        def build():
+            step = L.fill_constant(shape=[1], dtype="float32", value=step_val)
+            lr = L.tensor.create_global_var(shape=[1], value=0.0,
+                                            dtype="float32",
+                                            persistable=True, name="sw_lr")
+            b1 = L.fill_constant(shape=[1], dtype="float32", value=1.0)
+            b2 = L.fill_constant(shape=[1], dtype="float32", value=10.0)
+            with L.Switch() as sw:
+                for c, v in ((L.less_than(step, b1), 0.1),
+                             (L.less_than(step, b2), 0.2)):
+                    with sw.case(c):
+                        L.assign(L.fill_constant([1], "float32", v),
+                                 output=lr)
+                with sw.default():
+                    L.assign(L.fill_constant([1], "float32", 0.3),
+                             output=lr)
+            return [lr]
+        return build
+
+    def ifelse():
+        x = L.data(name="x", shape=[1], dtype="float32")
+        cond = L.greater_than(x, L.fill_constant([1], "float32", 0.0))
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(x * 2.0)
+        with ie.false_block():
+            ie.output(x - 1.0)
+        return [ie()]
+
+    def cond_block_grad(flag):
+        def build():
+            main = pkg.default_main_program()
+            x = L.data("x", [4], dtype="float32")
+            x.stop_gradient = False
+            out = main.global_block().create_var(name="out", shape=(-1, 4),
+                                                 dtype="float32")
+            L.assign(x, out)
+            pred = L.less_than(L.fill_constant([1], "float32", 0.0),
+                               L.fill_constant([1], "float32", flag))
+            cb = L.control_flow.ConditionalBlock([pred])
+            with cb.block():
+                L.assign(L.scale(x, scale=3.0), out)
+            return list(pkg.gradients(L.mean(out), [x])) + [out]
+        return build
+
+    def past_capacity():
+        arr = L.create_array("float32", max_len=4)
+        i = L.fill_constant([1], "int64", 6)
+        L.array_write(L.fill_constant([3], "float32", 2.0), i, array=arr)
+        return [L.array_length(arr), L.array_read(arr, i)]
+
+    def raw(specs, fetch, feed):
+        def build():
+            block = pkg.default_main_program().global_block()
+            for n, v in feed.items():
+                block.create_var(name=n, shape=np.shape(v), is_data=True,
+                                 dtype=str(np.asarray(v).dtype))
+            made = set(block.vars)
+            for tp, ins, outs, attrs in specs:
+                for names in outs.values():
+                    for n in names:
+                        if n not in made:
+                            block.create_var(name=n)
+                            made.add(n)
+                block.append_op(tp, inputs=ins, outputs=outs, attrs=attrs)
+            return fetch
+        return build
+
+    rng = np.random.RandomState(SEED)
+    x3 = rng.randn(3, 4, 2).astype(np.float32)
+    ln3 = np.array([4, 2, 3], np.int64)
+    for b, n in enumerate(ln3):
+        x3[b, n:] = 0
+    table = ("lod_rank_table", {"X": ["x"], "Length": ["l"]},
+             {"Out": ["t"]}, {})
+    lod_feeds = {
+        "lod_rank_table": {"x": np.zeros((3, 5, 2), np.float32),
+                           "l": np.array([2, 5, 3], np.int64)},
+        "lod_array_round_trip": {"x": x3, "l": ln3},
+        "shrink_rnn_memory": {
+            "x": np.arange(6, dtype=np.float32).reshape(3, 2) + 1,
+            "l": np.array([3, 1, 2], np.int64),
+            "i": np.array([1], np.int64)},
+        "split_merge_lod_tensor": {
+            "x": np.arange(8, dtype=np.float32).reshape(4, 2),
+            "m": np.array([[1], [0], [1], [0]], np.int32)}}
+    progs = {
+        "while_acc": (while_acc, {}),
+        "while_array": (while_array, {}),
+        "cond_true": (cond_fn(1.0, False), {"x": [1.0, 2.0, 3.0, 1.0]}),
+        "cond_false": (cond_fn(0.0, False), {"x": [1.0, 2.0, 3.0, 1.0]}),
+        "cond_outer_write": (cond_outer, {}),
+        "switch_0": (switch(0.0), {}),
+        "switch_5": (switch(5.0), {}),
+        "switch_50": (switch(50.0), {}),
+        "ifelse": (ifelse, {"x": [[1.0], [-2.0], [3.0]]}),
+        "cond_block_grad_taken": (cond_block_grad(1.0),
+                                  {"x": np.ones((2, 4))}),
+        "cond_block_grad_not_taken": (cond_block_grad(-1.0),
+                                      {"x": np.ones((2, 4))}),
+        "cond_grad_true": (cond_fn(1.0, True), {"x": [1.0, 2.0, 3.0, 1.0]}),
+        "cond_grad_false": (cond_fn(0.0, True), {"x": [1.0, 2.0, 3.0, 1.0]}),
+        "array_past_capacity": (past_capacity, {}),
+        "lod_rank_table": ([table, ("max_sequence_len",
+                                   {"RankTable": ["t"]}, {"Out": ["m"]},
+                                   {})], ["t", "m"]),
+        "lod_array_round_trip": ([
+            table,
+            ("lod_tensor_to_array", {"X": ["x"], "RankTable": ["t"]},
+             {"Out": ["arr"]}, {}),
+            ("array_to_lod_tensor", {"X": ["arr"], "RankTable": ["t"]},
+             {"Out": ["back"]}, {}),
+            ("reorder_lod_tensor_by_rank", {"X": ["x"], "RankTable": ["t"]},
+             {"Out": ["ro"]}, {})], ["back", "ro"]),
+        "shrink_rnn_memory": ([
+            table,
+            ("shrink_rnn_memory", {"X": ["x"], "I": ["i"],
+                                   "RankTable": ["t"]}, {"Out": ["o"]}, {}),
+            ("rnn_memory_helper", {"X": ["x"]}, {"Out": ["h"]}, {})],
+            ["o", "h"]),
+        "split_merge_lod_tensor": ([
+            ("split_lod_tensor", {"X": ["x"], "Mask": ["m"]},
+             {"OutTrue": ["t"], "OutFalse": ["f"]}, {}),
+            ("merge_lod_tensor", {"InTrue": ["t"], "InFalse": ["f"],
+                                  "Mask": ["m"], "X": ["x"]},
+             {"Out": ["o"]}, {})], ["t", "f", "o"]),
+    }
+    for n, f in lod_feeds.items():
+        specs, fetch = progs[n]
+        progs[n] = (raw(specs, fetch, f), f)
+    return {n: (b, {k: np.asarray(v, np.float32) if np.asarray(v).dtype
+                    == np.float64 else np.asarray(v) for k, v in f.items()})
+            for n, (b, f) in progs.items()}
+
+
+# closed forms of the control-flow programs (their first fetch or two)
+CF_EXPECT = {"while_acc": ([10], [20.0]), "cond_true": (14.0,),
+             "cond_false": (3.75,), "cond_outer_write": ([42.0],),
+             "switch_0": ([0.1],), "switch_5": ([0.2],),
+             "switch_50": ([0.3],),
+             "cond_block_grad_taken": (np.full((2, 4), 0.5),),
+             "cond_block_grad_not_taken": (np.full((2, 4), 0.125),),
+             "cond_grad_true": (14.0, np.full(4, 2.0)),
+             "cond_grad_false": (3.75, np.full(4, 0.25)),
+             "array_past_capacity": ([7], [2.0, 2.0, 2.0])}
+# while iterations of each loop program: its condition is read N + 1 times
+CF_WHILE_ITERS = {"while_acc": 10, "while_array": 5}
+
+
+def phase_control_flow():
+    """The control-flow and LoD-array programs (``_cf_programs``) on the
+    card against the port's CPU path: integers equal, floats within
+    1e-6, the closed forms of CF_EXPECT; the host syncs each run makes
+    (``while``: N + 1 reads for N iterations; ``cond``,
+    ``conditional_block``: one a run) counted."""
+    t0 = time.perf_counter()
+    checks, rows = {}, []
+    tags = ("while", "cond", "conditional_block")
+    for name, (build, feed) in _cf_programs().items():
+        got = {}
+        for where, place in (("card", fluid.CUDAPlace(0)),
+                             ("cpu", fluid.CPUPlace())):
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.program_guard(main, startup), \
+                    fluid.unique_name.guard():
+                fetch = build()
+            scope = fluid.Scope()
+            exe = fluid.Executor(place)
+            exe.run(startup, scope=scope)
+            s0 = {t: fluid.profiler.host_sync_count(t) for t in tags}
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            got[where] = (
+                [np.asarray(v) for v in out],
+                {t: fluid.profiler.host_sync_count(t) - s0[t] for t in tags})
+        card, card_syncs = got["card"]
+        cpu, cpu_syncs = got["cpu"]
+        err = 0.0
+        ok = len(card) == len(cpu)
+        for a, b in zip(card, cpu):
+            ok = ok and a.shape == b.shape and a.dtype == b.dtype
+            if ok and a.dtype.kind == "f":
+                err = max(err, float(np.abs(a - b).max()) if a.size else 0)
+            elif ok:
+                ok = bool(np.array_equal(a, b))
+        ok = ok and err <= 1e-6
+        for want, a in zip(CF_EXPECT.get(name, ()), card):
+            ok = ok and bool(np.allclose(a, want, rtol=1e-6, atol=1e-7))
+        if name in CF_WHILE_ITERS:
+            ok = ok and card_syncs["while"] == CF_WHILE_ITERS[name] + 1
+        ok = ok and not any(cpu_syncs.values())
+        rows.append(dict(program=name, max_abs_err=err,
+                         syncs_card=card_syncs, ok=ok))
+        checks[name] = ok
+    emit(phase="control_flow", programs=rows,
+         seconds=time.perf_counter() - t0)
+    _fail_unless("control_flow", checks)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
               "is false", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     bounds = phase_bounds()
@@ -7089,6 +7628,9 @@ def main():
     by_path.update(book_paths)
     phase_book_check(mt)
     del mt
+    phase_control_flow()
+    phase_cost_ledger()
+    phase_op_bench()
     timings = dict(flash_attention_fwd=k2,
                    flash_attention_bwd_dq=bwd["dq"],
                    flash_attention_bwd_dkv=bwd["dkv"],
@@ -7143,6 +7685,7 @@ def main():
                     e[nmt_key]
                 rows[-1]["nmt"][case] = dict(
                     {key: t[key] for key in keys}, max_abs_err=err)
+    emit(phase="wall", seconds=time.perf_counter() - t_start)
     emit(kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

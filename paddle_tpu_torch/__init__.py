@@ -18,7 +18,7 @@ launch`` supervises its ranks without importing torch.
 import importlib
 
 _SUBPACKAGES = ("fluid", "models", "reader", "dataset", "distributed",
-               "parallel")
+               "parallel", "tools")
 
 
 def __getattr__(name):

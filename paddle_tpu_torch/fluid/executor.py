@@ -20,6 +20,7 @@ import weakref
 import numpy as np
 import torch
 
+from . import costmodel
 from . import distributed
 from . import flags
 from . import model_parallel
@@ -478,12 +479,18 @@ class Executor:
         zero-recompile contract reads it."""
         return self._compile_count
 
-    def _plan(self, program, feed, fetch_names, steps_per_run=None):
+    @staticmethod
+    def _plan_key(program, feed, fetch_names, steps_per_run):
         names = tuple(sorted(feed))
         key = (program.fingerprint, names,
                tuple(_feed_sig(feed[n]) for n in names), tuple(fetch_names))
         if steps_per_run is not None:
             key = key + ("__window__", steps_per_run)
+        return key, names
+
+    def _plan(self, program, feed, fetch_names, steps_per_run=None):
+        key, names = self._plan_key(program, feed, fetch_names,
+                                    steps_per_run)
         plan = self._plans.get(key)
         if plan is None:
             self._compile_count += 1
@@ -497,6 +504,112 @@ class Executor:
             self._last_plan_hit = True
             _m_plan.inc(result="hit")
         return plan
+
+    def _peek_plan(self, program, feed, fetch_names, steps_per_run=None):
+        """The cached plan of (program, feed signature, fetches, K), or a
+        new one that is neither cached nor counted as a plan build (a
+        cost capture must not look like a recompile)."""
+        key, names = self._plan_key(program, feed, fetch_names,
+                                    steps_per_run)
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = _DispatchPlan(program, names, fetch_names, self.device,
+                                 steps_per_run=steps_per_run or 1,
+                                 window=steps_per_run is not None)
+        return plan
+
+    def _capture(self, program, feed, fetch_list, scope, steps_per_run,
+                 shape_ops=()):
+        """Run one step (K inner steps of a window) of ``program`` under a
+        cost capture on a copy of the state it reads, so ``scope`` and
+        its step counter do not move.  Returns (capture, plan, argument
+        bytes, output bytes, bytes the step allocated at its high point on
+        the card or None)."""
+        program = program or framework.default_main_program()
+        scope = scope if scope is not None else global_scope()
+        feed = dict(feed or {})
+        fetch_names = self._fetch_names(fetch_list)
+        k = None if steps_per_run is None else \
+            flags.steps_per_run_value(steps_per_run)
+        plan = self._peek_plan(program, feed, fetch_names, k)
+        feeds = {n: coerce(feed[n]) for n, coerce in plan.bind}
+        work = Scope()
+        work.step_counter = scope.step_counter
+        for n in plan.state_in:
+            v = scope.find_var(n)
+            if v is not None:
+                work.vars[n] = v.clone() if isinstance(v, torch.Tensor) \
+                    else v
+        arg_bytes = sum(_nbytes(v) for v in work.vars.values()) + \
+            sum(_nbytes(v) for v in feeds.values())
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            base = torch.cuda.memory_allocated(self.device)
+        with costmodel.capture(shape_ops) as cap:
+            per_step, new_state, _verdicts, comm = self._execute(
+                program, plan, work, feeds, scope.step_counter)
+        peak = None
+        if on_card:
+            torch.cuda.synchronize(self.device)
+            profiler.record_host_sync("cost_ledger")
+            peak = torch.cuda.max_memory_allocated(self.device) - base
+        for species, precision, nb, _bucket, axis in comm:
+            cap.add_comm(species, precision, nb, axis)
+        out_bytes = sum(_nbytes(f) for got in per_step for f in got) + \
+            sum(_nbytes(v) for v in new_state.values())
+        return cap, plan, arg_bytes, out_bytes, peak
+
+    def compiled_cost(self, program=None, feed=None, fetch_list=None,
+                      scope=None, steps_per_run=None):
+        """The counted cost of one step of (program, feed signature,
+        fetches), one flat dict per inner step: ``flops``,
+        ``transcendentals``, ``bytes accessed`` (JAX's key names),
+        ``aten_calls`` and ``hand_kernel_calls``.  A ``steps_per_run=K``
+        window (feeds stacked ``[K, ...]``) counts its K inner steps and
+        divides by K, so a window does not read as a K-fold step.  The
+        scope is not advanced."""
+        k = steps_per_run or 1
+        cap = self._capture(program, feed, fetch_list, scope,
+                            steps_per_run)[0]
+        return {"flops": cap.flops / k,
+                "transcendentals": cap.transcendentals / k,
+                "bytes accessed": cap.bytes / k,
+                "aten_calls": cap.aten_calls / k,
+                "hand_kernel_calls": cap.hand_kernel_calls / k}
+
+    def cost_record(self, program=None, feed=None, fetch_list=None,
+                    scope=None, steps_per_run=None, tag=None, stamp=True,
+                    shape_ops=()):
+        """Full device-cost ledger record (``costmodel.describe``) of one
+        captured step of (program, feed signature, fetches) on a copy of
+        the scope's state: FLOPs, transcendentals, bytes, argument /
+        output / temp / peak memory, aten calls, hand-kernel launches
+        (``hand_kernels``: calls, FLOPs and bytes of each of K1-K6),
+        collectives and their wire bytes, the roofline
+        ``estimated_step_s`` and ``top_ops``.  ``stamp=True`` publishes
+        the ``ledger_*`` gauges and a ``kind="compile"`` record.
+        ``shape_ops`` (op types) also keeps each such op's input shapes
+        in the record's ``op_shapes`` and every op's counts in its
+        ``attribution``.  Returns None when
+        ``FLAGS_cost_ledger=0``."""
+        if not costmodel.enabled():
+            return None
+        program = program or framework.default_main_program()
+        cap, plan, arg_bytes, out_bytes, peak = self._capture(
+            program, feed, fetch_list, scope, steps_per_run, shape_ops)
+        k = plan.steps_per_run
+        rec = costmodel.describe(
+            cap, k=k, sig=costmodel.signature(program.fingerprint, k=k),
+            argument_bytes=arg_bytes, output_bytes=out_bytes,
+            peak_allocated=peak, tag=tag)
+        if stamp:
+            costmodel.stamp(rec, source="full")
+        if shape_ops:
+            rec["op_shapes"] = cap.op_shapes
+            rec["attribution"] = costmodel.attribution(cap, k)
+        return rec
 
     @staticmethod
     def _fetch_names(fetch_list):
@@ -773,6 +886,15 @@ class Executor:
             per_step, new_state, verdicts, comm = self._execute(
                 program, plan, scope, feeds, step)
         t1 = time.perf_counter_ns()
+        if flags.get_flag("benchmark"):
+            # FLAGS_benchmark (JAX executor.py:1478-1485): wait for the
+            # card and record the dispatch's wall time; a window's entry
+            # covers its K inner steps
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            profiler.record_benchmark_step(
+                (time.perf_counter_ns() - t0) / 1e9, k)
+            profiler.record_host_sync("benchmark")
         profiler.device_profile_end(k)
         for n in plan.state_out:
             scope.set_var(n, model_parallel.shard_state(
@@ -798,6 +920,16 @@ class Executor:
         else:
             out = list(fetches)
         feed_bytes = int(sum(_nbytes(v) for v in feeds.values()))
+        if fresh and costmodel.enabled():
+            # the ledger's dispatch stamp: host scalars already in hand
+            # (signature, first-run seconds, wire bytes a step); no
+            # capture, no sync (JAX executor.py:1524-1536)
+            costmodel.stamp_compile_event(
+                sig=costmodel.signature(program.fingerprint, k=k), k=k,
+                window=plan.is_window, compile_s=compile_s,
+                comm=costmodel.comm_by_key(
+                    [(c[0], c[1], c[2], c[4]) for c in comm], k),
+                feed_bytes=feed_bytes, fetch_count=len(plan.fetch_names))
         _m_dispatch_s.observe((t1 - t0) / 1e9,
                               kind="window" if plan.is_window else "step")
         opt_bytes = plan.opt_bytes.get(scope)

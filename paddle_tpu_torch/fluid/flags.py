@@ -28,6 +28,12 @@ overridden in-process with :func:`set_flag`.
 - The pod checkpoints (``checkpoint.py``, ``storage.py``):
   ``checkpoint_commit_timeout_s`` bounds the async pod save's commit poll,
   ``checkpoint_reap_min_age_s`` is the debris reaper's minimum age.
+- The device-cost ledger (``costmodel.py``, JAX ``flags.py:178-200``):
+  ``cost_ledger`` turns it on or off; ``roofline_peak_flops`` (bf16 and
+  fp16), ``roofline_peak_flops_fp32`` and ``roofline_peak_bytes_per_s``
+  are the peaks its ``estimated_step_s`` divides by, an H100 SXM's by
+  default.  ``benchmark`` (JAX ``flags.py:60``) synchronises the card
+  after every dispatch and records its wall time.
 - The parameter server's wire (``distributed/rpc.py``, JAX
   ``flags.py:63-64``): ``rpc_deadline`` is a call's deadline in ms,
   ``rpc_retry_times`` how often a call on a broken connection is retried.
@@ -112,6 +118,17 @@ _DEFS = {
     "device_profile_dir": "",        # "" = ./device_profile
     "rpc_deadline": 180000.0,        # ms, PS rpc call deadline (reference)
     "rpc_retry_times": 3.0,          # call-level retries on broken conns
+    "benchmark": False,              # per-dispatch device sync + wall
+                                     # timing (profiler.benchmark_stats)
+    "cost_ledger": True,             # device-cost ledger (costmodel.py):
+                                     # a kind="compile" record per fresh
+                                     # plan and Executor.cost_record()
+                                     # captures; 0 = fully off, bit-exact,
+                                     # zero host syncs
+    "roofline_peak_flops": 989e12,   # bf16 dense tensor-core peak of an
+                                     # NVIDIA H100 SXM 80GB HBM3 at 700 W
+    "roofline_peak_flops_fp32": 67e12,   # fp32 CUDA-core peak, same card
+    "roofline_peak_bytes_per_s": 3.35e12,  # HBM3 rate of the same card
 }
 
 _cache = {}

@@ -77,6 +77,9 @@ class LayerHelper:
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, stop_gradient=stop_gradient)
 
+    def create_variable(self, **kwargs):
+        return self.block.create_var(**kwargs)
+
     def create_global_variable(self, persistable=False, **kwargs):
         gb = self.main_program.global_block()
         return gb.create_var(persistable=persistable, **kwargs)

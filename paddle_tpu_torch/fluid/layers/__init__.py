@@ -6,7 +6,8 @@ LeNet, Transformer NMT and DeepFM training call, the unary layers of
 readers of ``io.py``, and the book models' losses, sequence, RNN, CRF
 and beam-search layers with ``StaticRNN``/``DynamicRNN``, and the
 comparison, logical and modulo layers with ``increment`` and
-``isfinite``.
+``isfinite``, and the control flow: ``While``, ``cond``, ``Switch``,
+``IfElse``, the tensor arrays and ``Print``.
 """
 
 from . import io
@@ -48,5 +49,8 @@ from .sequence import (sequence_mask, sequence_pool,  # noqa: F401
 from .control_flow import (increment, less_than,  # noqa: F401
                            less_equal, greater_than, greater_equal,
                            equal, not_equal, BlockGuard, StaticRNN,
-                           DynamicRNN)
+                           DynamicRNN, While, Switch, IfElse, cond,
+                           create_array, array_write, array_read,
+                           array_length, Print, reorder_lod_tensor_by_rank,
+                           is_empty)
 from .learning_rate_scheduler import *                       # noqa: F401,F403

@@ -1,32 +1,38 @@
 """Control-flow layers (counterpart paddle_tpu/fluid/layers/control_flow.py;
 reference ``python/paddle/fluid/layers/control_flow.py``): ``increment``,
-the comparisons, ``BlockGuard``, ``ConditionalBlock``, ``StaticRNN`` and
-``DynamicRNN``.
+the comparisons, the tensor arrays (``create_array``, ``array_write``,
+``array_read``, ``array_length``), ``Print``, ``BlockGuard``, ``While``,
+``cond``, ``ConditionalBlock``, ``Switch``, ``IfElse``, ``StaticRNN``,
+``DynamicRNN``, ``reorder_lod_tensor_by_rank`` and ``is_empty``; each
+emits the JAX layer's ops.
 
 The builders open a sub-block of the main program, let user code append
-the step's ops into it, and on exit emit one ``recurrent`` op whose
-``sub_block`` attr names the step block.  Every outer read of the step
-block is declared as the op's ``Params``, so the executor's read
-analysis, the tape and ``append_backward`` see it as an input.
+ops into it, and on exit emit one control-flow op whose block attr names
+it (``while``, ``cond``, ``conditional_block``, ``recurrent``).  The
+sub-block's outer reads become the op's inputs, so the executor's read
+analysis, the tape and ``append_backward`` see them; the names it writes
+that an enclosing block declares become its outputs.
 
 The reference's LoD DynamicRNN (lod_rank_table, reorder by length) is
 replaced, as in the JAX package, by padded ``[batch, time, ...]`` inputs
 and a lengths mask: a step past a row's length leaves its memory
-unchanged and emits zeros.  ``ConditionalBlock`` emits one
-``conditional_block`` op whose ``Out`` is every name the block writes
-that an enclosing block declares.  ``While``, ``Switch``, ``IfElse``,
-``cond`` and the tensor arrays are ROADMAP item 13c.
+unchanged and emits zeros.  ``IfElse`` merges its branches' outputs
+with a ``where`` over the whole batch, as the JAX layer does.
 """
 
 import contextlib
 
+from ..data_types import canonical_dtype
 from ..framework import default_main_program
 from ..layer_helper import LayerHelper
 from . import tensor as tensor_layers
 
-__all__ = ["increment", "less_than", "less_equal", "greater_than",
-           "greater_equal", "equal", "not_equal", "BlockGuard",
-           "StaticRNN", "DynamicRNN"]
+__all__ = ["While", "Switch", "IfElse", "cond", "StaticRNN", "DynamicRNN",
+           "increment", "less_than", "less_equal", "greater_than",
+           "greater_equal", "equal", "not_equal", "array_write",
+           "array_read", "array_length", "create_array", "Print",
+           "BlockGuard", "ConditionalBlock", "reorder_lod_tensor_by_rank",
+           "is_empty"]
 
 
 def increment(x, value=1.0, in_place=True):
@@ -72,6 +78,53 @@ def equal(x, y, cond=None):
 
 def not_equal(x, y, cond=None):
     return _compare("not_equal", x, y, cond)
+
+
+def create_array(dtype, max_len=None):
+    """A fixed-capacity tensor array (JAX control_flow.py:78)."""
+    from ..ops.control_flow_ops import DEFAULT_ARRAY_CAPACITY
+    helper = LayerHelper("array")
+    arr = helper.create_variable(
+        name=helper.name, dtype=canonical_dtype(dtype), type="tensor_array")
+    helper.append_op("create_array", outputs={"Out": [arr]},
+                     attrs={"max_len": int(max_len or DEFAULT_ARRAY_CAPACITY)})
+    return arr
+
+
+def array_write(x, i, array=None):
+    helper = LayerHelper("array_write")
+    if array is None:
+        array = create_array(x.dtype)
+    helper.append_op("write_to_array", inputs={"X": [x], "I": [i]},
+                     outputs={"Out": [array]})
+    return array
+
+
+def array_read(array, i):
+    helper = LayerHelper("array_read")
+    out = helper.create_variable_for_type_inference(array.dtype)
+    helper.append_op("read_from_array", inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def array_length(array):
+    helper = LayerHelper("array_length")
+    out = helper.create_variable_for_type_inference("int64")
+    out.stop_gradient = True
+    helper.append_op("lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def Print(input, first_n=-1, message=None, summarize=-1, **kwargs):
+    """Print ``message`` and the value when the op runs; returns a copy
+    of ``input`` (JAX control_flow.py:115)."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("print", inputs={"In": [input]}, outputs={"Out": [out]},
+                     attrs={"message": message or ""})
+    return out
 
 
 def _external_reads(sub_block, blocks):
@@ -130,6 +183,176 @@ class ConditionalBlock:
             inputs={"Cond": [v.name for v in self.inputs], "Input": reads},
             outputs={"Out": writes, "Scope": []},
             attrs={"sub_block": sub.idx, "is_scalar_condition": True})
+
+
+def _block_writes(sub_block):
+    from ..ops.control_flow_ops import _block_writes as bw
+    return bw(sub_block)
+
+
+class While:
+    """``while cond:`` over a sub-block (reference control_flow.py While;
+    JAX :163).  ``cond`` is a ``[1]`` bool Variable that the body must
+    update (e.g. ``less_than(..., cond=cond)``)."""
+
+    def __init__(self, cond, is_test=False, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.cond_var = cond
+        self.is_test = is_test
+
+    @contextlib.contextmanager
+    def block(self):
+        prog = self.helper.main_program
+        parent = prog.current_block()
+        with BlockGuard(prog) as sub:
+            yield
+        reads = _external_reads(sub, prog.blocks)
+        writes = [n for n in _block_writes(sub)
+                  if parent._find_var_recursive(n) is not None]
+        parent.append_op(
+            "while",
+            inputs={"X": reads, "Condition": [self.cond_var]},
+            outputs={"Out": writes, "StepScopes": []},
+            attrs={"sub_block": sub.idx, "is_test": self.is_test})
+
+
+def cond(pred, true_fn=None, false_fn=None, name=None):
+    """Two-branch conditional (JAX :197): both branches return matching
+    Variables (or None); each branch's return values are assigned to the
+    shared outputs, and writes of outer variables inside a branch leave
+    the op as outputs too (the other branch passes the old value on)."""
+    helper = LayerHelper("cond", name=name)
+    prog = helper.main_program
+
+    def build(fn):
+        with BlockGuard(prog) as blk:
+            ret = fn() if fn is not None else None
+        if ret is None:
+            rets = []
+        elif isinstance(ret, (list, tuple)):
+            rets = list(ret)
+        else:
+            rets = [ret]
+        return blk, rets
+
+    true_blk, true_rets = build(true_fn)
+    false_blk, false_rets = build(false_fn)
+    if len(true_rets) != len(false_rets):
+        raise ValueError("cond branches must return the same arity: %d vs %d"
+                         % (len(true_rets), len(false_rets)))
+
+    outs = [helper.create_variable_for_type_inference(v.dtype)
+            for v in true_rets]
+    for blk, rets in ((true_blk, true_rets), (false_blk, false_rets)):
+        for out, ret in zip(outs, rets):
+            blk.append_op("assign", inputs={"X": [ret]},
+                          outputs={"Out": [out]})
+
+    reads = []
+    for blk in (true_blk, false_blk):
+        for n in _external_reads(blk, prog.blocks):
+            if n not in reads and n != pred.name:
+                reads.append(n)
+
+    parent = prog.current_block()
+    out_names = [o.name for o in outs]
+    for blk in (true_blk, false_blk):
+        for n in _block_writes(blk):
+            if n not in out_names and n not in blk.vars \
+                    and parent._find_var_recursive(n) is not None:
+                out_names.append(n)
+
+    parent.append_op(
+        "cond",
+        inputs={"Cond": [pred], "Input": reads},
+        outputs={"Out": out_names},
+        attrs={"true_block": true_blk.idx, "false_block": false_blk.idx})
+    if not outs:
+        return None
+    return outs[0] if len(outs) == 1 else outs
+
+
+class Switch:
+    """First-match-wins case chain (reference Switch; JAX :284), the
+    learning-rate warmup's builder::
+
+        with Switch() as switch:
+            with switch.case(cond): ...
+            with switch.default(): ...
+    """
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self._pre_not_conds = []
+
+    @contextlib.contextmanager
+    def case(self, condition):
+        helper = self.helper
+        cb = ConditionalBlock(list(self._pre_not_conds) + [condition])
+        not_cond = helper.create_variable_for_type_inference("bool")
+        not_cond.stop_gradient = True
+        helper.append_op("logical_not", inputs={"X": [condition]},
+                         outputs={"Out": [not_cond]})
+        self._pre_not_conds.append(not_cond)
+        with cb.block():
+            yield
+
+    @contextlib.contextmanager
+    def default(self):
+        cb = ConditionalBlock(list(self._pre_not_conds))
+        with cb.block():
+            yield
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        return False
+
+
+class IfElse:
+    """Reference IfElse (JAX :324): ``true_block``/``false_block`` each
+    give outputs, and ``ie()`` merges them row by row with a ``where``
+    on the condition (the reference splits and merges the rows with
+    split_lod_tensor/merge_lod_tensor: the same result)."""
+
+    def __init__(self, cond, name=None):
+        self.cond = cond
+        self.helper = LayerHelper("ifelse", name=name)
+        self._true_outs = []
+        self._false_outs = []
+        self._in_true = False
+
+    @contextlib.contextmanager
+    def true_block(self):
+        self._in_true = True
+        yield
+        self._in_true = False
+
+    @contextlib.contextmanager
+    def false_block(self):
+        self._in_true = False
+        yield
+
+    def input(self, x):
+        return x
+
+    def output(self, *outs):
+        target = self._true_outs if self._in_true else self._false_outs
+        target.extend(outs)
+
+    def __call__(self):
+        if len(self._true_outs) != len(self._false_outs):
+            raise ValueError("IfElse branches produced different arity")
+        merged = []
+        for t, f in zip(self._true_outs, self._false_outs):
+            helper = LayerHelper("ifelse_merge")
+            out = helper.create_variable_for_type_inference(t.dtype)
+            helper.append_op("where", inputs={"Condition": [self.cond],
+                                              "X": [t], "Y": [f]},
+                             outputs={"Out": [out]})
+            merged.append(out)
+        return merged if len(merged) > 1 else merged[0]
 
 
 class StaticRNNMemoryLink:
@@ -407,3 +630,23 @@ class DynamicRNN:
         if isinstance(out, (list, tuple)):
             return [to_bm(o) for o in out]
         return to_bm(out)
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """Reorder x's rows by the LoD rank table (JAX :652)."""
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def is_empty(x, cond=None):
+    """``[1]`` bool, whether x has no element (JAX :663)."""
+    helper = LayerHelper("is_empty")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool")
+    helper.append_op("is_empty", inputs={"X": [x]},
+                     outputs={"Out": [cond]})
+    return cond

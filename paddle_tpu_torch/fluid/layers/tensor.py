@@ -45,6 +45,26 @@ def create_parameter(shape, dtype, name=None, attr=None,
                                    default_initializer=default_initializer)
 
 
+def create_tensor(dtype, name=None, persistable=False):
+    """An empty variable of ``dtype`` in the global block (JAX
+    tensor.py:10), for an op to write into."""
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_global_variable(name=helper.name, dtype=dtype,
+                                         persistable=persistable)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global variable that the startup program fills with ``value``
+    (JAX tensor.py:16)."""
+    from ..initializer import ConstantInitializer
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(name=helper.name, shape=shape,
+                                        dtype=dtype, persistable=persistable)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
+
+
 def fill_constant(shape, dtype, value, out=None, name=None):
     helper = LayerHelper("fill_constant", name=name)
     if out is None:

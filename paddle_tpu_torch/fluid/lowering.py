@@ -25,10 +25,10 @@ import contextlib
 
 import torch
 
-from . import distributed, flags
+from . import costmodel, distributed, flags
 from .data_types import torch_dtype
 from .framework import op_sub_block_indices
-from .registry import get_op_def
+from .registry import OP_DEFS, get_op_def
 
 # Op types consumed by the executor itself rather than lowered.
 _STRUCTURAL_OPS = frozenset(["feed", "fetch"])
@@ -278,11 +278,21 @@ def dispatch(op, env, state, block, diff_names=None, plan=None):
         return
     if plan is not None:
         op = plan.op
+    cap = costmodel._ACTIVE
+    if cap is not None:
+        # a cost capture: count this op's work under fluid_<type>
+        with cap.attribute(op, env):
+            _dispatch(op, env, state, block, diff_names, plan)
+        return
+    _dispatch(op, env, state, block, diff_names, plan)
+
+
+def _dispatch(op, env, state, block, diff_names, plan):
     ctx = LowerCtx(env, op, state, block)
     try:
         if diff_names is not None or plan is not None:
             _run_taped(ctx, op, diff_names, plan)
-        elif op.type.endswith("_grad"):
+        elif op.type.endswith("_grad") and op.type not in OP_DEFS:
             tape_grad_lower(ctx, op)
         else:
             get_op_def(op.type).lower(ctx, op)
@@ -327,11 +337,6 @@ def plan_tape(block):
         if not op.type.endswith("_grad") or \
                 op.attr("__fwd_outputs__") is None:
             continue
-        if op.type == "conditional_block_grad":
-            raise NotImplementedError(
-                "conditional_block_grad is not ported yet (ROADMAP.md, "
-                "port queue 1: item 13c): no program of the ported "
-                "optimizers differentiates through a branch")
         fwd_def = get_op_def(op.type[:-len("_grad")])
         names = wants.setdefault(tape_key(op.attr("__fwd_outputs__")), [])
         for _, _, name in _grad_targets(op, fwd_def):
@@ -363,10 +368,18 @@ def _run_taped(ctx, op, diff_names, plan=None):
         for n in names:
             if n:
                 sub[n] = env[n]
+    # an output's earlier value: a not-taken conditional_block keeps it
+    for names in op.outputs.values():
+        for n in names:
+            if n and n not in sub and n in env:
+                sub[n] = env[n]
     leaves = {}
-    for n in diff_names or ():
-        if sub[n].is_floating_point():
-            leaves[n] = sub[n] = sub[n].detach().requires_grad_()
+    if diff_names:
+        # ops sharing a tape key share diff_names: only this op's inputs
+        ins = _op_inputs(op)
+        for n in diff_names:
+            if n in ins and sub[n].is_floating_point():
+                leaves[n] = sub[n] = sub[n].detach().requires_grad_()
     xin, xout = (plan.xin, plan.xout) if plan is not None else ({}, {})
     saved = state.rank
     if plan is not None and plan.rank is not None:
@@ -393,6 +406,10 @@ def _run_taped(ctx, op, diff_names, plan=None):
     if diff_names is not None:
         state.tape.setdefault(tape_key(op.outputs), []).append(
             (leaves, outs))
+
+
+def _op_inputs(op):
+    return {n for names in op.inputs.values() for n in names if n}
 
 
 def tape_grad_lower(ctx, op):

@@ -36,6 +36,7 @@ import threading
 
 import torch
 
+from .. import costmodel
 from ..registry import register_op
 from . import _kernels
 from .nn_ops import keep_mask
@@ -163,6 +164,23 @@ def _count(fn):
         fn.launches += 1
 
 
+def _fwd_work(q, k, v, bias, scale, causal=False, with_lse=False):
+    return costmodel.kernel_work(
+        "K2", bh=q.shape[0], sq=q.shape[1], sk=k.shape[1], d=q.shape[2],
+        esz=q.element_size(), bias_bytes=costmodel.stored_bytes(bias),
+        lse=with_lse, causal=causal)
+
+
+def _bwd_work(kernel):
+    def work(q, k, v, bias, scale, dO, lse, delta, causal=False):
+        return costmodel.kernel_work(
+            kernel, bh=q.shape[0], sq=q.shape[1], sk=k.shape[1],
+            d=q.shape[2], esz=q.element_size(),
+            bias_bytes=costmodel.stored_bytes(bias), causal=causal)
+    return work
+
+
+@costmodel.hand_kernel("K2", _fwd_work)
 def flash_attention(q, k, v, bias, scale, causal=False, with_lse=False):
     """``softmax(q kᵀ · scale + bias) v``.  q ``[BH, S_q, D]``, k/v
     ``[BH, S_kv, D]`` (cross-attention supported), bias ``[BH, S_q, S_kv]``
@@ -309,6 +327,7 @@ def _launch_bwd(name, fn, plain, outs, q, k, v, bias, scale, dO, lse,
     return out[0] if len(out) == 1 else tuple(out)
 
 
+@costmodel.hand_kernel("K3", _bwd_work("K3"))
 def flash_attention_bwd_dq(q, k, v, bias, scale, dO, lse, delta,
                            causal=False):
     """dQ ``[BH, S_q, D]`` (K3) from the forward's LSE and
@@ -322,6 +341,7 @@ def flash_attention_bwd_dq(q, k, v, bias, scale, dO, lse, delta,
                        dO, lse, delta, causal)
 
 
+@costmodel.hand_kernel("K4", _bwd_work("K4"))
 def flash_attention_bwd_dkv(q, k, v, bias, scale, dO, lse, delta,
                             causal=False):
     """(dK, dV), each ``[BH, S_kv, D]`` (K4); inputs as
@@ -332,6 +352,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, scale, dO, lse, delta,
         q, k, v, bias, scale, dO, lse, delta, causal)
 
 
+@costmodel.hand_kernel("K5", _bwd_work("K5"))
 def flash_attention_bwd_dbias(q, k, v, bias, scale, dO, lse, delta,
                               causal=False):
     """dBias ``[BH, S_q, S_kv]`` in the bias's dtype, unscaled (K5); the

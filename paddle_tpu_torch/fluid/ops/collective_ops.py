@@ -57,7 +57,7 @@ import collections
 
 import torch
 
-from .. import distributed
+from .. import costmodel, distributed
 from ..quantized_collectives import (DEFAULT_BLOCK_SIZE,
                                      allreduce_wire_bytes, exchange,
                                      phase_wire_bytes, quantized_all_gather,
@@ -190,6 +190,17 @@ def _c_allreduce_sum(ctx, op):
     if w is None:
         ctx.set("Out", x)
         _pass_residual(ctx)
+        if costmodel._ACTIVE is not None:
+            # a cost capture counts what the op puts on the wire per
+            # rank in a world of several, as the JAX package counts its
+            # collectives at trace time
+            precision = _precision(ctx)
+            if not x.is_floating_point():
+                precision = "fp32"
+            costmodel.note_collective(
+                "allreduce", precision, allreduce_wire_bytes(
+                    x.numel(), precision, _block_size(ctx),
+                    itemsize=x.element_size()))
         return
     d, group, n = w
     lv = _levels(ctx)

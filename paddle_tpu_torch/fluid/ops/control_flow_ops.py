@@ -1,26 +1,45 @@
-"""The ``recurrent``, ``conditional_block`` and ``recompute`` ops and
-the sub-block traversals (counterpart ``paddle_tpu/fluid/ops/
-control_flow_ops.py``; ``while``, ``cond`` and the tensor arrays are
-ROADMAP item 13c).
+"""Control-flow ops (counterpart ``paddle_tpu/fluid/ops/
+control_flow_ops.py``): the tensor arrays, ``while``, ``cond``,
+``conditional_block``, ``recurrent``, ``recompute`` and ``print``, and
+the sub-block traversals.
 
-A ``recurrent`` op runs its step block once per time step: the JAX rule
-is one ``lax.scan``, the port's a Python loop that runs the step
-block's ops through :func:`lowering.run_block`.  In a training run the
-op is taped like any other forward op: its inputs are the autograd
-leaves, the loop runs under autograd with no inner op on the tape, and
-``recurrent_grad`` pulls the gradients of Inputs, Initials and every
-float ``Params`` back through the unrolled steps.  ``StaticRNN``
+The JAX rules trace their sub-blocks into ``lax`` control flow; the port
+runs them eagerly, op by op, through :func:`lowering.run_block`, and
+reads a predicate on the host where JAX's ``lax.cond`` or
+``lax.while_loop`` decides on the device.  Each such read is one
+synchronisation on the card, recorded as a host sync under the op's
+type (``conditional_block``, ``cond``, ``while``; CPU tensors need
+none): a ``while`` of N iterations reads its condition N + 1 times.
+
+A tensor array (:class:`TensorArray`, the static-shape LoDTensorArray of
+the JAX package) is a ``[max_len, ...]`` buffer, allocated at the first
+write, and an int32 length tensor on the array's device.  A write at an
+index past the capacity lands at the last row and the length still
+grows past it, as JAX's ``dynamic_update_index_in_dim`` clamps the index
+and its length does not (JAX :43-52); a read clamps the same way.
+Every write makes a new buffer, so an array value read earlier never
+changes.
+
+A ``recurrent`` op runs its step block once per time step.  In a
+training run it is taped like any other forward op: its inputs are the
+autograd leaves, the loop runs under autograd with no inner op on the
+tape, and ``recurrent_grad`` pulls the gradients of Inputs, Initials and
+every float ``Params`` back through the unrolled steps.  ``StaticRNN``
 declares every outer read of the step block as ``Params``, so the step
 environment is built from the op's own inputs.
 
-A ``conditional_block`` runs its block when its predicate holds.  The
-JAX rule is one ``lax.cond``; eager torch reads the predicate on the
-host, one synchronisation per run of the op on the card (recorded as
-the ``conditional_block`` host sync), and runs the block only when it
-is taken.  A ``recompute`` op runs its span of forward ops under
-non-reentrant ``torch.utils.checkpoint``: the span keeps no
-intermediate, and its grad op's ``torch.autograd.grad`` runs the span
-again to rebuild them.
+``conditional_block`` and ``cond`` run the taken block only.  Taped,
+their grad ops (``conditional_block_grad``, ``cond_grad``) differentiate
+the branch that ran: the leaves are the op's float ``Input``, a
+not-taken block leaves its ``Out`` at its earlier value, which no leaf
+produced, so the leaves get zeros.  The gradient of an ``Out`` the block
+overwrote still reaches the op that wrote it before (an ``assign_grad``
+reads the same ``Out@GRAD``), as in the JAX package.  ``while`` has no
+gradient, as in the JAX package.
+
+A ``recompute`` op runs its span of forward ops under non-reentrant
+``torch.utils.checkpoint``: the span keeps no intermediate, and its grad
+op's ``torch.autograd.grad`` runs the span again to rebuild them.
 """
 
 import torch
@@ -29,6 +48,110 @@ import torch.utils.checkpoint
 from .. import profiler
 from ..framework import op_bound_var_names, op_sub_block_indices
 from ..registry import register_op
+
+DEFAULT_ARRAY_CAPACITY = 128
+
+
+# ---------------------------------------------------------------------------
+# Tensor arrays (JAX :29-131)
+# ---------------------------------------------------------------------------
+
+class TensorArray:
+    """Fixed-capacity tensor array: ``buffer`` ``[max_len, ...]`` (None
+    until the first write fixes the element shape and dtype) and
+    ``length``, an int32 ``()`` tensor on ``device``."""
+
+    __slots__ = ("buffer", "length", "max_len", "device")
+
+    def __init__(self, buffer, length, max_len, device):
+        self.buffer = buffer
+        self.length = length
+        self.max_len = int(max_len)
+        self.device = device
+
+    @classmethod
+    def empty(cls, max_len, device):
+        return cls(None, torch.zeros((), dtype=torch.int32, device=device),
+                   max_len, device)
+
+    def _row(self, i):
+        """The index as a ``[1]`` int64 tensor clamped into the
+        capacity, and the unclamped int32 index."""
+        i = torch.as_tensor(i, device=self.device).reshape(())
+        i32 = i.to(torch.int32)
+        return i32.clamp(0, self.max_len - 1).to(torch.int64).reshape(1), \
+            i32
+
+    def write(self, i, x):
+        row, i32 = self._row(i)
+        buf = self.buffer
+        if buf is None:
+            buf = torch.zeros((self.max_len,) + tuple(x.shape),
+                              dtype=x.dtype, device=x.device)
+        buf = buf.index_copy(0, row, x.to(buf.dtype).unsqueeze(0))
+        length = torch.maximum(self.length, i32 + 1)
+        return TensorArray(buf, length, self.max_len, self.device)
+
+    def read(self, i):
+        if self.buffer is None:
+            raise ValueError("read from an empty tensor array")
+        row, _ = self._row(i)
+        return self.buffer.index_select(0, row)[0]
+
+
+@register_op("create_array", stop_gradient=True)
+def _create_array(ctx, op):
+    ctx.set("Out", TensorArray.empty(
+        ctx.attr("max_len", DEFAULT_ARRAY_CAPACITY), ctx.state.device))
+
+
+@register_op("write_to_array", nondiff_inputs=("I",), stop_gradient=True)
+def _write_to_array(ctx, op):
+    """X the value, I the index, Out the array variable (read, modify,
+    write, as the reference's scope-resident LoDTensorArray)."""
+    arr = ctx.env.get(op.output("Out")[0])
+    if not isinstance(arr, TensorArray):
+        arr = TensorArray.empty(
+            ctx.attr("max_len", DEFAULT_ARRAY_CAPACITY), ctx.state.device)
+    ctx.set("Out", arr.write(ctx.i("I"), ctx.i("X")))
+
+
+@register_op("read_from_array", nondiff_inputs=("I",), stop_gradient=True)
+def _read_from_array(ctx, op):
+    ctx.set("Out", ctx.i("X").read(ctx.i("I")))
+
+
+@register_op("lod_array_length", stop_gradient=True)
+def _lod_array_length(ctx, op):
+    """The length, a ``[1]`` int32 tensor (JAX asks for int64, which JAX
+    without x64 makes int32)."""
+    ctx.set("Out", ctx.i("X").length.reshape(1).clone())
+
+
+@register_op("tensor_array_to_tensor", stop_gradient=True)
+def _tensor_array_to_tensor(ctx, op):
+    """The whole buffer as one tensor: stacked along ``axis``
+    (``use_stack``) or concatenated; rows past the length are the zeros
+    of the fixed capacity, and OutIndex is the length, ``[1]`` int32."""
+    arr = ctx.i("X")
+    axis = ctx.attr("axis", 0)
+    buf = arr.buffer
+    if buf is None:
+        raise ValueError("tensor_array_to_tensor on an empty array")
+    if ctx.attr("use_stack", True):
+        out = torch.movedim(buf, 0, axis) if axis else buf
+    else:
+        out = torch.cat(list(buf.unbind(0)), dim=axis)
+    ctx.set("Out", out)
+    ctx.set("OutIndex", arr.length.reshape(1).clone())
+
+
+@register_op("is_empty", stop_gradient=True)
+def _is_empty(ctx, op):
+    """JAX misc_ops5.py:19: ``[1]`` bool, whether X has no element."""
+    x = ctx.i("X")
+    ctx.set("Out", torch.full((1,), x.numel() == 0, dtype=torch.bool,
+                              device=x.device))
 
 
 def _block_writes(block):
@@ -106,11 +229,11 @@ def _recurrent(ctx, op):
         env[n] = v
 
 
-def _read_predicate(pred):
-    """``bool(pred)``: a read-back, counted as the ``conditional_block``
-    host sync, when ``pred`` lies on a device other than the CPU."""
+def _read_predicate(pred, tag="conditional_block"):
+    """``bool(pred)``: a read-back, counted as the ``tag`` host sync, when
+    ``pred`` lies on a device other than the CPU."""
     if isinstance(pred, torch.Tensor) and pred.device.type != "cpu":
-        profiler.record_host_sync("conditional_block")
+        profiler.record_host_sync(tag)
     return bool(pred)
 
 
@@ -142,6 +265,71 @@ def _conditional_block(ctx, op):
         run_block(sub, inner, state)
         for n in missing:
             env[n] = torch.zeros_like(inner[n])
+
+
+# ---------------------------------------------------------------------------
+# while, cond and print (JAX :187-253, :342)
+# ---------------------------------------------------------------------------
+
+@register_op("while", stop_gradient=True)
+def _while(ctx, op):
+    """JAX :187: run the block while Condition holds.  The carry is the
+    condition and every name the block writes that has a value before
+    the loop; only those reach the environment after it.  The condition
+    is read on the host before each iteration and once after the last
+    (the ``while`` host sync on the card)."""
+    from ..lowering import run_block
+    state = ctx.state
+    sub = state.blocks[ctx.attr("sub_block")]
+    env = ctx.env
+    cond_name = op.input("Condition")[0]
+    carried = []
+    for n in [cond_name] + _block_writes(sub):
+        if n in env and n not in carried:
+            carried.append(n)
+    missing = [n for n in op.output("Out") if n and n not in env]
+    if missing:
+        raise ValueError(
+            "while-loop outputs %s have no value before the loop; "
+            "initialize them (e.g. fill_constant) before the While block "
+            "so the loop carry has an init" % missing)
+    while _read_predicate(env[cond_name].reshape(()).to(torch.bool),
+                          "while"):
+        inner = dict(env)
+        run_block(sub, inner, state)
+        for n in carried:
+            env[n] = inner[n]
+
+
+@register_op("cond", nondiff_inputs=("Cond",))
+def _cond(ctx, op):
+    """JAX :233: run ``true_block`` or ``false_block`` as Cond says (read
+    on the host, the ``cond`` host sync on the card); each Out takes the
+    branch's value, or keeps its own where the branch did not write
+    it."""
+    from ..lowering import run_block
+    state = ctx.state
+    pred = _read_predicate(ctx.i("Cond").reshape(()).to(torch.bool), "cond")
+    blk = state.blocks[ctx.attr("true_block" if pred else "false_block")]
+    inner = dict(ctx.env)
+    run_block(blk, inner, state)
+    for n in op.output("Out"):
+        if n:
+            ctx.env[n] = inner[n]
+
+
+@register_op("print", stop_gradient=True)
+def _print(ctx, op):
+    """JAX :342: print the message and the value on the host (a read-back,
+    the ``print`` host sync on the card); Out is In."""
+    x = ctx.i("In")
+    if x.device.type != "cpu":
+        profiler.record_host_sync("print")
+    v = x.detach().cpu()
+    if v.dtype == torch.bfloat16:       # numpy has no bfloat16
+        v = v.float()
+    print(ctx.attr("message", "") + str(v.numpy()), flush=True)
+    ctx.set("Out", x)
 
 
 @register_op("recompute")

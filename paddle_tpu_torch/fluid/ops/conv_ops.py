@@ -39,6 +39,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from .. import costmodel
 from . import _kernels
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -263,6 +264,14 @@ def _kernel_device(x, w, scale, shift):
     return True
 
 
+def _k1_work(x, w, scale=None, shift=None, relu=True):
+    N, H, W, C = x.shape
+    return costmodel.kernel_work(
+        "K1", n=N, h=H, w=W, c=C, o=w.shape[3], esz=x.element_size(),
+        affine=scale is not None or shift is not None)
+
+
+@costmodel.hand_kernel("K1", _k1_work)
 def conv3x3_bn_relu(x, w, scale=None, shift=None, relu=True):
     """3x3/s1/p1 conv + per-channel affine + optional relu over NHWC
     ``x [N, H, W, C]`` and HWIO ``w [3, 3, C, O]``; scale/shift ``[O]`` or

@@ -24,6 +24,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import costmodel
 from ..registry import register_op
 from . import _kernels
 
@@ -67,6 +68,12 @@ def _kernel_device(x2d, scale, bias):
     return True
 
 
+def _k6_work(x2d, scale, bias, eps):
+    return costmodel.kernel_work("K6", m=x2d.shape[0], d=x2d.shape[1],
+                                 esz=x2d.element_size())
+
+
+@costmodel.hand_kernel("K6", _k6_work)
 def row_layer_norm(x2d, scale, bias, eps):
     """Layer norm of each row of ``x2d [M, D]`` with ``scale``/``bias``
     ``[D]``.  CPU tensors run :func:`layer_norm_reference`; CUDA tensors

@@ -445,7 +445,45 @@ def reset_bad_step_count():
         _bad_steps["streak"] = 0
 
 
+# -- FLAGS_benchmark step timing (JAX profiler.py:414-459) -------------------
+# A window's dispatch records ONE entry covering its K inner steps, so
+# mean_s stays per inner step across steps_per_run values.
+
+_m_bench_steps = telemetry.counter(
+    "benchmark_inner_steps_total", "inner steps timed under FLAGS_benchmark")
+_m_bench_seconds = telemetry.counter(
+    "benchmark_seconds_total", "synced wall seconds under FLAGS_benchmark")
+_m_bench_last_k = telemetry.gauge(
+    "benchmark_last_k", "steps_per_run of the most recent timed dispatch")
+
+
+def record_benchmark_step(seconds, steps=1):
+    """``seconds`` of synced wall time covering ``steps`` inner steps
+    (1 for a plain run(), K for a run_window dispatch)."""
+    _m_bench_steps.inc(int(steps))
+    _m_bench_seconds.inc(seconds)
+    _m_bench_last_k.set(int(steps))
+
+
+def benchmark_stats():
+    """{'steps': inner steps timed, 'total_s': T, 'mean_s': T/steps,
+    'last_k': steps_per_run of the latest dispatch}; mean_s is per inner
+    step, so K=1 and K=16 runs of one program compare directly."""
+    n = int(_m_bench_steps.value())
+    tot = float(_m_bench_seconds.value())
+    return {"steps": n, "total_s": tot,
+            "mean_s": tot / n if n else 0.0,
+            "last_k": int(_m_bench_last_k.value() or 0)}
+
+
+def reset_benchmark_stats():
+    _m_bench_steps.reset()
+    _m_bench_seconds.reset()
+    _m_bench_last_k.reset()
+
+
 def reset_profiler():
     """Drop collected span data (reference profiler.py reset_profiler)."""
+    reset_benchmark_stats()
     with _lock:
         _events.clear()

@@ -265,6 +265,8 @@ class ServingExecutor:
         self._completion_thread = None
         self._failure = None
         self._warmed = False
+        # bucket -> its cost-ledger record (warmup(ledger=True))
+        self.ledger_records = {}
         self._n_requests = 0
         self._n_responses = 0
         self._n_rejects = 0
@@ -423,13 +425,18 @@ class ServingExecutor:
         ev.record(torch.cuda.current_stream(device))
         return ev
 
-    def warmup(self):
+    def warmup(self, ledger=False):
         """Run every bucket once (zero-filled feeds, outputs discarded) so
         each bucket's dispatch plan, cuBLAS heuristics and kernel builds
         happen before traffic.  Returns ``{bucket: seconds}`` (each run
         waited to its end).  Call before serving traffic — warmup
         dispatches on the caller's thread and does not count as a
-        recompile."""
+        recompile.
+
+        ``ledger=True`` also captures one device-cost ledger record per
+        bucket (``Executor.cost_record``, tagged ``serving:b<bucket>``,
+        kept in ``ledger_records``): the per-bucket FLOPs and memory
+        ladder.  A no-op when ``FLAGS_cost_ledger=0``."""
         if self._scheduler_thread is not None:
             raise ServingError(
                 "warmup() must run before serving traffic — the "
@@ -448,6 +455,12 @@ class ServingExecutor:
             if ev is not None:
                 ev.synchronize()
             times[b] = time.perf_counter() - t0
+            if ledger:
+                rec = self._exe.cost_record(
+                    self._program, feed=feeds, fetch_list=self._fetch_list,
+                    scope=self._scope, tag="serving:b%d" % b)
+                if rec is not None:
+                    self.ledger_records[b] = rec
         self._warmed = True
         return times
 

@@ -16,8 +16,8 @@ paddle_tpu on the CPU:
   only known by running the block): the same values exactly, zeros
   where a not-taken Out had none, and the persistable reaching the
   scope; the predicate's read-back counted as a host sync on the card
-  only;
-- ``conditional_block_grad`` raising, naming ROADMAP item 13c.
+  only.  Its gradient, ``conditional_block_grad``, is held against
+  paddle_tpu in tests/test_torch_control_flow.py.
 """
 
 import numpy as np
@@ -260,24 +260,3 @@ def test_conditional_block_counts_its_predicate_read_on_the_card_only():
     card = torch.tensor(False).as_subclass(_OnTheCard)
     assert _read_predicate(card) is False
     assert fluid.profiler.host_sync_count("conditional_block") == before + 1
-
-
-def test_conditional_block_grad_raises_naming_item_13c():
-    main, startup = fluid.Program(), fluid.Program()
-    L = fluid.layers
-    with fluid.program_guard(main, startup), fluid.unique_name.guard():
-        x = L.data("x", [4], dtype="float32")
-        x.stop_gradient = False
-        out = main.global_block().create_var(name="out", shape=(-1, 4),
-                                             dtype="float32")
-        L.assign(x, out)
-        pred = L.less_than(L.fill_constant([1], "float32", 0.0),
-                           L.fill_constant([1], "float32", 1.0))
-        cb = L.control_flow.ConditionalBlock([pred])
-        with cb.block():
-            L.assign(L.scale(x, scale=3.0), out)
-        dx, = fluid.gradients(L.mean(out), [x])
-    assert any(op.type == "conditional_block_grad"
-               for op in main.global_block().ops)
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        _run(fluid, main, startup, {"x": np.ones((2, 4), np.float32)}, [dx])
