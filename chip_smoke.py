@@ -368,6 +368,22 @@ non-zero exit (nothing is caught):
    integers equal, floats within 1e-6, their closed forms; the host
    syncs each makes (a While of N iterations reads its condition N + 1
    times).
+31b. sequence_ops: the programs of the 25 sequence, RNN and CTC op
+   types (``seq_programs``, the CPU tests' programs: each op in all its
+   modes, its outputs and the gradients of its float inputs and
+   parameters) on the card against the port's CPU path from the same
+   weights: floats within the CPU tests' tolerances (SEQ_TOL), integers
+   equal; each chunk_eval op reads its inputs back once a run on the
+   card, never on the CPU.
+31c. crnn_ctc_train: CRNN-CTC text recognition (``models/crnn_ctc.py``,
+   the model zoo's OCR program) at its widths: batch 32 of 48 x 512
+   images, four conv groups of 16-128 channels with batch norm,
+   ``im2sequence`` to 64 steps of 768, GRUs of 200 both ways, 96
+   classes, ``warpctc``, Momentum with L2 decay.  Step 1 on the card
+   within 1e-4 of the port's CPU path; 2 warm-up and 8 timed steps:
+   finite losses, no port kernel launched; ms per step, images/s, peak
+   memory, one profiled step; the greedy decode and edit distances on
+   the trained scope.
 32. cost_ledger: ``Executor.cost_record`` of BERT-base training (phase
    9's configuration), the ResNet-50 step of phase 12 and the BERT-base
    serving buckets (``warmup(ledger=True)``): FLOPs, bytes, peak,
@@ -383,7 +399,8 @@ non-zero exit (nothing is caught):
    more than 2%.  Then the whole run's wall time.
 34. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's, the wrappers', the
-   parameter server's, ResNet-50 inference's and the book models'; the
+   parameter server's, ResNet-50 inference's, the book models' and
+   CRNN-CTC's; the
    data-parallel and model-parallel paths' as their rank 0 counted
    them, the elastic path's as its world of one counted them); K2's row
    carries kernel_ring's record.
@@ -413,7 +430,9 @@ c.phase_device(); c.phase_build(); t = c.phase_train(); p, ref =
 c.phase_mp_bert(t); c.phase_pp_bert(t, ref)'``.  The control flow,
 the ledger and the per-op bench alone: ``python3 -c 'import chip_smoke
 as c; c.phase_device(); c.phase_build(); c.phase_control_flow();
-c.phase_cost_ledger(); c.phase_op_bench()'``.
+c.phase_cost_ledger(); c.phase_op_bench()'``.  The sequence ops and
+CRNN-CTC alone (no build needed): ``python3 -c 'import chip_smoke as c;
+c.phase_device(); c.phase_sequence_ops(); c.phase_crnn_ctc_train()'``.
 """
 
 import contextlib
@@ -442,8 +461,8 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
     K1_VARIANTS, conv3x3_bn_relu, conv3x3_bn_relu_reference, k1_plan)
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
-from paddle_tpu_torch.models import (bert, book, deepfm, lenet, resnet,
-                                     transformer)
+from paddle_tpu_torch.models import (bert, book, crnn_ctc, deepfm, lenet,
+                                     resnet, transformer)
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -7571,6 +7590,610 @@ def phase_control_flow():
     _fail_unless("control_flow", checks)
 
 
+# -- sequence, RNN and CTC ops; CRNN-CTC ------------------------------------
+
+SEQ_TOL = {"plain": (1e-5, 1e-6),   # float32 rules: rtol, atol
+           "scan": (1e-4, 1e-5),    # recurrences and warpctc (step sums)
+           "exact": (0.0, 0.0)}     # edit distances, chunk_eval's rates
+SEQ_LENS = np.array([5, 1, 3, 0], np.int64)
+GRU_CASES = ((False, False), (True, False), (False, True), (True, True))
+CHUNK_SCHEMES = ("IOB", "IOE", "IOBES", "plain")
+CUDNN_CASES = {"one_layer": (1, False), "two_layers_bidirec": (2, True)}
+
+
+def _seq_data(pkg, name, arr, grad=True):
+    v = pkg.layers.data(name, list(arr.shape), dtype=str(arr.dtype),
+                        append_batch_size=False)
+    v.stop_gradient = not grad
+    return v
+
+
+def _seq_with_grads(pkg, outs, wrt, cs):
+    """``outs`` + the gradients over ``wrt`` of ``sum_i mean(outs[i] *
+    c_i)``, ``cs`` the (feed name, array) of each output's ``c``."""
+    loss = None
+    for out, (name, c) in zip(outs, cs):
+        term = pkg.layers.mean(pkg.layers.elementwise_mul(
+            out, _seq_data(pkg, name, c, False)))
+        loss = term if loss is None else \
+            pkg.layers.elementwise_add(loss, term)
+    return list(outs) + list(pkg.gradients(loss, wrt))
+
+
+def _seq_params(pkg):
+    return pkg.default_main_program().global_block().all_parameters()
+
+
+def _seq_op_output(pkg, op_type, slot):
+    ops = [o for o in pkg.default_main_program().global_block().ops
+           if o.type == op_type]
+    return ops[-1].output(slot)[0]
+
+
+def seq_weights(build, seed):
+    """{parameter: ``0.5·randn`` from ``seed``} for every parameter that
+    ``build`` creates (None: no parameters, the startup's draws)."""
+    if seed is None:
+        return {}
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        build(fluid)
+    rng = np.random.RandomState(seed)
+    return {p.name: (rng.randn(*p.shape) * 0.5).astype(np.float32)
+            for p in main.global_block().all_parameters()}
+
+
+def _cudnn_blob(rng, I, H, layers, ndir):
+    """A flat cudnn_lstm weight blob in cuDNN's order (W_i, W_h of every
+    layer and direction, then their biases)."""
+    parts, biases = [], []
+    for layer in range(layers):
+        il = I if layer == 0 else H * ndir
+        for _ in range(ndir):
+            parts += [rng.randn(4 * H * il) * 0.4, rng.randn(4 * H * H) * 0.4]
+            biases += [rng.randn(4 * H) * 0.1, rng.randn(4 * H) * 0.1]
+    return np.concatenate(parts + biases).astype(np.float32)
+
+
+def seq_programs():
+    """The programs of the 25 sequence, RNN and CTC op types, one a type
+    (tests/test_torch_sequence_rnn_ops.py holds each against the JAX
+    package): {name: (build(pkg) -> fetch list, feed, weight seed or
+    None, tolerance class of SEQ_TOL)}.  Each runs its op (every mode
+    of it the op has, side by side) through the layer a user calls, a
+    raw op for cudnn_lstm, then the gradients of ``mean(out * c)`` over
+    its float inputs and parameters."""
+    progs = {}
+
+    def c_(rng, *shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    def add(name, build, feed, seed=None, tol="plain"):
+        progs[name] = (build, feed, seed, tol)
+
+    L = SEQ_LENS
+    rng = np.random.RandomState(20)
+    x2, x3, c2, c3 = (c_(rng, 4, 6), c_(rng, 4, 6, 1), c_(rng, 4, 6),
+                      c_(rng, 4, 6, 1))
+
+    def softmax(pkg):
+        lens = _seq_data(pkg, "lens", L, False)
+        a, b = _seq_data(pkg, "x2", x2), _seq_data(pkg, "x3", x3)
+        return _seq_with_grads(
+            pkg, [pkg.layers.sequence_softmax(a, length=lens),
+                  pkg.layers.sequence_softmax(b, length=lens)], [a, b],
+            [("c2", c2), ("c3", c3)])
+    add("sequence_softmax", softmax,
+        {"x2": x2, "x3": x3, "lens": L, "c2": c2, "c3": c3})
+
+    rng = np.random.RandomState(21)
+    xr, cr = c_(rng, 4, 6, 3), c_(rng, 4, 6, 3)
+
+    def reverse(pkg):
+        xv = _seq_data(pkg, "x", xr)
+        return _seq_with_grads(pkg, [pkg.layers.sequence_reverse(
+            xv, length=_seq_data(pkg, "lens", L, False))], [xv], [("c", cr)])
+    add("sequence_reverse", reverse, {"x": xr, "lens": L, "c": cr})
+
+    rng = np.random.RandomState(22)
+    xa, ca = c_(rng, 4, 3), c_(rng, 4, 6, 3)
+
+    def expand_as(pkg):
+        xv = _seq_data(pkg, "x", xa)
+        return _seq_with_grads(pkg, [pkg.layers.sequence_expand_as(
+            xv, length=_seq_data(pkg, "lens", L, False), maxlen=6)], [xv],
+            [("c", ca)])
+    add("sequence_expand_as", expand_as, {"x": xa, "lens": L, "c": ca})
+
+    rng = np.random.RandomState(23)
+    xe, ce = c_(rng, 4, 6, 3), c_(rng, 4, 7, 3)
+    le, re_ = np.array([2, 1, 3, 0], np.int64), np.array([5, 7, 3, 2],
+                                                         np.int64)
+
+    def expand(pkg):
+        xv = _seq_data(pkg, "x", xe)
+        return _seq_with_grads(pkg, [pkg.layers.sequence_expand(
+            xv, length=_seq_data(pkg, "lens", le, False),
+            ref_length=_seq_data(pkg, "ref", re_, False), max_out_len=7)],
+            [xv], [("c", ce)])
+    add("sequence_expand", expand,
+        {"x": xe, "lens": le, "ref": re_, "c": ce})
+
+    rng = np.random.RandomState(24)
+    xp, pv = c_(rng, 12, 3), np.array([-2.5], np.float32)
+    cp1, cp2 = c_(rng, 4, 6, 3), c_(rng, 4, 6, 3)
+
+    def pad(pkg):
+        xv = _seq_data(pkg, "x", xp)
+        lens = _seq_data(pkg, "lens", L, False)
+        o1, l1 = pkg.layers.sequence_pad(xv, maxlen=6, length=lens)
+        o2, _ = pkg.layers.sequence_pad(
+            xv, pad_value=_seq_data(pkg, "pv", pv, False), maxlen=6,
+            length=lens)
+        return _seq_with_grads(pkg, [o1, o2], [xv],
+                               [("c1", cp1), ("c2", cp2)]) + [l1]
+    add("sequence_pad", pad,
+        {"x": xp, "lens": L, "pv": pv, "c1": cp1, "c2": cp2})
+
+    rng = np.random.RandomState(25)
+    xu, cu = c_(rng, 4, 6, 3), c_(rng, 24, 3)
+
+    def unpad(pkg):
+        xv = _seq_data(pkg, "x", xu)
+        return _seq_with_grads(pkg, [pkg.layers.sequence_unpad(
+            xv, length=_seq_data(pkg, "lens", L, False))], [xv], [("c", cu)])
+    add("sequence_unpad", unpad, {"x": xu, "lens": L, "c": cu})
+
+    rng = np.random.RandomState(26)
+    ka, kb, kc = c_(rng, 4, 5, 3), c_(rng, 4, 3, 3), c_(rng, 4, 8, 3)
+    la, lb = np.array([5, 0, 2, 1], np.int64), np.array([1, 3, 0, 2],
+                                                        np.int64)
+
+    def concat(pkg):
+        av, bv = _seq_data(pkg, "a", ka), _seq_data(pkg, "b", kb)
+        out, oln = pkg.layers.sequence_concat(
+            [av, bv], length=[_seq_data(pkg, "la", la, False),
+                              _seq_data(pkg, "lb", lb, False)])
+        return _seq_with_grads(pkg, [out], [av, bv], [("c", kc)]) + [oln]
+    add("sequence_concat", concat,
+        {"a": ka, "b": kb, "la": la, "lb": lb, "c": kc})
+
+    rng = np.random.RandomState(27)
+    xs, cs_ = c_(rng, 4, 6, 3), c_(rng, 4, 6, 3)
+    off, ln = np.array([1, 0, 2, 5], np.int64), np.array([3, 1, 1, 2],
+                                                         np.int64)
+
+    def slice_(pkg):
+        xv = _seq_data(pkg, "x", xs)
+        return _seq_with_grads(pkg, [pkg.layers.sequence_slice(
+            xv, _seq_data(pkg, "off", off, False),
+            _seq_data(pkg, "ln", ln, False))], [xv], [("c", cs_)])
+    add("sequence_slice", slice_, {"x": xs, "off": off, "ln": ln, "c": cs_})
+
+    ids = np.random.RandomState(28).randint(1, 9, (4, 6)).astype(np.int64)
+
+    def enumerate_(pkg):
+        return [pkg.layers.sequence_enumerate(
+            _seq_data(pkg, "ids", ids, False), win_size=3, pad_value=-1,
+            length=_seq_data(pkg, "lens", L, False))]
+    add("sequence_enumerate", enumerate_, {"ids": ids, "lens": L})
+
+    rng = np.random.RandomState(30)
+    D = 4
+    xg, h0 = c_(rng, 4, 6, 3 * D), c_(rng, 4, D)
+    cg = [("c%d" % k, c_(rng, 4, 6, D)) for k in range(len(GRU_CASES))]
+
+    def gru(pkg):
+        xv, hv = _seq_data(pkg, "x", xg), _seq_data(pkg, "h0", h0)
+        lens = _seq_data(pkg, "lens", L, False)
+        outs = [pkg.layers.dynamic_gru(
+            xv, size=D, length=lens, h_0=hv if k < 2 else None,
+            is_reverse=rev, origin_mode=orig)
+            for k, (rev, orig) in enumerate(GRU_CASES)]
+        return _seq_with_grads(pkg, outs, [xv, hv] + _seq_params(pkg), cg)
+    add("gru", gru, dict(cg, x=xg, h0=h0, lens=L), 30, "scan")
+
+    rng = np.random.RandomState(31)
+    xi = c_(rng, 2, 3, 7, 9)
+    ci = c_(rng, 2, 4 * 9, 18)
+
+    def im2sequence(pkg):
+        xv = _seq_data(pkg, "x", xi)
+        return _seq_with_grads(pkg, [pkg.layers.im2sequence(
+            xv, filter_size=[3, 2], stride=[2, 1], padding=[1, 0, 2, 1])],
+            [xv], [("c", ci)])
+    add("im2sequence", im2sequence, {"x": xi, "c": ci})
+
+    rng = np.random.RandomState(32)
+    xw, cw = c_(rng, 4, 6, 5), c_(rng, 4, 6, 5)
+
+    def row_conv(pkg):
+        xv = _seq_data(pkg, "x", xw)
+        out = pkg.layers.row_conv(xv, future_context_size=2)
+        return _seq_with_grads(pkg, [out], [xv] + _seq_params(pkg),
+                               [("c", cw)])
+    add("row_conv", row_conv, {"x": xw, "c": cw}, 32)
+
+    rng = np.random.RandomState(33)
+    xl, hl, cl = c_(rng, 4, 3), c_(rng, 4, 5), c_(rng, 4, 5)
+    cl1, cl2 = c_(rng, 4, 5), c_(rng, 4, 5)
+
+    def lstm_unit(pkg):
+        # the JAX layer calls a ``concat`` its ``nn`` module lacks: its
+        # side builds the layer's ops by hand
+        xv, hv, cv = (_seq_data(pkg, n, a) for n, a in
+                      (("x", xl), ("h", hl), ("cp", cl)))
+        if pkg is fluid:
+            ho, co = pkg.layers.lstm_unit(xv, hv, cv, forget_bias=1.0)
+        else:
+            gates = pkg.layers.fc(pkg.layers.concat([xv, hv], axis=-1),
+                                  size=20)
+            block = pkg.default_main_program().global_block()
+            ho, co = (block.create_var(name=n, dtype="float32")
+                      for n in ("lstm_unit_h", "lstm_unit_c"))
+            block.append_op("lstm_unit",
+                            inputs={"X": [gates], "C_prev": [cv]},
+                            outputs={"C": [co], "H": [ho]},
+                            attrs={"forget_bias": 1.0})
+        return _seq_with_grads(pkg, [ho, co], [xv, hv, cv] +
+                               _seq_params(pkg), [("c1", cl1), ("c2", cl2)])
+    add("lstm_unit", lstm_unit,
+        {"x": xl, "h": hl, "cp": cl, "c1": cl1, "c2": cl2}, 33)
+
+    rng = np.random.RandomState(34)
+    xq, hq = c_(rng, 4, 3 * D), c_(rng, 4, D)
+    cq = [("c%d" % k, c_(rng, 4, (3 if k % 3 == 2 else 1) * D))
+          for k in range(6)]
+
+    def gru_unit(pkg):
+        xv, hv = _seq_data(pkg, "x", xq), _seq_data(pkg, "h", hq)
+        outs = []
+        for origin_mode in (False, True):
+            outs += list(pkg.layers.gru_unit(xv, hv, size=3 * D,
+                                             origin_mode=origin_mode))
+        return _seq_with_grads(pkg, outs, [xv, hv] + _seq_params(pkg), cq)
+    add("gru_unit", gru_unit, dict(cq, x=xq, h=hq), 34)
+
+    # logits [4, 8, 6], blank 5: a repeated label (no skip between equal
+    # labels), a short logit length, an empty label
+    rng = np.random.RandomState(35)
+    logits = c_(rng, 4, 8, 6)
+    label = np.array([[1, 1, 2], [0, 3, 0], [4, 0, 0], [0, 0, 0]], np.int64)
+    label_len = np.array([3, 2, 1, 0], np.int64)
+    logit_len = np.array([8, 5, 3, 4], np.int64)
+    rng = np.random.RandomState(36)
+    cc1, cc2 = c_(rng, 4, 1), c_(rng, 4, 1)
+
+    def warpctc(pkg):
+        lv = _seq_data(pkg, "logits", logits)
+        kw = dict(label=_seq_data(pkg, "label", label, False), blank=5,
+                  input_length=_seq_data(pkg, "logit_len", logit_len, False),
+                  label_length=_seq_data(pkg, "label_len", label_len, False))
+        return _seq_with_grads(
+            pkg, [pkg.layers.warpctc(lv, **kw),
+                  pkg.layers.warpctc(lv, norm_by_times=True, **kw)], [lv],
+            [("c1", cc1), ("c2", cc2)])
+    add("warpctc", warpctc, {"logits": logits, "label": label,
+                             "label_len": label_len, "logit_len": logit_len,
+                             "c1": cc1, "c2": cc2}, tol="scan")
+
+    rng = np.random.RandomState(37)
+    hyp = rng.randint(0, 4, (5, 6)).astype(np.int64)
+    ref = rng.randint(0, 4, (5, 5)).astype(np.int64)
+    hlen = np.array([6, 3, 0, 4, 2], np.int64)
+    rlen = np.array([5, 5, 2, 0, 3], np.int64)
+
+    def edit_distance(pkg):
+        kw = dict(input_length=_seq_data(pkg, "hl", hlen, False),
+                  label_length=_seq_data(pkg, "rl", rlen, False))
+        h = _seq_data(pkg, "hyp", hyp, False)
+        r = _seq_data(pkg, "ref", ref, False)
+        d, n = pkg.layers.edit_distance(h, r, normalized=False, **kw)
+        dn, _ = pkg.layers.edit_distance(h, r, normalized=True, **kw)
+        return [d, dn, n]
+    add("edit_distance", edit_distance,
+        {"hyp": hyp, "ref": ref, "hl": hlen, "rl": rlen}, tol="exact")
+
+    eids = np.array([[2, 1, 5, 3, 2, 4], [5, 5, 1, 0, 0, 0],
+                     [3, 2, 6, 0, 0, 0], [1, 2, 3, 4, 5, 6]], np.int64)
+    elen = np.array([6, 3, 3, 0], np.int64)
+
+    def erase(pkg):
+        out = pkg.layers.sequence_erase(
+            _seq_data(pkg, "ids", eids, False), tokens=[2, 5],
+            length=_seq_data(pkg, "lens", elen, False))
+        return [out, _seq_op_output(pkg, "sequence_erase", "OutLength")]
+    add("sequence_erase", erase, {"ids": eids, "lens": elen})
+
+    rng = np.random.RandomState(38)
+    xh, ch = c_(rng, 4, 6, 4), c_(rng, 4, 3, 8)
+
+    def reshape(pkg):
+        xv = _seq_data(pkg, "x", xh)
+        out = pkg.layers.sequence_reshape(
+            xv, new_dim=8, length=_seq_data(pkg, "lens", L, False))
+        return _seq_with_grads(pkg, [out], [xv], [("c", ch)]) + \
+            [_seq_op_output(pkg, "sequence_reshape", "OutLength")]
+    add("sequence_reshape", reshape, {"x": xh, "lens": L, "c": ch})
+
+    # repeated and negative ids within a row add up; padding adds 0
+    rng = np.random.RandomState(39)
+    xt, upd, ct = c_(rng, 4, 8), c_(rng, 4, 3), c_(rng, 4, 8)
+    sids = np.array([[1, 1, 7], [0, 2, 3], [-1, 4, 5], [6, 6, 6]], np.int64)
+    slen = np.array([3, 1, 2, 0], np.int64)
+
+    def scatter(pkg):
+        xv, uv = _seq_data(pkg, "x", xt), _seq_data(pkg, "upd", upd)
+        out = pkg.layers.sequence_scatter(
+            xv, _seq_data(pkg, "ids", sids, False), uv,
+            length=_seq_data(pkg, "lens", slen, False))
+        return _seq_with_grads(pkg, [out], [xv, uv], [("c", ct)])
+    add("sequence_scatter", scatter,
+        {"x": xt, "upd": upd, "ids": sids, "lens": slen, "c": ct})
+
+    rng = np.random.RandomState(40)
+    inf = rng.randint(0, 13, (4, 10)).astype(np.int64)
+    lab = np.where(rng.rand(4, 10) < 0.3, rng.randint(0, 13, (4, 10)),
+                   inf).astype(np.int64)
+    clen = np.array([10, 7, 4, 0], np.int64)
+
+    def chunk_eval(pkg):
+        iv = _seq_data(pkg, "inf", inf, False)
+        lv = _seq_data(pkg, "lab", lab, False)
+        ln_ = _seq_data(pkg, "lens", clen, False)
+        fetch = []
+        for s in CHUNK_SCHEMES:
+            fetch += list(pkg.layers.chunk_eval(iv, lv, s, 3, length=ln_))
+        return fetch
+    add("chunk_eval", chunk_eval, {"inf": inf, "lab": lab, "lens": clen},
+        tol="exact")
+
+    rng = np.random.RandomState(41)
+    xo, co = c_(rng, 2, 5, 6), c_(rng, 2, 5, 6)
+
+    def position(pkg):
+        xv = _seq_data(pkg, "x", xo)
+        return _seq_with_grads(pkg, [pkg.layers.add_position_encoding(
+            xv, alpha=0.5, beta=2.0)], [xv], [("c", co)])
+    add("add_position_encoding", position, {"x": xo, "c": co})
+
+    # argmax paths with repeats and blanks (blank 4), one row empty
+    rng = np.random.RandomState(42)
+    best = np.array([[1, 1, 4, 1, 2, 2, 4, 4], [4, 4, 4, 3, 3, 0, 0, 1],
+                     [0, 4, 0, 0, 1, 1, 1, 1], [2, 2, 2, 2, 2, 2, 2, 2]])
+    probs = rng.rand(4, 8, 5).astype(np.float32) * 0.5
+    np.put_along_axis(probs, best[..., None], 1.0, axis=2)
+    plen = np.array([8, 5, 4, 0], np.int64)
+
+    def ctc_align(pkg):
+        return list(pkg.layers.ctc_greedy_decoder(
+            _seq_data(pkg, "p", probs, False), blank=4,
+            length=_seq_data(pkg, "lens", plen, False)))
+    add("ctc_align", ctc_align, {"p": probs, "lens": plen})
+
+    rng = np.random.RandomState(43)
+    xm = c_(rng, 4, 6, 16)
+    cm = [("c%d" % k, c_(rng, 4, 6, 3 if k % 2 == 0 else 4))
+          for k in range(4)]
+
+    def lstmp(pkg):
+        xv = _seq_data(pkg, "x", xm)
+        lens = _seq_data(pkg, "lens", L, False)
+        outs = []
+        for is_reverse in (False, True):
+            outs += list(pkg.layers.dynamic_lstmp(
+                xv, size=16, proj_size=3, is_reverse=is_reverse,
+                length=lens))
+        return _seq_with_grads(pkg, outs, [xv] + _seq_params(pkg), cm)
+    add("lstmp", lstmp, dict(cm, x=xm, lens=L), 43, "scan")
+
+    # time-major input [T 5, B 3, I 4], H 3; W takes no gradient
+    rng = np.random.RandomState(45)
+    T, B, I, H = 5, 3, 4, 3
+    xc = c_(rng, T, B, I)
+    cfeed, ccs = {"x": xc}, []
+    for name, (layers, bidirec) in CUDNN_CASES.items():
+        ndir = 2 if bidirec else 1
+        cfeed["w_" + name] = _cudnn_blob(rng, I, H, layers, ndir)
+        cfeed["h_" + name] = c_(rng, layers * ndir, B, H)
+        cfeed["cc_" + name] = c_(rng, layers * ndir, B, H)
+        for slot, shape in (("o", (T, B, H * ndir)),
+                            ("lh", (layers * ndir, B, H)),
+                            ("lc", (layers * ndir, B, H))):
+            ccs.append(("c%s_%s" % (slot, name), c_(rng, *shape)))
+    cfeed.update(ccs)
+
+    def cudnn_lstm(pkg):
+        block = pkg.default_main_program().global_block()
+        xv = _seq_data(pkg, "x", xc)
+        outs, wrt = [], [xv]
+        for name, (layers, bidirec) in CUDNN_CASES.items():
+            hv = _seq_data(pkg, "h_" + name, cfeed["h_" + name])
+            cv = _seq_data(pkg, "cc_" + name, cfeed["cc_" + name])
+            wv = _seq_data(pkg, "w_" + name, cfeed["w_" + name], False)
+            vs = [block.create_var(name="%s_%s" % (s, name),
+                                   dtype="float32")
+                  for s in ("o", "lh", "lc")]
+            block.append_op(
+                "cudnn_lstm",
+                inputs={"Input": [xv], "InitH": [hv], "InitC": [cv],
+                        "W": [wv]},
+                outputs={"Out": [vs[0]], "last_h": [vs[1]],
+                         "last_c": [vs[2]]},
+                attrs={"hidden_size": H, "num_layers": layers,
+                       "is_bidirec": bidirec, "input_size": I,
+                       "dropout_prob": 0.0})
+            outs += vs
+            wrt += [hv, cv]
+        return _seq_with_grads(pkg, outs, wrt, ccs)
+    add("cudnn_lstm", cudnn_lstm, cfeed, tol="scan")
+
+    # the default tree at 7 classes and at 8 (a power of two), and a
+    # custom tree whose paths pad with -1
+    rng = np.random.RandomState(46)
+    xz = c_(rng, 6, 5)
+    lab7 = rng.randint(0, 7, (6, 1)).astype(np.int64)
+    lab8 = np.array([[0], [7], [3], [4], [1], [6]], np.int64)
+    table = np.array([[0, 2, -1], [0, 1, 3], [0, -1, -1], [1, 3, 4],
+                      [2, 4, -1], [0, 1, 2]], np.int64)
+    code = rng.randint(0, 2, (6, 3)).astype(np.int64)
+    cz = [("c%d" % k, c_(rng, 6, 1)) for k in range(3)]
+
+    def hsigmoid(pkg):
+        xv = _seq_data(pkg, "x", xz)
+        outs = [pkg.layers.hsigmoid(
+                    xv, _seq_data(pkg, "lab7", lab7, False), 7),
+                pkg.layers.hsigmoid(
+                    xv, _seq_data(pkg, "lab8", lab8, False), 8),
+                pkg.layers.hsigmoid(
+                    xv, _seq_data(pkg, "lab8c", lab8, False), 5,
+                    path_table=_seq_data(pkg, "table", table, False),
+                    path_code=_seq_data(pkg, "code", code, False),
+                    is_custom=True)]
+        return _seq_with_grads(pkg, outs, [xv] + _seq_params(pkg), cz)
+    add("hierarchical_sigmoid", hsigmoid,
+        dict(cz, x=xz, lab7=lab7, lab8=lab8, lab8c=lab8, table=table,
+             code=code), 46)
+    return progs
+
+
+def seq_run(build, feed, weights, place):
+    """``build``'s port program on ``place`` from ``weights``: (fetches
+    as numpy, chunk_eval host syncs of the run, chunk_eval ops in it)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        fetch = build(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    if weights:
+        fluid.load_numpy_params(scope, weights, place)
+    s0 = fluid.profiler.host_sync_count("chunk_eval")
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    return ([np.asarray(v) for v in out],
+            fluid.profiler.host_sync_count("chunk_eval") - s0,
+            sum(op.type == "chunk_eval" for op in main.global_block().ops))
+
+
+def phase_sequence_ops():
+    """The 25 sequence, RNN and CTC op types (``seq_programs``: forward
+    and gradients) on the card against the port's CPU path, each from
+    the same weights: floats within the CPU tests' tolerances (SEQ_TOL),
+    integers equal; each chunk_eval op reads its inputs back once a run
+    on the card (one ``chunk_eval`` host sync), never on the CPU."""
+    t0 = time.perf_counter()
+    checks, rows = {}, []
+    for name, (build, feed, seed, tol) in seq_programs().items():
+        weights = seq_weights(build, seed)
+        card, card_syncs, n_chunk = seq_run(build, feed, weights,
+                                            fluid.CUDAPlace(0))
+        cpu, cpu_syncs, _ = seq_run(build, feed, weights, fluid.CPUPlace())
+        rtol, atol = SEQ_TOL[tol]
+        ok, err = len(card) == len(cpu), 0.0
+        for a, b in zip(card, cpu):
+            ok = ok and a.shape == b.shape and a.dtype == b.dtype
+            if not ok:
+                break
+            if a.dtype.kind == "f":
+                ok = bool(np.allclose(a, b, rtol=rtol, atol=atol))
+                err = max(err, float(np.abs(a - b).max()) if a.size else 0)
+            else:
+                ok = bool(np.array_equal(a, b))
+        ok = ok and cpu_syncs == 0 and card_syncs == n_chunk
+        rows.append(dict(op=name, fetches=len(card), max_abs_err=err,
+                         tolerance=dict(rtol=rtol, atol=atol),
+                         chunk_eval_syncs_card=card_syncs, ok=ok))
+        checks[name] = ok
+    emit(phase="sequence_ops", card=_card(), ops=rows,
+         seconds=time.perf_counter() - t0)
+    _fail_unless("sequence_ops", checks)
+
+
+CRNN_FEEDS = 4                # crnn_ctc_train: distinct batches, in turn
+CRNN_LOSS_RTOL = 1e-4         # step-1 loss, card vs the port's CPU path
+CRNN_DECODES = 5              # timed greedy decodes of the eval program
+
+
+def _crnn_program(cfg, evaluate=False):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = crnn_ctc.build_eval(cfg) if evaluate else crnn_ctc.build(cfg)
+    return main, startup, out
+
+
+def phase_crnn_ctc_train():
+    """CRNN-CTC text recognition (``models/crnn_ctc.py``, the model zoo's
+    OCR program) at ``base_config()``: batch 32 of 48 x 512 images, T 64
+    steps of 768 features, GRUs of 200, 96 classes.  Step 1 from the
+    startup weights on the card and on the port's CPU path: losses within
+    CRNN_LOSS_RTOL.  Then WARM_STEPS + TIMED_STEPS steps through Executor
+    on the card over CRNN_FEEDS synthetic batches in turn: finite
+    losses, no port kernel launched (none lies on this path); ms per
+    step, peak memory, one profiled step's launches and busy share.  The
+    eval program (greedy decode and edit distance) on the trained scope:
+    ids ``[32, 64]`` in ``[0, 95)``, lengths at most 64, distances at
+    most the longer length; ms per decode.  Returns the path's port
+    kernel launches (none)."""
+    t0 = time.perf_counter()
+    cfg = crnn_ctc.base_config()
+    main, startup, out = _crnn_program(cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    it = crnn_ctc.feeds(cfg, SEED)
+    host = [next(it) for _ in range(CRNN_FEEDS)]
+    loss = out["loss"]
+    card1 = float(_book_step(exe, main, loss, scope, host[0])[0][0]
+                  .reshape(-1)[0])
+    cpu1 = float(_book_step(fluid.Executor(fluid.CPUPlace()), main, loss,
+                            scope, host[0])[0][0].reshape(-1)[0])
+    feeds = [_cuda_feed(f) for f in host]
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    got, step_ms = _train_steps(exe, main, feeds, [loss], scope)
+    launches = _launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    losses = [float(g[0].reshape(-1)[0].item()) for g in got]
+    prof, _ = _profile_record(exe, main, feeds[0], [loss], scope)
+    emain, _, eout = _crnn_program(cfg, evaluate=True)
+    efeed = feeds[0]
+    ids, ids_len, dist, n = exe.run(emain, feed=efeed,
+                                    fetch_list=eout["outs"], scope=scope)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(CRNN_DECODES):
+        exe.run(emain, feed=efeed, fetch_list=eout["outs"], scope=scope,
+                return_numpy=False)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t1) / CRNN_DECODES * 1e3
+    T = crnn_ctc.steps(cfg)
+    label_len = host[0]["label_len"]
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "step1_card_vs_cpu": abs(card1 - cpu1) <= CRNN_LOSS_RTOL * abs(cpu1),
+        "no_port_kernel": not any(launches.values()),
+        "ids_shape": ids.shape == (cfg["batch"], T),
+        "ids_in_classes": bool(((ids >= 0) & (ids < cfg["classes"])).all()),
+        "lengths": bool(((ids_len >= 0) & (ids_len <= T)).all()),
+        "distances": bool(np.isfinite(dist).all() and (dist >= 0).all() and
+                          (dist[:, 0] <= np.maximum(ids_len,
+                                                    label_len)).all()),
+        "sequence_num": int(n) == cfg["batch"]}
+    emit(phase="crnn_ctc_train", card=_card(), config=cfg, steps=len(losses),
+         losses=losses, step1_loss_card=card1, step1_loss_cpu=cpu1,
+         step1_rel_err=abs(card1 - cpu1) / abs(cpu1), ms_per_step=step_ms,
+         images_per_s=cfg["batch"] / step_ms * 1e3, peak_device_mb=peak_mb,
+         profiled_step=prof, launches=launches, ms_per_decode=decode_ms,
+         decoded_head=ids[:2, :int(ids_len[:2].max())].tolist(),
+         decoded_lengths=ids_len[:8].tolist(),
+         edit_distances=dist[:8, 0].tolist(), checks=checks,
+         seconds=time.perf_counter() - t0)
+    _fail_unless("crnn_ctc_train", checks)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -7629,6 +8252,8 @@ def main():
     phase_book_check(mt)
     del mt
     phase_control_flow()
+    phase_sequence_ops()
+    by_path["crnn_ctc_train"] = phase_crnn_ctc_train()
     phase_cost_ledger()
     phase_op_bench()
     timings = dict(flash_attention_fwd=k2,

@@ -7,7 +7,9 @@ readers of ``io.py``, and the book models' losses, sequence, RNN, CRF
 and beam-search layers with ``StaticRNN``/``DynamicRNN``, and the
 comparison, logical and modulo layers with ``increment`` and
 ``isfinite``, and the control flow: ``While``, ``cond``, ``Switch``,
-``IfElse``, the tensor arrays and ``Print``.
+``IfElse``, the tensor arrays and ``Print``, and the sequence, RNN and
+CTC layers (``sequence.py``, ``rnn.py``, ``nn_extras.py``,
+``nn_extras2.py``).
 """
 
 from . import io
@@ -20,6 +22,8 @@ from . import metric_op
 from . import learning_rate_scheduler
 from . import sequence
 from . import control_flow
+from . import nn_extras
+from . import nn_extras2
 
 from .io import (data, py_reader, create_py_reader_by_data,  # noqa: F401
                  double_buffer, read_file)
@@ -41,11 +45,11 @@ from .tensor import (assign, create_parameter, fill_constant,  # noqa: F401
                      cast, concat, sums, fill_constant_batch_size_like,
                      zeros_like, range, isfinite)
 from .rnn import (fused_attention, switch_moe, dynamic_lstm,  # noqa: F401
-                  linear_chain_crf, crf_decoding, cos_sim, nce,
-                  beam_search, beam_search_decode)
-from .sequence import (sequence_mask, sequence_pool,  # noqa: F401
-                       sequence_first_step, sequence_last_step,
-                       sequence_conv)
+                  dynamic_gru, linear_chain_crf, crf_decoding, cos_sim,
+                  nce, hsigmoid, beam_search, beam_search_decode)
+from .sequence import *                                      # noqa: F401,F403
+from .nn_extras import im2sequence                           # noqa: F401
+from .nn_extras2 import *                                    # noqa: F401,F403
 from .control_flow import (increment, less_than,  # noqa: F401
                            less_equal, greater_than, greater_equal,
                            equal, not_equal, BlockGuard, StaticRNN,

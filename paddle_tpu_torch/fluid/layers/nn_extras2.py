@@ -1,0 +1,262 @@
+"""Layers closing more of the reference's ``layers/nn.py`` (counterpart
+paddle_tpu/fluid/layers/nn_extras2.py), so far the sequence, RNN and CTC
+ones: ``add_position_encoding``, ``ctc_greedy_decoder``,
+``edit_distance``, ``warpctc``, ``row_conv``, ``chunk_eval``,
+``gru_unit``, ``lstm_unit``, ``dynamic_lstmp``, ``lstm``,
+``sequence_reshape``, ``sequence_scatter`` and ``sequence_erase``; the
+rest of the JAX file is ROADMAP item 13c.3."""
+
+from ..layer_helper import LayerHelper
+from .nn_extras import _simple
+
+__all__ = [
+    "add_position_encoding", "ctc_greedy_decoder", "edit_distance",
+    "warpctc", "row_conv", "chunk_eval", "gru_unit", "lstm_unit",
+    "dynamic_lstmp", "lstm", "sequence_reshape", "sequence_scatter",
+    "sequence_erase",
+]
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    """``alpha·input + beta·pe``, the reference's sinusoid table."""
+    return _simple("add_position_encoding", {"X": [input]},
+                   {"alpha": alpha, "beta": beta}, shape_of=input)
+
+
+def ctc_greedy_decoder(input, blank, length=None, name=None):
+    """The argmax of every step, then the CTC collapse (``top_k`` and
+    ``ctc_align``, as the reference composes them); input ``[B, T, C]``
+    with its length.  Returns (ids ``[B, T]`` packed to the front, their
+    count)."""
+    from . import nn as nn_layers
+    assert length is not None
+    ids = nn_layers.topk(input, 1)[1]
+    ids = nn_layers.squeeze(ids, [-1])
+    helper = LayerHelper("ctc_align")
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    oln = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("ctc_align",
+                     inputs={"Input": [ids], "Length": [length]},
+                     outputs={"Output": [out], "OutputLength": [oln]},
+                     attrs={"blank": int(blank)})
+    return out, oln
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """The Levenshtein distance of each row of ``input`` to ``label``
+    over their lengths; returns (distances ``[B, 1]``, sequence
+    count)."""
+    helper = LayerHelper("edit_distance")
+    out = helper.create_variable_for_type_inference("float32",
+                                                    stop_gradient=True)
+    seq_num = helper.create_variable_for_type_inference(
+        "int64", stop_gradient=True)
+    helper.append_op("edit_distance",
+                     inputs={"Hyps": [input], "Refs": [label],
+                             "HypsLength": [input_length],
+                             "RefsLength": [label_length]},
+                     outputs={"Out": [out], "SequenceNum": [seq_num]},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """The CTC loss of logits ``[B, T, C]`` against padded labels
+    ``[B, L]``; returns ``[B, 1]``."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype)
+    if input.shape:
+        loss.shape = (input.shape[0], 1)
+    helper.append_op("warpctc",
+                     inputs={"Logits": [input], "Label": [label],
+                             "LogitsLength": [input_length],
+                             "LabelLength": [label_length]},
+                     outputs={"Loss": [loss], "WarpCTCGrad": [grad]},
+                     attrs={"blank": int(blank),
+                            "norm_by_times": norm_by_times})
+    return loss
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead convolution over ``future_context_size + 1`` steps."""
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    D = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr,
+                                [future_context_size + 1, D], input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op("row_conv", inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out, act)
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types, length=None,
+               excluded_chunk_types=None):
+    """(precision, recall, F1, inferred, labelled and correct chunk
+    counts) of tag rows under ``chunk_scheme``."""
+    helper = LayerHelper("chunk_eval")
+    outs = {}
+    for slot, dtype in (("Precision", "float32"), ("Recall", "float32"),
+                        ("F1-Score", "float32"),
+                        ("NumInferChunks", "int64"),
+                        ("NumLabelChunks", "int64"),
+                        ("NumCorrectChunks", "int64")):
+        outs[slot] = [helper.create_variable_for_type_inference(
+            dtype, stop_gradient=True)]
+    helper.append_op("chunk_eval",
+                     inputs={"Inference": [input], "Label": [label],
+                             "Length": [length]},
+                     outputs=outs,
+                     attrs={"chunk_scheme": chunk_scheme,
+                            "num_chunk_types": int(num_chunk_types)})
+    return (outs["Precision"][0], outs["Recall"][0], outs["F1-Score"][0],
+            outs["NumInferChunks"][0], outs["NumLabelChunks"][0],
+            outs["NumCorrectChunks"][0])
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             origin_mode=False):
+    """One GRU step; ``size`` is 3D.  Returns (hidden, reset hidden,
+    gate)."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    D = size // 3
+    w = helper.create_parameter(helper.param_attr, [D, 3 * D], input.dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, 3 * D], input.dtype,
+                                is_bias=True)
+    out_h = helper.create_variable_for_type_inference(input.dtype)
+    gate = helper.create_variable_for_type_inference(input.dtype)
+    reset = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if b is not None:
+        inputs["Bias"] = [b]
+    helper.append_op("gru_unit", inputs=inputs,
+                     outputs={"Hidden": [out_h], "Gate": [gate],
+                              "ResetHiddenPrev": [reset]},
+                     attrs={"origin_mode": origin_mode})
+    return out_h, reset, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """``fc([x, h])`` then one ``lstm_unit`` step; returns (h, c)."""
+    from . import nn as nn_layers
+    from .tensor import concat
+    D = int(cell_t_prev.shape[-1])
+    gates = nn_layers.fc(concat([x_t, hidden_t_prev], axis=-1),
+                         size=4 * D, param_attr=param_attr,
+                         bias_attr=bias_attr)
+    helper = LayerHelper("lstm_unit")
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op("lstm_unit",
+                     inputs={"X": [gates], "C_prev": [cell_t_prev]},
+                     outputs={"C": [c], "H": [h]},
+                     attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def dynamic_lstmp(input, size, proj_size, length=None, param_attr=None,
+                  bias_attr=None, is_reverse=False,
+                  gate_activation="sigmoid", cell_activation="tanh",
+                  candidate_activation="tanh", proj_activation="identity",
+                  dtype="float32", name=None):
+    """The LSTM with a projection over a pre-projected input ``[B, T,
+    4D]`` (``size`` = 4D); returns (projection ``[B, T, P]``, cell)."""
+    assert length is not None
+    helper = LayerHelper("lstmp", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    D = size // 4
+    w = helper.create_parameter(helper.param_attr, [proj_size, 4 * D],
+                                dtype)
+    proj_w = helper.create_parameter(None, [D, proj_size], dtype)
+    b = helper.create_parameter(helper.bias_attr, [1, 4 * D], dtype,
+                                is_bias=True)
+    proj = helper.create_variable_for_type_inference(dtype)
+    cell = helper.create_variable_for_type_inference(dtype)
+    if input.shape:
+        proj.shape = tuple(input.shape[:2]) + (proj_size,)
+        cell.shape = tuple(input.shape[:2]) + (D,)
+    inputs = {"Input": [input], "Weight": [w], "ProjWeight": [proj_w],
+              "Length": [length]}
+    if b is not None:
+        inputs["Bias"] = [b]
+    helper.append_op("lstmp", inputs=inputs,
+                     outputs={"Projection": [proj], "Cell": [cell]},
+                     attrs={"is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "cell_activation": cell_activation,
+                            "candidate_activation": candidate_activation,
+                            "proj_activation": proj_activation})
+    return proj, cell
+
+
+def lstm(input, init_h, init_c, max_len, hidden_size, num_layers,
+         length=None, dropout_prob=0.0, is_bidirec=False, name=None):
+    """The reference's cuDNN-style stacked LSTM, composed as the JAX
+    layer composes it (nn_extras2.py:521): per layer an ``fc`` to 4H and
+    a ``dynamic_lstm`` (and a reversed pair, concatenated, when
+    ``is_bidirec``), dropout between layers.  ``init_h``/``init_c`` are
+    not read.  Returns (out, last step, last step)."""
+    from . import nn as nn_layers
+    from . import sequence as seq_layers
+    from .rnn import dynamic_lstm
+    from .tensor import concat
+    assert length is not None
+    h = input
+    for _ in range(num_layers):
+        proj = nn_layers.fc(h, size=4 * hidden_size, num_flatten_dims=2)
+        fwd, _ = dynamic_lstm(proj, 4 * hidden_size, length=length)
+        if is_bidirec:
+            proj_b = nn_layers.fc(h, size=4 * hidden_size,
+                                  num_flatten_dims=2)
+            bwd, _ = dynamic_lstm(proj_b, 4 * hidden_size, length=length,
+                                  is_reverse=True)
+            h = concat([fwd, bwd], axis=-1)
+        else:
+            h = fwd
+        if dropout_prob:
+            h = nn_layers.dropout(h, dropout_prob)
+    last = seq_layers.sequence_last_step(h, length=length)
+    return h, last, last
+
+
+def sequence_reshape(input, new_dim, length=None):
+    """``[B, T, D]`` → ``[B, T·D / new_dim, new_dim]``."""
+    helper = LayerHelper("sequence_reshape")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    oln = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("sequence_reshape",
+                     inputs={"X": [input], "Length": [length]},
+                     outputs={"Out": [out], "OutLength": [oln]},
+                     attrs={"new_dim": int(new_dim)})
+    return out
+
+
+def sequence_scatter(input, index, updates, length=None, name=None):
+    """``input`` ``[B, D]`` with each row's valid ``updates`` added at
+    ``index``."""
+    return _simple("sequence_scatter",
+                   {"X": [input], "Ids": [index], "Updates": [updates],
+                    "Length": [length]}, shape_of=input)
+
+
+def sequence_erase(input, tokens, length=None, name=None):
+    """Each row with the ids in ``tokens`` removed, the rest shifted
+    left."""
+    helper = LayerHelper("sequence_erase")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    oln = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("sequence_erase",
+                     inputs={"X": [input], "Length": [length]},
+                     outputs={"Out": [out], "OutLength": [oln]},
+                     attrs={"tokens": list(tokens)})
+    return out

@@ -1,8 +1,9 @@
 """Recurrent, structured-prediction and generation layers (counterpart
 paddle_tpu/fluid/layers/rnn.py; reference ``python/paddle/fluid/layers/
-nn.py``): ``fused_attention``, ``switch_moe``, and the book models' ``dynamic_lstm``,
-``linear_chain_crf``, ``crf_decoding``, ``cos_sim``, ``nce``,
-``beam_search`` and ``beam_search_decode``.  Every sequence layer takes
+nn.py``): ``fused_attention``, ``switch_moe``, the book models'
+``dynamic_lstm``, ``linear_chain_crf``, ``crf_decoding``, ``cos_sim``,
+``nce``, ``beam_search`` and ``beam_search_decode``, and ``dynamic_gru``
+and ``hsigmoid``.  Every sequence layer takes
 an explicit ``length`` Variable ``[batch]`` over padded ``[batch, time,
 ...]`` data, in place of the reference's LoD."""
 
@@ -47,6 +48,38 @@ def dynamic_lstm(input, size, length=None, h_0=None, c_0=None,
                             "cell_activation": cell_activation,
                             "candidate_activation": candidate_activation})
     return hidden, cell
+
+
+def dynamic_gru(input, size, length=None, h_0=None, param_attr=None,
+                bias_attr=None, is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", origin_mode=False,
+                dtype="float32", name=None):
+    """GRU over a pre-projected input [B, T, 3*D]; size = D.
+
+    Returns hidden [B, T, D].
+    """
+    assert length is not None, \
+        "dynamic_gru needs an explicit length tensor (no LoD)"
+    helper = LayerHelper("gru", param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    D = size
+    weight = helper.create_parameter(helper.param_attr, [D, 3 * D], dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, 3 * D], dtype,
+                                   is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    if input.shape:
+        hidden.shape = tuple(input.shape[:2]) + (D,)
+    inputs = {"Input": [input], "Weight": [weight], "Length": [length]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op("gru", inputs=inputs, outputs={"Hidden": [hidden]},
+                     attrs={"is_reverse": is_reverse,
+                            "gate_activation": gate_activation,
+                            "activation": candidate_activation,
+                            "origin_mode": origin_mode})
+    return hidden
 
 
 def linear_chain_crf(input, label, length=None, param_attr=None):
@@ -142,6 +175,40 @@ def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
                             "__op_seed__":
                                 helper.main_program.next_op_seed()})
     return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None,
+             is_custom=False, is_sparse=False):
+    """Hierarchical sigmoid; returns [B, 1].  The default tree has
+    ``num_classes − 1`` nodes; a custom one (``is_custom``) takes
+    ``num_classes`` rows and the caller's PathTable/PathCode."""
+    helper = LayerHelper("hierarchical_sigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    if is_custom:
+        assert path_table is not None and path_code is not None
+        num_nodes = num_classes
+    else:
+        num_nodes = num_classes - 1
+    weight = helper.create_parameter(helper.param_attr, [num_nodes, dim],
+                                     input.dtype)
+    bias = helper.create_parameter(helper.bias_attr, [1, num_nodes],
+                                   input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    pre_out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (input.shape[0], 1)
+    inputs = {"X": [input], "Label": [label], "W": [weight]}
+    if bias is not None:
+        inputs["Bias"] = [bias]
+    if path_table is not None:
+        inputs["PathTable"] = [path_table]
+        inputs["PathCode"] = [path_code]
+    helper.append_op("hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [out], "PreOut": [pre_out]},
+                     attrs={"num_classes": int(num_classes),
+                            "is_sparse": is_sparse})
+    return out
 
 
 def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,

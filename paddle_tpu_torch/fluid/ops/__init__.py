@@ -18,3 +18,7 @@ from . import generation_ops  # noqa: F401
 from . import distributed_ops  # noqa: F401
 from . import lod_machinery_ops  # noqa: F401
 from . import moe_ops        # noqa: F401
+from . import misc_ops       # noqa: F401
+from . import misc_ops2      # noqa: F401
+from . import misc_ops3      # noqa: F401
+from . import misc_ops4      # noqa: F401

@@ -460,3 +460,43 @@ def _nce(ctx, op):
     ctx.set("Cost", cost[:, None])
     ctx.set("SampleLogits", logit_neg)
     ctx.set("SampleLabels", samples)
+
+
+@register_op("hierarchical_sigmoid", nondiff_inputs=("Label", "PathTable",
+                                                     "PathCode"))
+def _hierarchical_sigmoid(ctx, op):
+    """Hierarchical sigmoid (nn_ops.py:545): per row, the sum of the
+    sigmoid cross-entropies along the label's path, ``softplus(z) −
+    bit·z`` with ``z = w_node·x + b_node`` clipped to ±40.  The default
+    tree is the reference's SimpleCode: for class l the code ``c = l +
+    C``, at depth j the node ``(c >> (j + 1)) − 1`` and the bit ``(c >> j)
+    & 1``, valid while ``c >> (j + 1) > 0``, over a static depth of
+    ``bit_length(C − 1)``, all in integer shifts (a float log2 misrounds
+    near powers of two).  A custom tree comes as PathTable/PathCode
+    (node −1 pads).  → Out ``[B, 1]``, PreOut z ``[B, depth]``."""
+    x = ctx.i("X")                                       # [B, D]
+    label = ctx.i("Label").reshape(-1).long()
+    w = ctx.i("W")                                       # [nodes, D]
+    bias = ctx.i_opt("Bias")
+    path_table = ctx.i_opt("PathTable")
+    if path_table is not None:
+        nodes = path_table.long()
+        bits = ctx.i("PathCode").to(torch.float32)
+        valid = nodes >= 0
+        nodes = nodes.clamp_min(0)
+    else:
+        C = int(ctx.attr("num_classes"))
+        L = max(int(C - 1).bit_length(), 1)
+        c = (label + C)[:, None]
+        j = torch.arange(L, device=x.device)[None, :]
+        valid = (c >> (j + 1)) > 0
+        nodes = ((c >> (j + 1)) - 1).clamp(0, w.shape[0] - 1)
+        bits = ((c >> j) & 1).to(torch.float32)
+    z = (w[nodes] * x[:, None, :]).sum(-1)
+    if bias is not None:
+        z = z + bias.reshape(-1)[nodes]
+    z = z.clamp(-40.0, 40.0)
+    zero = torch.zeros((), dtype=z.dtype, device=z.device)
+    ce = torch.logaddexp(z, zero) - bits * z
+    ctx.set("Out", torch.where(valid, ce, zero).sum(-1)[:, None])
+    ctx.set("PreOut", z)

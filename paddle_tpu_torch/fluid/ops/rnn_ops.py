@@ -1,19 +1,21 @@
-"""The fused LSTM op over padded batches (counterpart
-``paddle_tpu/fluid/ops/rnn_ops.py``: ``lstm``; its GRU is ROADMAP item
-13c).
+"""The fused recurrent ops over padded batches (counterpart
+``paddle_tpu/fluid/ops/rnn_ops.py``): ``lstm`` and ``gru``, with their
+recurrences ``lstm_core`` and ``gru_core``.
 
-Where the JAX package runs the recurrence as one ``lax.scan``, the port
-runs it as a Python loop over the time axis of plain torch ops, one
-``[B, D] x [D, 4D]`` product a step; the grad op differentiates the
+Where the JAX package runs each recurrence as one ``lax.scan``, the port
+runs it as a Python loop over the time axis of plain torch ops: one
+``[B, D] x [D, 4D]`` product a step for the LSTM, one ``[B, D] x [D, 2D]``
+and one ``[B, D] x [D, D]`` for the GRU; the grad op differentiates the
 unrolled loop that the forward left on the tape.  No Pallas kernel
-carries the JAX recurrence, so no hand-written kernel carries this one.
+carries the JAX recurrences, so no hand-written kernel carries these.
 
-The gate layout is the reference kernel's, ``[c̃, i, f, o]``
-(``lstm_kernel.h``).  ``Length`` takes no gradient; a step at
-``t >= length[b]`` keeps that row's state and emits zeros, and
-``is_reverse`` runs each sequence backwards within its own length.
+The gate layouts are the reference kernels': LSTM ``[c̃, i, f, o]``
+(``lstm_kernel.h``), GRU ``[u, r, c̃]`` with the weight ``[D, 2D]``
+(update|reset) beside ``[D, D]`` (candidate) (``gru_kernel.h``).
+``Length`` takes no gradient; a step at ``t >= length[b]`` keeps that
+row's state and emits zeros, and ``is_reverse`` runs each sequence
+backwards within its own length.
 """
-
 import torch
 
 from ..registry import register_op
@@ -124,3 +126,61 @@ def _lstm(ctx, op):
         act_cand=_act(ctx.attr("candidate_activation", "tanh")))
     ctx.set("Hidden", hidden)
     ctx.set("Cell", cell)
+
+
+@register_op("gru", nondiff_inputs=("Length",))
+def _gru(ctx, op):
+    """dynamic_gru (rnn_ops.py:159): Input ``[B, T, 3D]``, Weight
+    ``[D, 3D]``, Bias ``[1, 3D]``, optional H0 ``[B, D]`` → Hidden
+    ``[B, T, D]``."""
+    x = ctx.i("Input")
+    w = ctx.i("Weight")
+    bias = ctx.i_opt("Bias")
+    ln = ctx.i("Length")
+    lengths = (ln.reshape(ln.shape[0]) if ln.dim() > 1 else ln).long()
+    B, T, three_d = x.shape
+    D = three_d // 3
+    if bias is not None:
+        x = x + bias.reshape(-1).to(x.dtype)
+    h0 = ctx.i_opt("H0")
+    h0 = torch.zeros((B, D), dtype=x.dtype, device=x.device) \
+        if h0 is None else h0.to(x.dtype)
+    ctx.set("Hidden", gru_core(
+        x, w, lengths, h0, is_reverse=ctx.attr("is_reverse", False),
+        origin_mode=ctx.attr("origin_mode", False),
+        act_gate=_act(ctx.attr("gate_activation", "sigmoid")),
+        act_cand=_act(ctx.attr("activation", "tanh"))))
+
+
+def gru_core(x, w, lengths, h0, is_reverse=False, origin_mode=False,
+             act_gate=torch.sigmoid, act_cand=torch.tanh):
+    """The GRU recurrence over pre-projected gates x ``[B, T, 3D]``
+    (rnn_ops.py:185): ``u, r = act_gate(x_ur + h W_ur)``, ``c̃ =
+    act_cand(x_c + (r h) W_c)``, then ``h = (1 − u) h + u c̃``, or
+    ``u h + (1 − u) c̃`` with ``origin_mode``.  Hidden ``[B, T, D]``."""
+    B, T, three_d = x.shape
+    D = three_d // 3
+    if is_reverse:
+        x = _seq_reverse(x, lengths)
+    w = w.to(x.dtype)
+    w_ur, w_c = w[:, :2 * D], w[:, 2 * D:]
+    tmask = torch.arange(T, device=x.device)[:, None] < lengths[None, :]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    h_prev, hs = h0, []
+    for t in range(T):
+        xt = x[:, t]
+        g_ur = xt[:, :2 * D] + _matmul_p(h_prev, w_ur)
+        u = act_gate(g_ur[:, :D])
+        r = act_gate(g_ur[:, D:])
+        c = act_cand(xt[:, 2 * D:] + _matmul_p(r * h_prev, w_c))
+        if origin_mode:
+            h = u * h_prev + (1.0 - u) * c
+        else:
+            h = (1.0 - u) * h_prev + u * c
+        m = tmask[t][:, None]
+        h_prev = torch.where(m, h, h_prev)
+        hs.append(torch.where(m, h, zero))
+    hidden = torch.stack(hs, dim=1)
+    if is_reverse:
+        hidden = _seq_reverse(hidden, lengths)
+    return hidden

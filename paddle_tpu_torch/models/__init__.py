@@ -9,3 +9,4 @@ from . import vgg  # noqa: F401
 from . import mobilenet  # noqa: F401
 from . import se_resnext  # noqa: F401
 from . import book  # noqa: F401
+from . import crnn_ctc  # noqa: F401
