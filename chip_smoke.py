@@ -315,7 +315,8 @@ non-zero exit (nothing is caught):
    the trained weights on the card and the CPU: SentenceIds equal, the
    scores within max(1e-5 relative, 2 x the reversed-batch spreads).
 29. mp_bert: tensor and sequence parallelism, two gloo ranks on card 0
-   (``dp_child mp_bert``): BERT-base at phase 9's configuration with
+   (``dp_child mp_bert``, one pack that also runs pp_bert and the moe
+   paths, checked in 29b and 30): BERT-base at phase 9's configuration with
    all dropout off (batch 32, fp32, Adam 1e-4), from phase 9's initial
    parameters and batch, through fleet with mp_degree=2 (tp_bert), then
    sp_degree=2 ring and Ulysses (sp_bert_ring, sp_bert_ulysses), 1 + 2
@@ -327,7 +328,7 @@ non-zero exit (nothing is caught):
    parameter and optimizer-state bytes a rank, the model-parallel
    collectives a step (calls and wire bytes).
 29b. pp_bert, pp_mp_bert, mp_sp_bert: pipelines and the compositions,
-   gloo ranks on card 0 (``dp_child pp_bert``, ``dp_child
+   gloo ranks on card 0 (pp_bert in mp_bert's pack, ``dp_child
    pp_mp_bert``), BERT-base at phase 9's configuration with all dropout
    off from phase 9's initial parameters and batch, 1 + 2 steps each,
    against mp_bert's run of the same program in this process: pp_bert,
@@ -345,7 +346,7 @@ non-zero exit (nothing is caught):
 30. moe: the MoE block of tests/test_moe_transformer_composition.py at
    fluid/benchmark.py:329's widths (batch 8, S 512, hidden 768, 12
    heads, 8 experts of ffn 3072, capacity 1.25), two gloo ranks on card
-   0 (``dp_child moe``), from one startup's weights: sp_ring_flash (sp 2
+   0 (in mp_bert's pack), from one startup's weights: sp_ring_flash (sp 2
    ring, T_local 256: the flash ring, K2 with the LSE twice a forward,
    K3 and K4 twice a backward with the global LSE, asserted), then
    ep_moe dense, a2a fp32 and a2a int8 (ep 2); against the block in this
@@ -384,6 +385,24 @@ non-zero exit (nothing is caught):
    finite losses, no port kernel launched; ms per step, images/s, peak
    memory, one profiled step; the greedy decode and edit distances on
    the trained scope.
+31d. detection_ops: the programs of the 33 detection op types
+   (``det_programs``, the CPU tests' programs) on the card against the
+   port's CPU path from the same weights: floats within DET_TOL,
+   integers (match indices, keep masks, sampled indices) equal;
+   detection_map and generate_mask_labels read their inputs back once
+   an op a run on the card, never on the CPU.
+31e. ssd_train: MobileNet-SSD (``models/ssd.py``, the model zoo's
+   detector) at its widths: batch 64 of 300 x 300 images, 1917 priors,
+   21 classes, RMSProp on the piecewise rate with L2 decay.  Step 1 at
+   batch 8 on the card within 1e-3 of the port's CPU path; 2 warm-up and
+   8 timed steps: finite losses, no port kernel launched, no host sync
+   in a step; ms per step, peak memory, one profiled step; the eval
+   program (detection_output + detection_map) on the trained scope: the
+   [64, 200, 6] slab, the mAP, one detection_map sync, ms a batch.
+31f. ssd_head_k1: multi_box_head with the layer's 3x3 heads under
+   FLAGS_conv_pallas at base widths over the six maps (batch 8), fp32
+   and bf16, against the flag-off run: K1 within its tolerances, 12
+   launches a run, each variant as k1_plan plans it.
 32. cost_ledger: ``Executor.cost_record`` of BERT-base training (phase
    9's configuration), the ResNet-50 step of phase 12 and the BERT-base
    serving buckets (``warmup(ledger=True)``): FLOPs, bytes, peak,
@@ -399,8 +418,8 @@ non-zero exit (nothing is caught):
    more than 2%.  Then the whole run's wall time.
 34. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's, the wrappers', the
-   parameter server's, ResNet-50 inference's, the book models' and
-   CRNN-CTC's; the
+   parameter server's, ResNet-50 inference's, the book models',
+   CRNN-CTC's, the detection programs' and MobileNet-SSD's; the
    data-parallel and model-parallel paths' as their rank 0 counted
    them, the elastic path's as its world of one counted them); K2's row
    carries kernel_ring's record.
@@ -426,16 +445,20 @@ and the wrappers alone: ``python3 -c 'import chip_smoke as c;
 c.phase_device(); c.phase_build(); t = c.phase_train();
 c.phase_train_surface(t); c.phase_wrappers()'``.  The model-parallel
 phases and the pipelines alone: ``python3 -c 'import chip_smoke as c;
-c.phase_device(); c.phase_build(); t = c.phase_train(); p, ref =
-c.phase_mp_bert(t); c.phase_pp_bert(t, ref)'``.  The control flow,
+c.phase_device(); c.phase_build(); t = c.phase_train(); p, ref, two =
+c.phase_mp_bert(t); c.phase_pp_bert(t, ref, two); c.phase_moe(two)'``.  The control flow,
 the ledger and the per-op bench alone: ``python3 -c 'import chip_smoke
 as c; c.phase_device(); c.phase_build(); c.phase_control_flow();
 c.phase_cost_ledger(); c.phase_op_bench()'``.  The sequence ops and
 CRNN-CTC alone (no build needed): ``python3 -c 'import chip_smoke as c;
 c.phase_device(); c.phase_sequence_ops(); c.phase_crnn_ctc_train()'``.
+Detection and MobileNet-SSD alone (K1 built for the head check):
+``python3 -c 'import chip_smoke as c; c.phase_device(); c.phase_build();
+c.phase_detection_ops(); c.phase_ssd_train(); c.phase_ssd_head_k1()'``.
 """
 
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -462,7 +485,7 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
 from paddle_tpu_torch.models import (bert, book, crnn_ctc, deepfm, lenet,
-                                     resnet, transformer)
+                                     resnet, ssd, transformer)
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -575,8 +598,11 @@ def _fail_unless(name, checks):
                          % (name, [k for k, ok in checks.items() if not ok]))
 
 
+@functools.lru_cache(maxsize=None)
 def _card():
-    """The card's name and power limit, as nvidia-smi prints them."""
+    """The card's name and power limit, as nvidia-smi prints them (read
+    once a process: neither changes while it runs, and each nvidia-smi
+    call costs its start-up)."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -584,10 +610,13 @@ def _card():
 
 
 def phase_device():
+    t0 = time.perf_counter()
     smi = _card()
+    smi_s = time.perf_counter() - t0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
+    emit(phase="device", nvidia_smi=smi, nvidia_smi_s=smi_s,
+         torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(),
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -3472,9 +3501,9 @@ def _window_run(cfg, init, step0, feeds, depth, ckpt=None):
         flags.set_flag("feed_ring_depth", prev)
 
 
-def _sync_sites(exe, main, out, scope, feed):
-    """The sites that synchronize with the host during one window whose
-    stacked ``feed`` already lies on the card, from
+def _sync_sites(run):
+    """The sites that synchronize with the host while ``run()`` runs (a
+    window or a step whose feed already lies on the card), from
     torch.cuda.set_sync_debug_mode("warn"): {file:line: message}."""
     import warnings
     sites = {}
@@ -3483,8 +3512,7 @@ def _sync_sites(exe, main, out, scope, feed):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            exe.run_window(main, feed=feed, fetch_list=[out["loss"]],
-                           scope=scope, steps_per_run=WIN_K)
+            run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
     for w in caught:
@@ -3588,7 +3616,9 @@ def phase_window_train():
     trace_bytes = os.path.getsize(trace_path)
     del prof
     on_card = {k: torch.from_numpy(v).cuda() for k, v in stacked.items()}
-    sites = _sync_sites(b["exe"], b["main"], b["out"], b["scope"], on_card)
+    sites = _sync_sites(lambda: b["exe"].run_window(
+        b["main"], feed=on_card, fetch_list=[b["out"]["loss"]],
+        scope=b["scope"], steps_per_run=WIN_K))
     L = cfg.num_layers
     saved = b["saved"] or {}
     meta = saved.get("meta") or {}
@@ -4148,8 +4178,7 @@ def dp_child(mode, d):
     d = Path(d)
     child = {"resnet": _child_resnet, "wus": _child_wus,
              "sharded": _child_sharded, "elastic": _child_elastic,
-             "mp_bert": _child_mp_bert, "moe": _child_moe,
-             "pp_bert": _child_pp_bert,
+             "mp_bert": _child_mp_bert,
              "pp_mp_bert": _child_pp_mp_bert}.get(mode)
     res = child(d) if child else _child_train(d, mode)
     name = res.pop("file", "rank%d.json" % res["rank"])
@@ -6520,9 +6549,11 @@ def _one_process(main, startup, feed, fetch, init, out=None):
 
 
 def _child_mp_bert(d):
-    """A rank of mp_bert: BERT-base (dropout off) through fleet with
-    mp_degree=2, then sp_degree=2 ring and Ulysses, each from phase
-    train's initial parameters and batch."""
+    """A rank of mp_bert's pack: pp_bert's two pipeline stages, then
+    BERT-base (dropout off) through fleet with mp_degree=2, then
+    sp_degree=2 ring and Ulysses, each from phase train's initial
+    parameters and batch; then the MoE paths and kernel_ring
+    (``_moe_paths``)."""
     from paddle_tpu_torch.fluid.incubate.fleet.collective import \
         DistributedStrategy
     rank, n, fleet, exe = _child_world("gloo")
@@ -6531,6 +6562,9 @@ def _child_mp_bert(d):
     cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
     res = dict(rank=rank, world=n, backend=torch.distributed.get_backend(),
                paths={})
+    # pp_bert first, on a fresh card: its peak is held to a share of one
+    # process's; then the three paths of the same two ranks
+    res["paths"]["pp_bert"] = _pp_run(exe, cfg, init, feed)
     for name, kw in _mp_strategies():
         main, startup, out = _build_pretrain(cfg, fleet.distributed_optimizer(
             fluid.optimizer.AdamOptimizer(learning_rate=TRAIN_LR),
@@ -6543,18 +6577,20 @@ def _child_mp_bert(d):
         res["paths"][name] = rec
         del scope, main, startup
         torch.cuda.empty_cache()
+    moe = _moe_paths(exe, d)
+    res["paths"].update(moe["paths"])
+    res["kernel_ring"] = moe["kernel_ring"]
     return res
 
 
-def _child_moe(d):
-    """A rank of moe: the MoE block at sp 2 (the flash ring) and at ep 2
+def _moe_paths(exe, d):
+    """A rank's MoE runs: the block at sp 2 (the flash ring) and at ep 2
     (dense, a2a fp32, a2a int8), from the one-process startup weights;
-    then kernel_ring."""
-    rank, n, _fleet, exe = _child_world("gloo")
-    init = {k: v.numpy() for k, v in torch.load(d / "init.pt").items()}
+    then kernel_ring.  Returns {"paths", "kernel_ring"}."""
+    init = {k: v.numpy() for k, v in torch.load(d / "moe_init.pt").items()}
     ref_out = torch.load(d / "moe_out.pt")
     feed = _moe_feed()
-    res = dict(rank=rank, world=n, paths={})
+    paths = {}
     for name, transpile in _moe_runs():
         main, startup, loss, aux, moe = _moe_program(transpile)
         scope = fluid.Scope()
@@ -6570,11 +6606,11 @@ def _child_moe(d):
              if p.name.startswith("switch_moe") and len(p.shape) == 3]
         rec["expert_mb"] = sum(scope.find_var(p.name).numel() * 4
                                for p in w) / 2**20
-        res["paths"][name] = rec
+        paths[name] = rec
         del scope, main, startup
         torch.cuda.empty_cache()
-    res["kernel_ring"] = _kernel_ring(rank)
-    return res
+    return dict(paths=paths, kernel_ring=_kernel_ring(
+        torch.distributed.get_rank()))
 
 
 def _kernel_ring(rank):
@@ -6669,7 +6705,11 @@ def phase_mp_bert(train):
     batch, as two gloo ranks on card 0 with mp_degree=2, then
     sp_degree=2 ring and Ulysses, MP_STEPS steps each; against the same
     program in one process: step-1 loss, peak memory and parameter bytes
-    per rank, ms per step, the model-parallel collectives a step."""
+    per rank, ms per step, the model-parallel collectives a step.  The
+    same two ranks also run pp_bert and the MoE paths, whose records
+    phase_pp_bert and phase_moe check: returns (launches by path, the
+    one-process record, (the ranks' records, the pack's wall seconds, the
+    MoE one-process record))."""
     cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
     init = {k: v.numpy() for k, v in train["init"].items()}
     main, startup, out = _build_pretrain(cfg)
@@ -6679,6 +6719,7 @@ def phase_mp_bert(train):
     d = _io_dir("mp_bert")
     torch.save(train["init"], d / "init.pt")
     np.savez(d / "feed.npz", **train["feed"])
+    moe_ref = _moe_prep(d)
     torch.cuda.empty_cache()
     ranks, wall = _launch_ranks("mp_bert", [0, 0], d)
     L = cfg.num_layers
@@ -6725,18 +6766,14 @@ def phase_mp_bert(train):
         _fail_unless(name, checks)
         by_path[name] = la
     shutil.rmtree(d, ignore_errors=True)
-    return by_path, ref
+    return by_path, ref, (ranks, wall, moe_ref)
 
 
-def phase_moe():
-    """sp_ring_flash, ep_moe and kernel_ring: the MoE block at sp 2 (ring:
-    T_local 256, no bias, so the flash ring: K2 with the LSE twice a
-    forward, K3 and K4 twice a backward with the global LSE) and at ep 2
-    (dense, a2a fp32, a2a int8), two gloo ranks on card 0, from one
-    startup's weights; against the program in one process: the step-1
-    loss and aux loss, peak memory, expert bytes per rank, ms per step,
-    the a2a bytes by precision; then the flash ring's kernels against the
-    einsum ring and the plain K2-K4."""
+def _moe_prep(d):
+    """The MoE block in one process from one startup's weights (the
+    reference of phase_moe's paths); writes the weights and its step-1
+    output into ``d`` for the ranks (``moe_init.pt``, ``moe_out.pt``) and
+    returns its _mp_steps record."""
     main, startup, loss, aux, moe = _moe_program()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
@@ -6748,15 +6785,29 @@ def phase_moe():
     ref = _one_process(main, startup, _moe_feed(), [loss, aux],
                        {k: v.numpy() for k, v in init.items()}, out=moe)
     ref_out = ref.pop("out1")
-    expert_mb = 2 * MOE_E * MOE_HID * MOE_F * 4 / 2**20
-    emit(phase="moe_one_process", expert_mb=expert_mb,
+    emit(phase="moe_one_process",
+         expert_mb=2 * MOE_E * MOE_HID * MOE_F * 4 / 2**20,
          moe_out_max_abs=float(ref_out.abs().max()), **ref)
-    d = _io_dir("moe")
-    torch.save(init, d / "init.pt")
+    torch.save(init, d / "moe_init.pt")
     torch.save(ref_out, d / "moe_out.pt")
     del ref_out
     torch.cuda.empty_cache()
-    ranks, wall = _launch_ranks("moe", [0, 0], d)
+    return ref
+
+
+def phase_moe(two):
+    """sp_ring_flash, ep_moe and kernel_ring: the MoE block at sp 2 (ring:
+    T_local 256, no bias, so the flash ring: K2 with the LSE twice a
+    forward, K3 and K4 twice a backward with the global LSE) and at ep 2
+    (dense, a2a fp32, a2a int8), two gloo ranks on card 0, from one
+    startup's weights; against the program in one process: the step-1
+    loss and aux loss, peak memory, expert bytes per rank, ms per step,
+    the a2a bytes by precision; then the flash ring's kernels against the
+    einsum ring and the plain K2-K4.  The two ranks are mp_bert's pack:
+    ``two`` holds their records, its wall seconds and the one-process
+    record (``_moe_prep``)."""
+    ranks, wall, ref = two
+    expert_mb = 2 * MOE_E * MOE_HID * MOE_F * 4 / 2**20
     by_path = {}
     for name, _t in _moe_runs():
         recs = [r["paths"][name] for r in ranks]
@@ -6814,7 +6865,6 @@ def phase_moe():
                                          D=MOE_HID // MOE_HEADS),
          tolerance=RING_TOL, ranks=ring, checks=checks)
     _fail_unless("kernel_ring", checks)
-    shutil.rmtree(d, ignore_errors=True)
     return by_path, ring[0]
 
 
@@ -6941,17 +6991,6 @@ def _pp_run(exe, cfg, init, feed, tp=False):
     return rec
 
 
-def _child_pp_bert(d):
-    """A rank (a stage) of pp_bert: BERT-base in two stages, dropout
-    off, from phase train's initial parameters and batch."""
-    rank, n, _fleet, exe = _child_world("gloo")
-    init = {k: v.numpy() for k, v in torch.load(d / "init.pt").items()}
-    feed = dict(np.load(d / "feed.npz"))
-    cfg = bert.base_config(hidden_dropout=0.0, attn_dropout=0.0)
-    return dict(rank=rank, world=n, backend=torch.distributed.get_backend(),
-                paths={"pp_bert": _pp_run(exe, cfg, init, feed)})
-
-
 def _child_pp_mp_bert(d):
     """A rank of the four: pp_mp_bert (the two stages with
     TensorParallelTranspiler(2): dp 1 x pp 2 x mp 2), then mp_sp_bert
@@ -6979,13 +7018,14 @@ def _child_pp_mp_bert(d):
     return res
 
 
-def phase_pp_bert(train, ref):
+def phase_pp_bert(train, ref, two):
     """pp_bert, pp_mp_bert and mp_sp_bert: BERT-base at phase train's
     configuration with all dropout off, from its initial parameters and
     batch, against ``ref`` (mp_bert's run of the same program in this
     process): two stages of six layers, PP_MICRO microbatches, as two
-    gloo ranks on card 0; the same with the Megatron pairs at mp 2 as
-    four ranks; and BERT-base at mp 2 x sp 2 (Ulysses) with no pipeline
+    gloo ranks on card 0 (run in mp_bert's pack: ``two`` holds its
+    records and wall seconds); the same with the Megatron pairs at mp 2
+    as four ranks; and BERT-base at mp 2 x sp 2 (Ulysses) with no pipeline
     in the same four.  Every step's loss within MP_LOSS_RTOL, every rank
     the same losses, the K2-K4 counts a rank (a pipeline's recompute
     runs each stage's forward again: 2 x 6 layers x PP_MICRO K2, 6 x
@@ -7000,7 +7040,7 @@ def phase_pp_bert(train, ref):
     torch.save(train["init"], d / "init.pt")
     np.savez(d / "feed.npz", **train["feed"])
     torch.cuda.empty_cache()
-    ranks2, wall2 = _launch_ranks("pp_bert", [0, 0], d)
+    ranks2, wall2, _ = two
     ranks4, wall4 = _launch_ranks("pp_mp_bert", [0, 0, 0, 0], d)
     steps = MP_STEPS
     pipe = {"flash_attention_fwd": 2 * (L // 2) * PP_MICRO,
@@ -8057,9 +8097,10 @@ def seq_programs():
     return progs
 
 
-def seq_run(build, feed, weights, place):
+def seq_run(build, feed, weights, place, host_ops=("chunk_eval",)):
     """``build``'s port program on ``place`` from ``weights``: (fetches
-    as numpy, chunk_eval host syncs of the run, chunk_eval ops in it)."""
+    as numpy, the host syncs of the run by the ``host_ops`` op types, the
+    ops of those types in it)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         fetch = build(fluid)
@@ -8068,27 +8109,29 @@ def seq_run(build, feed, weights, place):
     exe.run(startup, scope=scope)
     if weights:
         fluid.load_numpy_params(scope, weights, place)
-    s0 = fluid.profiler.host_sync_count("chunk_eval")
+    counts = [fluid.profiler.host_sync_count(t) for t in host_ops]
     out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-    return ([np.asarray(v) for v in out],
-            fluid.profiler.host_sync_count("chunk_eval") - s0,
-            sum(op.type == "chunk_eval" for op in main.global_block().ops))
+    syncs = sum(fluid.profiler.host_sync_count(t) - n
+                for t, n in zip(host_ops, counts))
+    return ([np.asarray(v) for v in out], syncs,
+            sum(op.type in host_ops for op in main.global_block().ops))
 
 
-def phase_sequence_ops():
-    """The 25 sequence, RNN and CTC op types (``seq_programs``: forward
-    and gradients) on the card against the port's CPU path, each from
-    the same weights: floats within the CPU tests' tolerances (SEQ_TOL),
-    integers equal; each chunk_eval op reads its inputs back once a run
-    on the card (one ``chunk_eval`` host sync), never on the CPU."""
+def _programs_card_vs_cpu(phase, programs, tols, host_ops):
+    """Each of ``programs`` ({name: (build, feed, weight seed, tolerance
+    class)}) on the card against the port's CPU path, from the same
+    weights: floats within ``tols`` of their class, integers equal; each
+    op of ``host_ops`` reads its inputs back once a run on the card (one
+    host sync), never on the CPU."""
     t0 = time.perf_counter()
     checks, rows = {}, []
-    for name, (build, feed, seed, tol) in seq_programs().items():
+    for name, (build, feed, seed, tol) in programs.items():
         weights = seq_weights(build, seed)
-        card, card_syncs, n_chunk = seq_run(build, feed, weights,
-                                            fluid.CUDAPlace(0))
-        cpu, cpu_syncs, _ = seq_run(build, feed, weights, fluid.CPUPlace())
-        rtol, atol = SEQ_TOL[tol]
+        card, card_syncs, n_host = seq_run(build, feed, weights,
+                                           fluid.CUDAPlace(0), host_ops)
+        cpu, cpu_syncs, _ = seq_run(build, feed, weights, fluid.CPUPlace(),
+                                    host_ops)
+        rtol, atol = tols[tol]
         ok, err = len(card) == len(cpu), 0.0
         for a, b in zip(card, cpu):
             ok = ok and a.shape == b.shape and a.dtype == b.dtype
@@ -8099,14 +8142,26 @@ def phase_sequence_ops():
                 err = max(err, float(np.abs(a - b).max()) if a.size else 0)
             else:
                 ok = bool(np.array_equal(a, b))
-        ok = ok and cpu_syncs == 0 and card_syncs == n_chunk
+            if not ok:
+                break
+        ok = ok and cpu_syncs == 0 and card_syncs == n_host
         rows.append(dict(op=name, fetches=len(card), max_abs_err=err,
                          tolerance=dict(rtol=rtol, atol=atol),
-                         chunk_eval_syncs_card=card_syncs, ok=ok))
+                         host_syncs_card=card_syncs, ok=ok))
         checks[name] = ok
-    emit(phase="sequence_ops", card=_card(), ops=rows,
+    emit(phase=phase, card=_card(), ops=rows,
          seconds=time.perf_counter() - t0)
-    _fail_unless("sequence_ops", checks)
+    _fail_unless(phase, checks)
+
+
+def phase_sequence_ops():
+    """The 25 sequence, RNN and CTC op types (``seq_programs``: forward
+    and gradients) on the card against the port's CPU path, each from
+    the same weights: floats within the CPU tests' tolerances (SEQ_TOL),
+    integers equal; each chunk_eval op reads its inputs back once a run
+    on the card (one ``chunk_eval`` host sync), never on the CPU."""
+    _programs_card_vs_cpu("sequence_ops", seq_programs(), SEQ_TOL,
+                          ("chunk_eval",))
 
 
 CRNN_FEEDS = 4                # crnn_ctc_train: distinct batches, in turn
@@ -8194,6 +8249,824 @@ def phase_crnn_ctc_train():
     return launches
 
 
+DET_TOL = {"plain": (1e-5, 1e-6),    # float32 rules: rtol, atol
+           "pixels": (1e-5, 1e-4),   # yolo_box: boxes in image pixels (up
+           #                           to ~300), a sigmoid or exp ulp apart
+           #                           between the card and the CPU moves
+           #                           a coordinate near 0 by up to ~6e-5
+           "solve": (1e-4, 1e-5),    # roi_perspective_transform's 8x8 solves
+           "exact": (0.0, 0.0)}      # detection_map's mAP
+DET_HOST_OPS = ("detection_map", "generate_mask_labels")
+
+
+def _det_boxes(rng, n, size, lo=0.1, hi=0.4):
+    """``n`` boxes ``[x1, y1, x2, y2]`` inside a square of side ``size``,
+    sides from ``lo`` to ``hi`` of it."""
+    wh = rng.uniform(lo, hi, (n, 2)) * size
+    xy = rng.uniform(0.0, 1.0, (n, 2)) * (size - wh)
+    return np.concatenate([xy, xy + wh], axis=1).astype(np.float32)
+
+
+def _det_with_grads(pkg, outs, wrt):
+    """``outs`` + the gradients over ``wrt`` of ``sum_i mean(outs[i]²)``."""
+    loss = None
+    for out in outs:
+        term = pkg.layers.mean(pkg.layers.square(out))
+        loss = term if loss is None else \
+            pkg.layers.elementwise_add(loss, term)
+    return list(outs) + list(pkg.gradients(loss, wrt))
+
+
+def _det_raw(pkg, op_type, inputs, outputs, attrs):
+    """One ``op_type`` op appended by hand: ``outputs`` is {slot: dtype};
+    returns the output variables in that order."""
+    helper = pkg.layer_helper.LayerHelper(op_type)
+    outs = {slot: helper.create_variable_for_type_inference(dt)
+            for slot, dt in outputs.items()}
+    helper.append_op(op_type, inputs=inputs,
+                     outputs={k: [v] for k, v in outs.items()}, attrs=attrs)
+    return [outs[k] for k in outputs]
+
+
+def det_programs():
+    """The programs of the 33 detection op types, one a type
+    (tests/test_torch_detection_ops.py holds each against the JAX
+    package): {name: (build(pkg) -> fetch list, feed, weight seed or
+    None, tolerance class of DET_TOL)}.  Each runs its op through the
+    layer a user calls (a hand-built op for ``mine_hard_examples`` and
+    ``detection_map``, which have no layer), every mode the op has side
+    by side, then the gradients of ``sum mean(out²)`` over the float
+    inputs the op differentiates and its parameters."""
+    progs = {}
+
+    def add(name, build, feed, seed=None, tol="plain"):
+        progs[name] = (build, feed, seed, tol)
+
+    def f32(rng, *shape, s=1.0):
+        return (rng.randn(*shape) * s).astype(np.float32)
+
+    D = _seq_data
+    rng = np.random.RandomState(60)
+    ib, ib2, iy = (_det_boxes(rng, 10, 1.0).reshape(2, 5, 4),
+                   _det_boxes(rng, 5, 1.0), _det_boxes(rng, 7, 1.0))
+
+    def iou(pkg):
+        a, b = D(pkg, "xb", ib), D(pkg, "x2", ib2)
+        y = D(pkg, "y", iy, False)
+        return _det_with_grads(pkg, [pkg.layers.iou_similarity(a, y),
+                                     pkg.layers.iou_similarity(b, y)],
+                               [a, b])
+    add("iou_similarity", iou, {"xb": ib, "x2": ib2, "y": iy})
+
+    rng = np.random.RandomState(61)
+    sx, sy = f32(rng, 6, 4), f32(rng, 6, 4)
+    siw = rng.uniform(0, 2, (6, 4)).astype(np.float32)
+    sow = rng.uniform(0, 2, (6, 4)).astype(np.float32)
+
+    def smooth_l1(pkg):
+        x, y = D(pkg, "x", sx), D(pkg, "y", sy)
+        return _det_with_grads(pkg, [
+            pkg.layers.smooth_l1(x, y),
+            pkg.layers.smooth_l1(x, y, D(pkg, "iw", siw, False),
+                                 D(pkg, "ow", sow, False), sigma=1.5)],
+            [x, y])
+    add("smooth_l1_loss", smooth_l1, {"x": sx, "y": sy, "iw": siw,
+                                      "ow": sow})
+
+    pf = np.zeros((1, 2, 3, 4), np.float32)
+    pim = np.zeros((1, 3, 24, 32), np.float32)
+
+    def prior(pkg):
+        feat, img = D(pkg, "feat", pf, False), D(pkg, "img", pim, False)
+        b1, v1 = pkg.layers.prior_box(feat, img, [4.0, 8.0], [6.0, 12.0],
+                                      [2.0, 3.0], flip=True, clip=True)
+        b2, v2 = pkg.layers.prior_box(feat, img, [5.0], None, [2.0, 2.0],
+                                      variance=(0.2, 0.2, 0.1, 0.1),
+                                      steps=(7.0, 9.0), offset=0.3)
+        return [b1, v1, b2, v2]
+    add("prior_box", prior, {"feat": pf, "img": pim})
+
+    rng = np.random.RandomState(62)
+    cp = _det_boxes(rng, 6, 1.0)
+    cpv = rng.uniform(0.1, 0.3, (6, 4)).astype(np.float32)
+    ct2 = _det_boxes(rng, 3, 1.0)
+    ct3 = _det_boxes(rng, 8, 1.0).reshape(2, 4, 4)
+    ct3[1, 3] = 0.0                   # a zero padding row: the 1e-10 floor
+    cdl = f32(rng, 3, 6, 4, s=0.5)
+    cpx = _det_boxes(rng, 6, 20.0)
+
+    def coder(pkg):
+        prior_v = D(pkg, "prior", cp, False)
+        pvar = D(pkg, "pvar", cpv, False)
+        t2, t3, dl = D(pkg, "t2", ct2), D(pkg, "t3", ct3), D(pkg, "dl", cdl)
+        enc2 = pkg.layers.box_coder(prior_v, pvar, t2)
+        enc3 = pkg.layers.box_coder(prior_v, [0.1, 0.1, 0.2, 0.2], t3)
+        dec0 = pkg.layers.box_coder(prior_v, pvar, dl,
+                                    code_type="decode_center_size")
+        dl_t = D(pkg, "dlt", np.ascontiguousarray(cdl.transpose(1, 0, 2)))
+        dec1 = pkg.layers.box_coder(prior_v, pvar, dl_t,
+                                    code_type="decode_center_size", axis=1)
+        dec_px = pkg.layers.box_coder(
+            D(pkg, "priorpx", cpx, False), [0.1, 0.1, 0.2, 0.2], dl,
+            code_type="decode_center_size", box_normalized=False)
+        return _det_with_grads(pkg, [enc2, enc3, dec0, dec1, dec_px],
+                               [t2, t3, dl, dl_t])
+    add("box_coder", coder, {"prior": cp, "pvar": cpv, "t2": ct2,
+                             "t3": ct3, "dl": cdl,
+                             "dlt": np.ascontiguousarray(
+                                 cdl.transpose(1, 0, 2)),
+                             "priorpx": cpx})
+
+    rng = np.random.RandomState(63)
+    nb = np.stack([_det_boxes(rng, 12, 1.0, 0.2, 0.5) for _ in range(2)])
+    nb[:, 5] = nb[:, 4]                # an exact duplicate: IoU 1
+    ns = rng.rand(2, 4, 12).astype(np.float32)
+    ns[:, 2] *= 0.05                   # a class mostly under the threshold
+    nbp = (nb * 40.0).astype(np.float32)
+
+    def nms(pkg):
+        b, s = D(pkg, "b", nb, False), D(pkg, "s", ns, False)
+        return [pkg.layers.multiclass_nms(b, s, 0.03, 6, 10, 0.4),
+                pkg.layers.multiclass_nms(b, s, 0.0, 12, 40, 0.3,
+                                          background_label=-1),
+                pkg.layers.multiclass_nms(D(pkg, "bp", nbp, False), s, 0.1,
+                                          5, 8, 0.5, normalized=False,
+                                          background_label=3)]
+    add("multiclass_nms", nms, {"b": nb, "s": ns, "bp": nbp})
+
+    rng = np.random.RandomState(64)
+    bd = rng.rand(2, 3, 8).astype(np.float32)
+    bd[0, 1, 2] = bd[0, 2, 5] = bd[0].max() + 0.1    # a tie at the top
+    bd[1, 0, :] = 0.0                                # a padding row
+    bd2 = rng.rand(4, 6).astype(np.float32)
+
+    def bip(pkg):
+        d = D(pkg, "d", bd, False)
+        i1, d1 = pkg.layers.bipartite_match(d)
+        i2, d2 = pkg.layers.bipartite_match(d, "per_prediction", 0.4)
+        i3, d3 = pkg.layers.bipartite_match(D(pkg, "d2", bd2, False))
+        return [i1, d1, i2, d2, i3, d3]
+    add("bipartite_match", bip, {"d": bd, "d2": bd2})
+
+    rng = np.random.RandomState(65)
+    tx = f32(rng, 2, 3, 4)
+    tx4 = f32(rng, 2, 3, 5, 4)
+    tlab = rng.randint(1, 6, (2, 3, 1)).astype(np.int32)
+    tm = np.array([[0, -1, 2, 1, -1], [-1, 1, -1, -1, 0]], np.int32)
+    tneg = np.array([[1, -1, -1], [2, 3, -1]], np.int32)
+
+    def tassign(pkg):
+        m = D(pkg, "m", tm, False)
+        o1, w1 = pkg.layers.target_assign(D(pkg, "x", tx, False), m)
+        o2, w2 = pkg.layers.target_assign(D(pkg, "x4", tx4, False), m,
+                                          mismatch_value=0)
+        o3, w3 = pkg.layers.target_assign(
+            D(pkg, "lab", tlab, False), m,
+            negative_indices=D(pkg, "neg", tneg, False), mismatch_value=0)
+        return [o1, w1, o2, w2, o3, w3]
+    add("target_assign", tassign, {"x": tx, "x4": tx4, "lab": tlab,
+                                   "m": tm, "neg": tneg})
+
+    rng = np.random.RandomState(66)
+    mcl = rng.rand(2, 10).astype(np.float32)
+    mcl[0, 7] = mcl[0, 3]                            # a tied loss
+    mll = rng.rand(2, 10).astype(np.float32)
+    mmi = np.array([[0, -1, -1, -1, 1, -1, -1, -1, -1, -1],
+                    [-1, -1, 2, -1, -1, -1, -1, -1, -1, -1]], np.int32)
+    mmd = rng.rand(2, 10).astype(np.float32) * 0.8
+
+    def mine(pkg):
+        ins = {"ClsLoss": [D(pkg, "cl", mcl, False)],
+               "MatchIndices": [D(pkg, "mi", mmi, False)],
+               "MatchDist": [D(pkg, "md", mmd, False)]}
+        outs = {"NegIndices": "int32", "UpdatedMatchIndices": "int32"}
+        a = _det_raw(pkg, "mine_hard_examples", ins, outs,
+                     {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5,
+                      "mining_type": "max_negative"})
+        b = _det_raw(pkg, "mine_hard_examples",
+                     dict(ins, LocLoss=[D(pkg, "ll", mll, False)]), outs,
+                     {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5,
+                      "mining_type": "hard_example", "sample_size": 4})
+        return a + b
+    add("mine_hard_examples", mine, {"cl": mcl, "mi": mmi, "md": mmd,
+                                     "ll": mll})
+
+    rng = np.random.RandomState(67)
+    ix = f32(rng, 2, 3, 5, 7)
+
+    def nearest(pkg):
+        x = D(pkg, "x", ix)
+        return _det_with_grads(pkg, [
+            pkg.layers.resize_nearest(x, [9, 12]),
+            pkg.layers.resize_nearest(x, [3, 4], align_corners=False),
+            pkg.layers.resize_nearest(x, scale=2.0, align_corners=False)],
+            [x])
+    add("nearest_interp", nearest, {"x": ix})
+
+    def bilinear(pkg):
+        x = D(pkg, "x", ix)
+        return _det_with_grads(pkg, [
+            pkg.layers.resize_bilinear(x, [9, 12]),
+            pkg.layers.resize_bilinear(x, [8, 10], align_corners=False,
+                                       align_mode=0),
+            pkg.layers.resize_bilinear(x, [4, 5], align_corners=False,
+                                       align_mode=1),
+            pkg.layers.image_resize(x, [6, 6], resample="NEAREST")], [x])
+    add("bilinear_interp", bilinear, {"x": ix})
+
+    rng = np.random.RandomState(68)
+    yx = f32(rng, 2, 2 * (5 + 3), 4, 4)
+    ysz = np.array([[320, 256], [200, 300]], np.int32)
+
+    def yolo(pkg):
+        boxes, scores = pkg.layers.yolo_box(
+            D(pkg, "x", yx, False), D(pkg, "sz", ysz, False),
+            [10, 13, 16, 30], 3, 0.4, 32)
+        return [boxes, scores]
+    add("yolo_box", yolo, {"x": yx, "sz": ysz}, tol="pixels")
+
+    rng = np.random.RandomState(69)
+    rx = f32(rng, 2, 3, 8, 8)
+    rr = _det_boxes(rng, 4, 14.0, 0.05, 0.6)
+    rbid = np.array([0, 1, 1, 0], np.int32)
+
+    def align(pkg):
+        x = D(pkg, "x", rx)
+        rois, bid = D(pkg, "r", rr, False), D(pkg, "bid", rbid, False)
+        return _det_with_grads(pkg, [
+            pkg.layers.roi_align(x, rois, 2, 3, 0.5, -1, bid),
+            pkg.layers.roi_align(x, rois, 3, 2, 0.5, 3, bid)], [x])
+    add("roi_align", align, {"x": rx, "r": rr, "bid": rbid})
+
+    rng = np.random.RandomState(70)
+    dpb = _det_boxes(rng, 5, 30.0)
+    dpv = np.array([0.1, 0.1, 0.2, 0.2], np.float32)
+    dtb = f32(rng, 5, 12, s=0.5)
+    dtb[0, 2] = 9.0                                  # past box_clip
+    dsc = rng.rand(5, 3).astype(np.float32)
+
+    def dec_assign(pkg):
+        t = D(pkg, "t", dtb)
+        dec, asg = pkg.layers.box_decoder_and_assign(
+            D(pkg, "p", dpb, False), D(pkg, "v", dpv, False), t,
+            D(pkg, "s", dsc, False), 4.135)
+        return _det_with_grads(pkg, [dec, asg], [t])
+    add("box_decoder_and_assign", dec_assign,
+        {"p": dpb, "v": dpv, "t": dtb, "s": dsc})
+
+    rng = np.random.RandomState(71)
+    fr = [_det_boxes(rng, 6, 64.0), _det_boxes(rng, 5, 64.0)]
+    fs = [rng.rand(6, 1).astype(np.float32), rng.rand(5, 1).astype(
+        np.float32)]
+    fs[1][2, 0] = fs[0][4, 0]                        # a tie across levels
+
+    def collect(pkg):
+        rois = [D(pkg, "r%d" % k, r, False) for k, r in enumerate(fr)]
+        sc = [D(pkg, "s%d" % k, s, False) for k, s in enumerate(fs)]
+        return [pkg.layers.collect_fpn_proposals(rois, sc, 2, 3, 8),
+                pkg.layers.collect_fpn_proposals(rois, sc, 2, 3, 15)]
+    add("collect_fpn_proposals", collect,
+        {"r0": fr[0], "r1": fr[1], "s0": fs[0], "s1": fs[1]})
+
+    rng = np.random.RandomState(72)
+    dr = np.concatenate([_det_boxes(rng, 4, 100.0, 0.05, 0.2),
+                         _det_boxes(rng, 4, 800.0, 0.2, 0.5),
+                         _det_boxes(rng, 3, 300.0, 0.3, 0.6)])
+
+    def distribute(pkg):
+        multi, restore = pkg.layers.distribute_fpn_proposals(
+            D(pkg, "r", dr, False), 2, 5, 4, 224)
+        return list(multi) + [restore]
+    add("distribute_fpn_proposals", distribute, {"r": dr})
+
+    rng = np.random.RandomState(73)
+    yl_x = f32(rng, 2, 2 * (5 + 3), 4, 4)
+    yl_box = np.array([[[0.3, 0.4, 0.2, 0.3], [0.7, 0.2, 0.5, 0.4],
+                        [0.0, 0.0, 0.0, 0.0]],
+                       [[0.55, 0.6, 0.1, 0.15], [0.1, 0.9, 0.3, 0.2],
+                        [0.8, 0.8, 0.35, 0.3]]], np.float32)
+    yl_lab = np.array([[1, 2, 0], [0, 2, 1]], np.int32)
+    yl_sc = rng.uniform(0.5, 1.0, (2, 3)).astype(np.float32)
+
+    def yolov3(pkg):
+        x = D(pkg, "x", yl_x)
+        box, lab = D(pkg, "box", yl_box, False), D(pkg, "lab", yl_lab, False)
+        l1 = pkg.layers.yolov3_loss(x, box, lab, [10, 13, 16, 30, 33, 23,
+                                                  30, 61, 62, 45],
+                                    [2, 3], 3, 0.5, 32)
+        obj = _seq_op_output(pkg, "yolov3_loss", "ObjectnessMask")
+        match = _seq_op_output(pkg, "yolov3_loss", "GTMatchMask")
+        l2 = pkg.layers.yolov3_loss(x, box, lab, [10, 13, 16, 30, 33, 23],
+                                    [0, 1], 3, 0.2, 32,
+                                    gt_score=D(pkg, "gs", yl_sc, False),
+                                    use_label_smooth=False)
+        return _det_with_grads(pkg, [l1, l2], [x]) + [obj, match]
+    add("yolov3_loss", yolov3, {"x": yl_x, "box": yl_box, "lab": yl_lab,
+                                "gs": yl_sc})
+
+    rng = np.random.RandomState(74)
+    flx = f32(rng, 6, 4)
+    flb = rng.randint(0, 5, (6, 1)).astype(np.int32)
+    fln = np.array([3], np.int32)
+
+    def focal(pkg):
+        x = D(pkg, "x", flx)
+        lab, fg = D(pkg, "lab", flb, False), D(pkg, "fg", fln, False)
+        return _det_with_grads(pkg, [
+            pkg.layers.sigmoid_focal_loss(x, lab, fg),
+            pkg.layers.sigmoid_focal_loss(x, lab, fg, gamma=1.5,
+                                          alpha=0.4)], [x])
+    add("sigmoid_focal_loss", focal, {"x": flx, "lab": flb, "fg": fln})
+
+    rng = np.random.RandomState(75)
+    cb = (rng.rand(2, 5, 4) * 60 - 10).astype(np.float32)
+    cim = np.array([[40, 30, 1.0], [20, 20, 0.5]], np.float32)
+
+    def bclip(pkg):
+        b = D(pkg, "b", cb)
+        return _det_with_grads(pkg, [pkg.layers.box_clip(
+            b, D(pkg, "im", cim, False))], [b])
+    add("box_clip", bclip, {"b": cb, "im": cim})
+
+    af = np.zeros((1, 2, 3, 4), np.float32)
+
+    def anchors(pkg):
+        feat = D(pkg, "f", af, False)
+        a1, v1 = pkg.layers.anchor_generator(feat, [32.0, 64.0],
+                                             [0.5, 1.0, 2.0],
+                                             stride=[16.0, 16.0])
+        a2, v2 = pkg.layers.anchor_generator(feat, [20.0], [1.5],
+                                             variance=(1.0, 1.0, 1.0, 1.0),
+                                             stride=[8.0, 12.0], offset=0.3)
+        return [a1, v1, a2, v2]
+    add("anchor_generator", anchors, {"f": af})
+
+    dim = np.zeros((1, 3, 32, 32), np.float32)
+
+    def density(pkg):
+        feat, img = D(pkg, "f", af, False), D(pkg, "img", dim, False)
+        b1, v1 = pkg.layers.density_prior_box(feat, img, [2, 1],
+                                              [8.0, 16.0], [1.0, 2.0])
+        b2, v2 = pkg.layers.density_prior_box(feat, img, [3], [12.0],
+                                              clip=True, flatten_to_2d=True)
+        return [b1, v1, b2, v2]
+    add("density_prior_box", density, {"f": af, "img": dim})
+
+    rng = np.random.RandomState(76)
+    pg = f32(rng, 1, 4, 3, 5)
+
+    def polygon(pkg):
+        return [pkg.layers.polygon_box_transform(D(pkg, "x", pg, False))]
+    add("polygon_box_transform", polygon, {"x": pg})
+
+    rng = np.random.RandomState(77)
+    px_ = f32(rng, 2, 3, 8, 8)
+    pr = _det_boxes(rng, 4, 15.0, 0.1, 0.7)
+
+    def rpool(pkg):
+        x = D(pkg, "x", px_)
+        rois, bid = D(pkg, "r", pr, False), D(pkg, "bid", rbid, False)
+        return _det_with_grads(pkg, [
+            pkg.layers.roi_pool(x, rois, 2, 3, 0.5, bid),
+            pkg.layers.roi_pool(x, rois, 3, 3, 0.25, bid)], [x])
+    add("roi_pool", rpool, {"x": px_, "r": pr, "bid": rbid})
+
+    rng = np.random.RandomState(78)
+    psx = f32(rng, 2, 8, 6, 6)
+    psr = _det_boxes(rng, 3, 11.0, 0.2, 0.8)
+    psb = np.array([1, 0, 1], np.int32)
+
+    def psroi(pkg):
+        x = D(pkg, "x", psx)
+        return _det_with_grads(pkg, [pkg.layers.psroi_pool(
+            x, D(pkg, "r", psr, False), 2, 0.5, 2, 2,
+            D(pkg, "bid", psb, False))], [x])
+    add("psroi_pool", psroi, {"x": psx, "r": psr, "bid": psb})
+
+    rng = np.random.RandomState(79)
+    H = W = 4
+    A = 3
+    gps = rng.rand(2, A, H, W).astype(np.float32)
+    gpd = f32(rng, 2, 4 * A, H, W, s=0.1)
+    gpi = np.array([[64.0, 64.0, 1.0], [60.0, 50.0, 2.0]], np.float32)
+    gpa = np.zeros((H, W, A, 4), np.float32)
+    for y in range(H):
+        for x in range(W):
+            for a in range(A):
+                cx, cy, sz = x * 16 + 8, y * 16 + 8, 8 * (a + 1)
+                gpa[y, x, a] = [cx - sz, cy - sz, cx + sz, cy + sz]
+    gpv = np.full((H, W, A, 4), 1.0, np.float32)
+
+    def proposals(pkg):
+        args = [D(pkg, k, v, False) for k, v in
+                (("s", gps), ("d", gpd), ("i", gpi), ("a", gpa), ("v", gpv))]
+        r1, p1 = pkg.layers.generate_proposals(*args, pre_nms_top_n=20,
+                                               post_nms_top_n=5,
+                                               nms_thresh=0.7, min_size=0.0)
+        r2, p2 = pkg.layers.generate_proposals(*args, pre_nms_top_n=30,
+                                               post_nms_top_n=40,
+                                               nms_thresh=0.5, min_size=4.0)
+        return [r1, p1, r2, p2]
+    add("generate_proposals", proposals,
+        {"s": gps, "d": gpd, "i": gpi, "a": gpa, "v": gpv})
+
+    rng = np.random.RandomState(80)
+    ra = gpa.reshape(-1, 4)
+    rgt = np.array([[2, 2, 20, 22], [30, 34, 60, 62], [0, 0, 0, 0]],
+                   np.float32)
+    rbp = f32(rng, 1, 4 * A, H, W)
+    rcl = f32(rng, 1, A, H, W)
+    rgl = np.array([[2], [1], [0]], np.int32)
+
+    def rpn(pkg):
+        bp, cl = D(pkg, "bp", rbp), D(pkg, "cl", rcl)
+        anc, var = D(pkg, "a", ra, False), D(pkg, "v", ra, False)
+        gt = D(pkg, "gt", rgt, False)
+        sc, loc, tl, tb, iw = pkg.layers.rpn_target_assign(
+            bp, cl, anc, var, gt, rpn_batch_size_per_im=16,
+            rpn_fg_fraction=0.25, use_random=False)
+        idx = [_seq_op_output(pkg, "rpn_target_assign", s)
+               for s in ("LocationIndex", "ScoreIndex")]
+        return _det_with_grads(pkg, [sc, loc, tb, iw], [bp, cl]) + \
+            [tl] + idx
+    add("rpn_target_assign", rpn, {"bp": rbp, "cl": rcl, "a": ra, "v": ra,
+                                   "gt": rgt})
+
+    def retina(pkg):
+        bp = D(pkg, "bp", rbp)
+        cl = D(pkg, "cl", np.ascontiguousarray(rcl.repeat(2, 1)))
+        anc, var = D(pkg, "a", ra, False), D(pkg, "v", ra, False)
+        sc, loc, tl, tb, iw, fg = pkg.layers.retinanet_target_assign(
+            bp, cl, anc, var, D(pkg, "gt", rgt, False),
+            D(pkg, "gl", rgl, False), num_classes=2, positive_overlap=0.3,
+            negative_overlap=0.2)
+        idx = [_seq_op_output(pkg, "retinanet_target_assign", s)
+               for s in ("LocationIndex", "ScoreIndex")]
+        return _det_with_grads(pkg, [sc, loc, tb, iw], [bp, cl]) + \
+            [tl, fg] + idx
+    add("retinanet_target_assign", retina,
+        {"bp": rbp, "cl": np.ascontiguousarray(rcl.repeat(2, 1)), "a": ra,
+         "v": ra, "gt": rgt, "gl": rgl})
+
+    rng = np.random.RandomState(81)
+    lr_ = np.concatenate([np.array([[1, 1, 16, 16], [0, 2, 14, 15]],
+                                   np.float32), _det_boxes(rng, 8, 64.0)])
+    lgt = np.array([[0, 0, 15, 15]], np.float32)
+    lgc = np.array([3], np.int32)
+
+    def labels(pkg):
+        outs = pkg.layers.generate_proposal_labels(
+            D(pkg, "r", lr_, False), D(pkg, "gc", lgc, False), None,
+            D(pkg, "gb", lgt, False), batch_size_per_im=8, fg_fraction=0.5,
+            fg_thresh=0.5, bg_thresh_hi=0.5, bg_thresh_lo=0.0, class_nums=5,
+            use_random=False)
+        return list(outs)
+    add("generate_proposal_labels", labels, {"r": lr_, "gc": lgc,
+                                             "gb": lgt})
+
+    rng = np.random.RandomState(82)
+    rd_a = [_det_boxes(rng, 6, 64.0, 0.1, 0.3),
+            _det_boxes(rng, 3, 64.0, 0.3, 0.6)]
+    rd_b = [f32(rng, 2, 6, 4, s=0.2), f32(rng, 2, 3, 4, s=0.2)]
+    rd_s = [rng.rand(2, 6, 3).astype(np.float32),
+            rng.rand(2, 3, 3).astype(np.float32)]
+    rd_i = np.array([[64, 64, 1.0], [80, 60, 1.25]], np.float32)
+
+    def retina_out(pkg):
+        bb = [D(pkg, "b%d" % k, v, False) for k, v in enumerate(rd_b)]
+        ss = [D(pkg, "s%d" % k, v, False) for k, v in enumerate(rd_s)]
+        aa = [D(pkg, "a%d" % k, v, False) for k, v in enumerate(rd_a)]
+        im = D(pkg, "im", rd_i, False)
+        return [pkg.layers.retinanet_detection_output(bb, ss, aa, im, 0.3,
+                                                      5, 12, 0.4),
+                pkg.layers.retinanet_detection_output(bb, ss, aa, im, 0.05,
+                                                      100, 40, 0.3)]
+    add("retinanet_detection_output", retina_out,
+        dict({"b%d" % k: v for k, v in enumerate(rd_b)},
+             **{"s%d" % k: v for k, v in enumerate(rd_s)},
+             **{"a%d" % k: v for k, v in enumerate(rd_a)}, im=rd_i))
+
+    det = np.array([[[1, 0.9, 0, 0, 10, 10], [1, 0.7, 50, 50, 60, 60],
+                     [2, 0.8, 20, 20, 31, 29], [2, 0.6, 21, 19, 30, 30],
+                     [-1, 0, 0, 0, 0, 0]],
+                    [[2, 0.95, 5, 5, 15, 15], [1, 0.5, 0, 0, 9, 11],
+                     [1, 0.4, 30, 30, 40, 40], [-1, 0, 0, 0, 0, 0],
+                     [-1, 0, 0, 0, 0, 0]]], np.float32)
+    gtm = np.array([[[1, 0, 0, 10, 10, 0], [2, 20, 20, 30, 30, 0],
+                     [1, 50, 48, 61, 60, 1]],
+                    [[2, 6, 4, 15, 16, 0], [1, 30, 30, 40, 41, 0],
+                     [-1, 0, 0, 0, 0, 0]]], np.float32)
+
+    def dmap(pkg):
+        ins = {"DetectRes": [D(pkg, "d", det, False)],
+               "Label": [D(pkg, "l", gtm, False)]}
+        outs = {"MAP": "float32", "AccumPosCount": "int32",
+                "AccumTruePos": "float32", "AccumFalsePos": "float32"}
+        got = []
+        for ap, diff in (("integral", True), ("11point", False)):
+            got += _det_raw(pkg, "detection_map", ins, outs,
+                            {"overlap_threshold": 0.5,
+                             "evaluate_difficult": diff, "ap_type": ap})
+        return got
+    add("detection_map", dmap, {"d": det, "l": gtm}, tol="exact")
+
+    mrois = np.array([[0, 0, 8, 8], [2, 2, 10, 12], [1, 0, 9, 6],
+                      [0, 0, 4, 4]], np.float32)
+    mlab = np.array([[2], [1], [0], [2]], np.int32)
+    mgc = np.array([2, 1], np.int32)
+    msegs = np.array([[[0, 0], [4, 0], [4, 8], [0, 8], [-1, -1],
+                       [-1, -1]],
+                      [[3, 3], [10, 2], [9, 11], [5, 12], [2, 8],
+                       [-1, -1]]], np.float32)
+    minfo = np.array([[16, 16, 1.0]], np.float32)
+
+    def masks(pkg):
+        outs = pkg.layers.generate_mask_labels(
+            D(pkg, "i", minfo, False), D(pkg, "gc", mgc, False), None,
+            D(pkg, "gs", msegs, False), D(pkg, "r", mrois, False),
+            D(pkg, "l", mlab, False), 3, 4)
+        return list(outs)
+    add("generate_mask_labels", masks, {"i": minfo, "gc": mgc, "gs": msegs,
+                                        "r": mrois, "l": mlab})
+
+    rng = np.random.RandomState(83)
+    tx_ = f32(rng, 2, 2, 8, 8)
+    tq = np.array([[1, 1, 6, 0.5, 7, 6, 0.5, 7],
+                   [2, 3, 9, 2, 8, 9, 3, 8.5]], np.float32)
+    tbid = np.array([1, 0], np.int32)
+
+    def persp(pkg):
+        x = D(pkg, "x", tx_)
+        return _det_with_grads(pkg, [pkg.layers.roi_perspective_transform(
+            x, D(pkg, "q", tq, False), 4, 5, 0.9,
+            D(pkg, "bid", tbid, False))], [x])
+    add("roi_perspective_transform", persp, {"x": tx_, "q": tq,
+                                             "bid": tbid}, tol="solve")
+
+    rng = np.random.RandomState(84)
+    dcx = f32(rng, 2, 4, 6, 6)
+    dco = f32(rng, 2, 2 * 2 * 9, 6, 6, s=0.8)
+    dcm = rng.rand(2, 2 * 9, 6, 6).astype(np.float32)
+    dco2 = f32(rng, 2, 2 * 4, 3, 3, s=0.8)
+
+    def deform(pkg):
+        x, off, m = D(pkg, "x", dcx), D(pkg, "o", dco), D(pkg, "m", dcm)
+        off2 = D(pkg, "o2", dco2)
+        y1 = pkg.layers.deformable_conv(x, off, m, 6, 3, padding=1,
+                                        groups=2, deformable_groups=2,
+                                        bias_attr=True)
+        y2 = pkg.layers.deformable_conv(x, off2, None, 3, 2, stride=2,
+                                        dilation=1)
+        return _det_with_grads(pkg, [y1, y2],
+                               [x, off, m, off2] + _seq_params(pkg))
+    add("deformable_conv", deform, {"x": dcx, "o": dco, "m": dcm,
+                                    "o2": dco2}, 85)
+
+    rng = np.random.RandomState(86)
+    dpx = f32(rng, 2, 8, 7, 7)
+    dpr = _det_boxes(rng, 3, 12.0, 0.2, 0.7)
+    dptr = f32(rng, 3, 2, 2, 2, s=0.5)
+
+    def deform_pool(pkg):
+        x, tr = D(pkg, "x", dpx), D(pkg, "tr", dptr)
+        rois = D(pkg, "r", dpr, False)
+        y1 = pkg.layers.deformable_roi_pooling(
+            x, rois, tr, spatial_scale=0.5, group_size=[2],
+            pooled_height=2, pooled_width=2, part_size=[2, 2],
+            sample_per_part=2, trans_std=0.1, position_sensitive=True)
+        y2 = pkg.layers.deformable_roi_pooling(
+            x, rois, None, no_trans=True, pooled_height=2, pooled_width=1,
+            sample_per_part=2)
+        return _det_with_grads(pkg, [y1, y2], [x, tr])
+    add("deformable_psroi_pooling", deform_pool, {"x": dpx, "r": dpr,
+                                                  "tr": dptr})
+    return progs
+
+
+def phase_detection_ops():
+    """The 33 detection op types (``det_programs``: forward and
+    gradients) on the card against the port's CPU path, each from the
+    same weights: floats within the CPU tests' tolerances (DET_TOL),
+    integer outputs and keep masks equal; ``detection_map`` and
+    ``generate_mask_labels`` read their inputs back once an op a run on
+    the card (one host sync each), never on the CPU."""
+    _programs_card_vs_cpu("detection_ops", det_programs(), DET_TOL,
+                          DET_HOST_OPS)
+
+
+SSD_FEEDS = 4                 # ssd_train: distinct batches, in turn
+SSD_CPU_BATCH = 8             # step 1, card vs the port's CPU path
+SSD_LOSS_RTOL = 1e-3          # ... its loss: 35 batch norms, the last on
+#                               1 x 1 maps over 8 values, amplify cuDNN's
+#                               and the CPU's roundings (~1e-5 at the head
+#                               of a CPU run against JAX's at batch 4)
+SSD_EVALS = 3                 # timed eval batches (detection + mAP)
+SSD_HEAD_BATCH = 8            # ssd_head_k1: the six maps at base widths
+SSD_HEAD_TOL = {"float32": K1_FP32_TOL, "bfloat16": K1_BF16_TOL}
+
+
+def _conv_flops(main):
+    """The forward FLOPs of ``main``'s convolutions from their static
+    shapes (2 x multiply-adds), the work that dominates a CNN's step; a
+    training step's convolutions do about three times it."""
+    block = main.global_block()
+    total = 0
+    for op in block.ops:
+        if op.type in ("conv2d", "depthwise_conv2d"):
+            O, cg, kh, kw = block.var(op.input("Filter")[0]).shape
+            N, _, Ho, Wo = block.var(op.output("Output")[0]).shape
+            total += 2 * N * Ho * Wo * O * cg * kh * kw
+    return total
+
+
+def _ssd_program(cfg, evaluate=False):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = ssd.build_eval(cfg) if evaluate else ssd.build(cfg)
+    return main, startup, out
+
+
+def phase_ssd_train():
+    """MobileNet-SSD (``models/ssd.py``, the model zoo's detector) at
+    ``base_config()``: batch 64 of 300 x 300 images, 1917 priors, 21
+    classes, RMSProp on the piecewise rate with L2 decay.  Step 1 from the
+    startup weights at batch SSD_CPU_BATCH of the same widths, on the card
+    and on the port's CPU path: losses within SSD_LOSS_RTOL.  Then
+    WARM_STEPS + TIMED_STEPS steps through Executor on the card over
+    SSD_FEEDS synthetic batches in turn: finite losses, no port kernel
+    launched (none lies on this path), no host sync in a step (the host
+    sync counter over the steps, and torch's sync debug mode over one
+    step whose fetch stays on the card); ms per step, peak memory, one
+    profiled step's launches and busy share.  The eval program
+    (``detection_output`` + ``detection_map``) on the trained scope: the
+    ``[64, 200, 6]`` slab, labels -1 or in ``[1, 21)``, the mAP in [0, 1],
+    one ``detection_map`` host sync a run; ms per eval batch.  Returns
+    the path's port kernel launches (none)."""
+    t0 = time.perf_counter()
+    cfg = ssd.base_config()
+    main, startup, out = _ssd_program(cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    loss = out["loss"]
+    small = dict(cfg, batch=SSD_CPU_BATCH)
+    smain, _, sout = _ssd_program(small)
+    shost = next(ssd.feeds(small, SEED))
+    card1 = float(_book_step(exe, smain, sout["loss"], scope, shost)[0][0]
+                  .reshape(-1)[0])
+    cpu1 = float(_book_step(fluid.Executor(fluid.CPUPlace()), smain,
+                            sout["loss"], scope, shost)[0][0].reshape(-1)[0])
+    it = ssd.feeds(cfg, SEED)
+    host = [next(it) for _ in range(SSD_FEEDS)]
+    feeds = [_cuda_feed(f) for f in host]
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = fluid.profiler.host_sync_count()
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    got, step_ms = _train_steps(exe, main, feeds, [loss], scope)
+    launches = _launches()
+    step_syncs = fluid.profiler.host_sync_count() - syncs0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    losses = [float(g[0].reshape(-1)[0].item()) for g in got]
+    sites = _sync_sites(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    prof, _ = _profile_record(exe, main, feeds[0], [loss], scope)
+    emain, _, eout = _ssd_program(cfg, evaluate=True)
+    m0 = fluid.profiler.host_sync_count("detection_map")
+    slab, mean_ap = exe.run(emain, feed=feeds[0], fetch_list=eout["outs"],
+                            scope=scope)
+    map_syncs = fluid.profiler.host_sync_count("detection_map") - m0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in range(SSD_EVALS):
+        exe.run(emain, feed=feeds[k % len(feeds)], fetch_list=eout["outs"],
+                scope=scope)
+    eval_ms = (time.perf_counter() - t1) / SSD_EVALS * 1e3
+    labels = slab[..., 0]
+    kept = labels >= 0
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "step1_card_vs_cpu": abs(card1 - cpu1) <= SSD_LOSS_RTOL * abs(cpu1),
+        "no_port_kernel": not any(launches.values()),
+        "no_host_sync_in_a_step": step_syncs == 0 and not sites,
+        "slab_shape": slab.shape == (cfg["batch"], 200, 6),
+        "slab_labels": bool(((labels == -1) | ((labels >= 1) &
+                                                (labels < cfg["classes"])))
+                            .all()) and bool(kept.any()),
+        "slab_finite": bool(np.isfinite(slab).all()),
+        "map_in_range": 0.0 <= float(mean_ap[0]) <= 1.0,
+        "map_one_sync": map_syncs == 1}
+    fwd_flops = _conv_flops(main)
+    emit(phase="ssd_train", card=_card(), config=cfg, steps=len(losses),
+         priors=ssd.num_priors(cfg), program_ops=len(main.global_block().ops),
+         conv_gflop_forward=fwd_flops / 1e9,
+         conv_tflops_per_s_step=3 * fwd_flops / step_ms / 1e9,
+         conv_bound_ms_fp32=3 * fwd_flops / PEAK_FP32_FLOPS * 1e3,
+         losses=losses, step1_loss_card=card1,
+         step1_loss_cpu=cpu1, step1_rel_err=abs(card1 - cpu1) / abs(cpu1),
+         step1_batch=SSD_CPU_BATCH, ms_per_step=step_ms,
+         images_per_s=cfg["batch"] / step_ms * 1e3, peak_device_mb=peak_mb,
+         host_syncs_over_steps=step_syncs, step_sync_sites=sites,
+         profiled_step=prof, launches=launches, ms_per_eval_batch=eval_ms,
+         eval_slab_shape=list(slab.shape), kept_rows=int(kept.sum()),
+         mean_ap=float(mean_ap[0]), detection_map_syncs=map_syncs,
+         checks=checks, seconds=time.perf_counter() - t0)
+    _fail_unless("ssd_train", checks)
+    return launches
+
+
+def _ssd_head_program(dtype, sides, widths, classes):
+    """multi_box_head with the layer's own 3x3 heads (``kernel_size=3,
+    pad=1``) over six data maps of the given sides and widths."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    cfg = ssd.base_config()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        maps = [fluid.layers.data("m%d" % k, [SSD_HEAD_BATCH, c, s, s],
+                                  dtype=dtype, append_batch_size=False)
+                for k, (s, c) in enumerate(zip(sides, widths))]
+        img = fluid.layers.data("image", [SSD_HEAD_BATCH, 3, 300, 300],
+                                dtype=dtype, append_batch_size=False)
+        locs, confs, _, _ = fluid.layers.multi_box_head(
+            inputs=maps, image=img, base_size=300, num_classes=classes,
+            aspect_ratios=[[2.], [2., 3.], [2., 3.], [2., 3.], [2., 3.],
+                           [2., 3.]], min_ratio=20, max_ratio=90,
+            min_sizes=cfg["min_sizes"], max_sizes=cfg["max_sizes"],
+            offset=0.5, flip=True, kernel_size=3, pad=1)
+    return main, startup, [locs, confs]
+
+
+def phase_ssd_head_k1():
+    """K1 at MobileNet-SSD's head shapes: ``multi_box_head`` with the
+    layer's 3x3 heads under ``FLAGS_conv_pallas`` over the six maps at
+    base widths (19², 10², 5², 3², 2², 1² by 512, 1024, 512, 256, 256,
+    128; O = 12/63 on the first map, 24/126 on the others), in float32
+    and bfloat16, against the same program with the flag off (cuDNN),
+    from the same weights: max|diff| within K1's tolerances of
+    max|flag off|, and one K1 launch a head conv (12), its variants as
+    ``k1_plan`` plans them.  Returns the flag-on runs' port kernel
+    launches."""
+    from paddle_tpu_torch.fluid import flags
+    t0 = time.perf_counter()
+    sides = ssd.map_sides(ssd.base_config())
+    widths = (512, 1024, 512, 256, 256, 128)
+    classes = ssd.base_config()["classes"]
+    rng = np.random.RandomState(SEED)
+    rows, checks, total = [], {}, {n: 0 for n in KERNELS}
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        main, startup, fetch = _ssd_head_program(dt, sides, widths, classes)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        feed = {"m%d" % k: torch.from_numpy(rng.randn(
+            SSD_HEAD_BATCH, c, s, s).astype(np.float32)).to("cuda", tdt)
+                for k, (s, c) in enumerate(zip(sides, widths))}
+        feed["image"] = torch.zeros(SSD_HEAD_BATCH, 3, 300, 300,
+                                    device="cuda", dtype=tdt)
+        got = {}
+        for on in (False, True):
+            flags.set_flag("conv_pallas", on)
+            try:
+                _reset_launches()
+                got[on] = [v.float().cpu().numpy() for v in exe.run(
+                    main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)]
+                torch.cuda.synchronize()
+                if on:
+                    launches = _launches()
+                    variants = dict(conv3x3_bn_relu.launches_by_variant)
+            finally:
+                flags.set_flag("conv_pallas", False)
+        for n, c in launches.items():
+            total[n] += c
+        want_variants = dict.fromkeys(K1_VARIANTS, 0)
+        for s, c in zip(sides, widths):
+            for o in (3 if s == sides[0] else 6) * np.array([4, classes]):
+                want_variants[k1_plan(SSD_HEAD_BATCH, s, s, c, int(o), tdt)
+                              ["variant"]] += 1
+        err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(got[True], got[False]))
+        ok = err <= SSD_HEAD_TOL[dt] and \
+            launches["conv3x3_bn_relu"] == 12 and \
+            variants == want_variants and \
+            all(np.isfinite(a).all() for a in got[True])
+        rows.append(dict(dtype=dt, max_err_rel=err,
+                         tolerance="max|diff| <= %g max|flag off|"
+                         % SSD_HEAD_TOL[dt],
+                         k1_launches=launches["conv3x3_bn_relu"],
+                         variants=variants, want_variants=want_variants,
+                         locs=list(got[True][0].shape),
+                         confs=list(got[True][1].shape), ok=ok))
+        checks[dt] = ok
+    emit(phase="ssd_head_k1", card=_card(), sides=sides, widths=widths,
+         batch=SSD_HEAD_BATCH, runs=rows, seconds=time.perf_counter() - t0)
+    _fail_unless("ssd_head_k1", checks)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -8217,9 +9090,9 @@ def main():
     by_path["dp_two_ranks_sharded"], by_path["dp_two_ranks_int8"] = \
         phase_dp_two_ranks_sharded(train)
     by_path.update(phase_train_surface(train))
-    mp_paths, mp_ref = phase_mp_bert(train)
+    mp_paths, mp_ref, pp_two = phase_mp_bert(train)
     by_path.update(mp_paths)
-    by_path.update(phase_pp_bert(train, mp_ref))
+    by_path.update(phase_pp_bert(train, mp_ref, pp_two))
     del train, mp_ref
     by_path["train_bias"] = phase_train_bias()
     phase_train_attn_dropout()
@@ -8245,7 +9118,8 @@ def main():
     by_path["dataset_train"] = phase_dataset_train()
     by_path["elastic_shrink"] = phase_elastic_shrink()
     phase_watchdog_stall()
-    moe_paths, ring = phase_moe()
+    moe_paths, ring = phase_moe(pp_two)
+    del pp_two
     by_path.update(moe_paths)
     book_paths, mt = phase_book_train()
     by_path.update(book_paths)
@@ -8254,6 +9128,11 @@ def main():
     phase_control_flow()
     phase_sequence_ops()
     by_path["crnn_ctc_train"] = phase_crnn_ctc_train()
+    _reset_launches()
+    phase_detection_ops()
+    by_path["detection_ops"] = _launches()
+    by_path["ssd_train"] = phase_ssd_train()
+    by_path["ssd_head_k1"] = phase_ssd_head_k1()
     phase_cost_ledger()
     phase_op_bench()
     timings = dict(flash_attention_fwd=k2,

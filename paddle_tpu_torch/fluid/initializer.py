@@ -94,9 +94,28 @@ class XavierInitializer(Initializer):
             NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class MSRAInitializer(Initializer):
+    """He initialisation: uniform in ``±sqrt(6 / fan_in)`` or normal of
+    std ``sqrt(2 / fan_in)``."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi, _ = _fans(var)
+        fi = self.fan_in if self.fan_in is not None else fi
+        if self.uniform:
+            limit = float(np.sqrt(6.0 / fi))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = float(np.sqrt(2.0 / fi))
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
 # Reference-compatible aliases
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
+MSRA = MSRAInitializer

@@ -9,7 +9,7 @@ comparison, logical and modulo layers with ``increment`` and
 ``isfinite``, and the control flow: ``While``, ``cond``, ``Switch``,
 ``IfElse``, the tensor arrays and ``Print``, and the sequence, RNN and
 CTC layers (``sequence.py``, ``rnn.py``, ``nn_extras.py``,
-``nn_extras2.py``).
+``nn_extras2.py``), and the detection layers (``detection.py``).
 """
 
 from . import io
@@ -24,6 +24,7 @@ from . import sequence
 from . import control_flow
 from . import nn_extras
 from . import nn_extras2
+from . import detection
 
 from .io import (data, py_reader, create_py_reader_by_data,  # noqa: F401
                  double_buffer, read_file)
@@ -48,8 +49,9 @@ from .rnn import (fused_attention, switch_moe, dynamic_lstm,  # noqa: F401
                   dynamic_gru, linear_chain_crf, crf_decoding, cos_sim,
                   nce, hsigmoid, beam_search, beam_search_decode)
 from .sequence import *                                      # noqa: F401,F403
-from .nn_extras import im2sequence                           # noqa: F401
+from .nn_extras import im2sequence, smooth_l1                # noqa: F401
 from .nn_extras2 import *                                    # noqa: F401,F403
+from .detection import *                                     # noqa: F401,F403
 from .control_flow import (increment, less_than,  # noqa: F401
                            less_equal, greater_than, greater_equal,
                            equal, not_equal, BlockGuard, StaticRNN,

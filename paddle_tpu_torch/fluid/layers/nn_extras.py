@@ -1,11 +1,11 @@
 """Layers of the extended op zoo (counterpart paddle_tpu/fluid/layers/
 nn_extras.py; reference builders in ``python/paddle/fluid/layers/
-nn.py``), so far ``im2sequence``; the rest of the JAX file is ROADMAP
-item 13c.3."""
+nn.py``), so far ``im2sequence`` and ``smooth_l1``; the rest of the JAX
+file is ROADMAP item 13c.3."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["im2sequence"]
+__all__ = ["im2sequence", "smooth_l1"]
 
 
 def _simple(op_type, inputs, attrs=None, outs=("Out",), dtype=None,
@@ -40,3 +40,19 @@ def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
     return _simple("im2sequence", {"X": [input]},
                    {"kernels": _pair(filter_size),
                     "strides": _pair(stride), "paddings": pads})
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=1.0):
+    """``smooth_l1_loss`` of x against y, one sum a row: ``[N, 1]``."""
+    helper = LayerHelper("smooth_l1_loss")
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [out]},
+                     attrs={"sigma": sigma})
+    return out

@@ -3,8 +3,10 @@ paddle_tpu/fluid/layers/nn_extras2.py), so far the sequence, RNN and CTC
 ones: ``add_position_encoding``, ``ctc_greedy_decoder``,
 ``edit_distance``, ``warpctc``, ``row_conv``, ``chunk_eval``,
 ``gru_unit``, ``lstm_unit``, ``dynamic_lstmp``, ``lstm``,
-``sequence_reshape``, ``sequence_scatter`` and ``sequence_erase``; the
-rest of the JAX file is ROADMAP item 13c.3."""
+``sequence_reshape``, ``sequence_scatter`` and ``sequence_erase``, and
+the detection ones: ``roi_pool``, ``psroi_pool``, ``deformable_conv``
+and ``deformable_roi_pooling``; the rest of the JAX file is ROADMAP item
+13c.3."""
 
 from ..layer_helper import LayerHelper
 from .nn_extras import _simple
@@ -13,7 +15,8 @@ __all__ = [
     "add_position_encoding", "ctc_greedy_decoder", "edit_distance",
     "warpctc", "row_conv", "chunk_eval", "gru_unit", "lstm_unit",
     "dynamic_lstmp", "lstm", "sequence_reshape", "sequence_scatter",
-    "sequence_erase",
+    "sequence_erase", "roi_pool", "psroi_pool", "deformable_conv",
+    "deformable_roi_pooling",
 ]
 
 
@@ -259,4 +262,102 @@ def sequence_erase(input, tokens, length=None, name=None):
                      inputs={"X": [input], "Length": [length]},
                      outputs={"Out": [out], "OutLength": [oln]},
                      attrs={"tokens": list(tokens)})
+    return out
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, rois_batch_id=None):
+    helper = LayerHelper("roi_pool")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input], "ROIs": [rois]}
+    if rois_batch_id is not None:
+        inputs["RoisBatchId"] = [rois_batch_id]
+    helper.append_op("roi_pool", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return out
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, rois_batch_id=None, name=None):
+    helper = LayerHelper("psroi_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input], "ROIs": [rois]}
+    if rois_batch_id is not None:
+        inputs["RoisBatchId"] = [rois_batch_id]
+    helper.append_op("psroi_pool", inputs=inputs, outputs={"Out": [out]},
+                     attrs={"output_channels": int(output_channels),
+                            "spatial_scale": spatial_scale,
+                            "pooled_height": int(pooled_height),
+                            "pooled_width": int(pooled_width)})
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=1,
+                    deformable_groups=1, im2col_step=1, param_attr=None,
+                    bias_attr=None, name=None):
+    """Modulated deformable convolution (ops/detection_ops3.py)."""
+    helper = LayerHelper("deformable_conv", name=name)
+    dtype = input.dtype
+    C = int(input.shape[1])
+    k = filter_size if isinstance(filter_size, (list, tuple)) \
+        else (filter_size, filter_size)
+    w = helper.create_parameter(
+        param_attr, [num_filters, C // groups, k[0], k[1]], dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    if mask is not None:
+        inputs["Mask"] = [mask]
+    two = (lambda v: list(v) if isinstance(v, (list, tuple)) else [v, v])
+    helper.append_op("deformable_conv", inputs=inputs,
+                     outputs={"Output": [out]},
+                     attrs={"strides": two(stride),
+                            "paddings": two(padding),
+                            "dilations": two(dilation),
+                            "groups": int(groups),
+                            "deformable_groups": int(deformable_groups),
+                            "im2col_step": int(im2col_step)})
+    if bias_attr:
+        b = helper.create_parameter(bias_attr, [num_filters], dtype,
+                                    is_bias=True)
+        out2 = helper.create_variable_for_type_inference(dtype)
+        helper.append_op("elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
+        out = out2
+    return out
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=(1,),
+                           pooled_height=1, pooled_width=1, part_size=None,
+                           sample_per_part=1, trans_std=0.1,
+                           position_sensitive=False, name=None):
+    """Deformable (PS-)ROI pooling (ops/detection_ops3.py
+    deformable_psroi_pooling)."""
+    helper = LayerHelper("deformable_roi_pooling", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    top = helper.create_variable_for_type_inference("float32")
+    inputs = {"Input": [input], "ROIs": [rois]}
+    if trans is not None and not no_trans:
+        inputs["Trans"] = [trans]
+    # reference nn.py deformable_roi_pooling: position-sensitive output
+    # channels = C / pooled_height / pooled_width
+    out_dim = int(input.shape[1]) if not position_sensitive else \
+        int(input.shape[1]) // (int(pooled_height) * int(pooled_width))
+    helper.append_op(
+        "deformable_psroi_pooling", inputs=inputs,
+        outputs={"Output": [out], "TopCount": [top]},
+        attrs={"no_trans": bool(no_trans),
+               "spatial_scale": float(spatial_scale),
+               "output_dim": out_dim,
+               "group_size": [int(g) for g in group_size],
+               "pooled_height": int(pooled_height),
+               "pooled_width": int(pooled_width),
+               "part_size": [int(p) for p in
+                             (part_size or (pooled_height, pooled_width))],
+               "sample_per_part": int(sample_per_part),
+               "trans_std": float(trans_std)})
     return out

@@ -22,3 +22,6 @@ from . import misc_ops       # noqa: F401
 from . import misc_ops2      # noqa: F401
 from . import misc_ops3      # noqa: F401
 from . import misc_ops4      # noqa: F401
+from . import detection_ops  # noqa: F401
+from . import detection_ops2  # noqa: F401
+from . import detection_ops3  # noqa: F401

@@ -1,7 +1,9 @@
 """The op zoo's second batch (counterpart ``paddle_tpu/fluid/ops/
 misc_ops2.py``), so far its sequence, RNN-cell and CTC ops: ``row_conv``,
-``lstm_unit``, ``gru_unit``, ``warpctc`` and ``edit_distance``; the rest
-of the JAX file is ROADMAP item 13c.3.
+``lstm_unit``, ``gru_unit``, ``warpctc`` and ``edit_distance``, and its
+detection ops: ``sigmoid_focal_loss``, ``iou_similarity``, ``box_clip``
+and ``anchor_generator``; the rest of the JAX file is ROADMAP item
+13c.3.
 
 ``warpctc`` is the JAX package's log-space forward recursion, one step a
 time step, with its constants (``_NEG``, the ``1e-38`` inside each log),
@@ -10,10 +12,12 @@ so the loss and the gradient autograd takes of it follow the
 table a step, where the JAX rule scans the table cell by cell.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..registry import register_op
+from .detection_ops import clip, const
 from .math_ops import _matmul_p
 
 _NEG = -1e30
@@ -171,3 +175,106 @@ def _edit_distance(ctx, op):
     ctx.set("Out", d[:, None])
     ctx.set("SequenceNum", torch.tensor(B, dtype=torch.int64,
                                         device=hyp.device))
+
+
+# ---------------------------------------------------------------------------
+# detection
+# ---------------------------------------------------------------------------
+
+@register_op("sigmoid_focal_loss", nondiff_inputs=("Label", "FgNum"))
+def _sigmoid_focal_loss(ctx, op):
+    """misc_ops2.py:187: RetinaNet's focal loss of logits X ``[N, C]``
+    against Label in ``1..C`` (0 background), over ``max(FgNum, 1)``."""
+    x = ctx.i("X")
+    label = ctx.i("Label").reshape(-1).long()
+    fg = torch.clamp_min(ctx.i("FgNum").reshape(()).to(torch.float32), 1.0)
+    gamma = ctx.attr("gamma", 2.0)
+    alpha = ctx.attr("alpha", 0.25)
+    C = x.shape[1]
+    tgt = ((label - 1)[:, None] ==
+           torch.arange(C, device=x.device)).to(x.dtype)
+    p = torch.sigmoid(x)
+    ce = torch.logaddexp(x, torch.zeros_like(x)) - x * tgt
+    pos = tgt > 0
+    pt = torch.where(pos, p, 1 - p)
+    a = torch.where(pos, torch.full((), alpha, dtype=x.dtype,
+                                    device=x.device),
+                    torch.full((), 1 - alpha, dtype=x.dtype, device=x.device))
+    ctx.set("Out", a * (1 - pt) ** gamma * ce / fg)
+
+
+def _iou_pair(x, y):
+    """misc_ops2.py:326: IoU of every box of x ``[N, 4]`` against every
+    box of y ``[M, 4]`` (no +1)."""
+    ix1 = torch.maximum(x[:, None, 0], y[None, :, 0])
+    iy1 = torch.maximum(x[:, None, 1], y[None, :, 1])
+    ix2 = torch.minimum(x[:, None, 2], y[None, :, 2])
+    iy2 = torch.minimum(x[:, None, 3], y[None, :, 3])
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    inter = torch.maximum(ix2 - ix1, zero) * torch.maximum(iy2 - iy1, zero)
+    ax = (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])
+    ay = (y[:, 2] - y[:, 0]) * (y[:, 3] - y[:, 1])
+    return inter / torch.maximum(ax[:, None] + ay[None, :] - inter,
+                                 torch.full((), 1e-10, dtype=x.dtype,
+                                            device=x.device))
+
+
+@register_op("iou_similarity", nondiff_inputs=("Y",))
+def _iou_similarity(ctx, op):
+    """misc_ops2.py:339: X ``[N, 4]`` against Y ``[M, 4]`` → ``[N, M]``,
+    or the padded batch slab ``[B, N, 4]`` → ``[B, N, M]``."""
+    x, y = ctx.i("X"), ctx.i("Y")
+    if x.dim() == 3:
+        B, N = x.shape[:2]
+        ctx.set("Out", _iou_pair(x.reshape(-1, 4), y).reshape(B, N, -1))
+        return
+    ctx.set("Out", _iou_pair(x, y))
+
+
+@register_op("box_clip", nondiff_inputs=("ImInfo",))
+def _box_clip(ctx, op):
+    """misc_ops2.py:350: boxes ``[..., 4]`` clipped into the first
+    image's ``[0, h / scale - 1] x [0, w / scale - 1]``."""
+    boxes, im = ctx.i("Input"), ctx.i("ImInfo")
+    h = im[0, 0] / im[0, 2] - 1
+    w = im[0, 1] / im[0, 2] - 1
+    ctx.set("Output", torch.stack(
+        [clip(boxes[..., 0], 0.0, w), clip(boxes[..., 1], 0.0, h),
+         clip(boxes[..., 2], 0.0, w), clip(boxes[..., 3], 0.0, h)], dim=-1))
+
+
+@register_op("anchor_generator", stop_gradient=True)
+def _anchor_generator(ctx, op):
+    """misc_ops2.py:363: Faster R-CNN anchors ``[H, W, A, 4]`` and their
+    variances: ratio = h / w, base sizes rounded half up, scaled by
+    size / stride per axis, (size - 1) pixel corners, centres at ``idx ·
+    stride + offset · (stride - 1)``."""
+    feat = ctx.i("Input")
+    dev = feat.device
+    H, W = feat.shape[2], feat.shape[3]
+    sizes = [float(s) for s in ctx.attr("anchor_sizes")]
+    ratios = [float(r) for r in ctx.attr("aspect_ratios")]
+    stride = [float(s) for s in ctx.attr("stride")]
+    variances = [float(v) for v in
+                 ctx.attr("variances", [0.1, 0.1, 0.2, 0.2])]
+    offset = ctx.attr("offset", 0.5)
+    area = stride[0] * stride[1]
+    whs = []
+    for r in ratios:
+        base_w = np.floor(np.sqrt(area / r) + 0.5)
+        base_h = np.floor(base_w * r + 0.5)
+        for s in sizes:
+            whs.append(((s / stride[0]) * base_w, (s / stride[1]) * base_h))
+    A = len(whs)
+    wh = const(np.asarray(whs, np.float32), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cx = torch.arange(W, **f32) * stride[0] + offset * (stride[0] - 1)
+    cy = torch.arange(H, **f32) * stride[1] + offset * (stride[1] - 1)
+    cxg = cx[None, :, None].expand(H, W, A)
+    cyg = cy[:, None, None].expand(H, W, A)
+    hw = 0.5 * (wh[None, None, :, 0] - 1)
+    hh = 0.5 * (wh[None, None, :, 1] - 1)
+    ctx.set("Anchors", torch.stack([cxg - hw, cyg - hh, cxg + hw, cyg + hh],
+                                   dim=-1))
+    ctx.set("Variances", const(np.asarray(variances, np.float32), dev)
+            .expand(H, W, A, 4).contiguous())

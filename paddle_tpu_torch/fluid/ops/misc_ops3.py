@@ -1,7 +1,9 @@
 """The op zoo's third batch (counterpart ``paddle_tpu/fluid/ops/
 misc_ops3.py``), so far its sequence ops and ``chunk_eval``:
 ``sequence_erase``, ``sequence_reshape``, ``sequence_scatter`` and
-``chunk_eval``; the rest of the JAX file is ROADMAP item 13c.3.
+``chunk_eval``, and its detection ops: ``density_prior_box``,
+``polygon_box_transform`` and ``roi_pool``; the rest of the JAX file is
+ROADMAP item 13c.3.
 
 ``chunk_eval`` extracts its chunks in Python on the host, where the JAX
 rule runs them in an ``io_callback``: its three inputs come back in one
@@ -14,6 +16,7 @@ import torch
 
 from .. import profiler
 from ..registry import register_op
+from .detection_ops import const, prior_scale, round_half_up
 
 
 @register_op("sequence_erase", nondiff_inputs=("X", "Length"),
@@ -148,3 +151,115 @@ def _chunk_eval(ctx, op):
     for slot, v in (("NumInferChunks", n_inf), ("NumLabelChunks", n_lab),
                     ("NumCorrectChunks", n_cor)):
         ctx.set(slot, torch.tensor(v, dtype=torch.int64, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# detection
+# ---------------------------------------------------------------------------
+
+@register_op("density_prior_box", stop_gradient=True)
+def _density_prior_box(ctx, op):
+    """misc_ops3.py:175: each fixed size with density d gives d x d
+    shifted boxes a location and ratio, on the reference's integer pixel
+    grid (``step_average = int((step_w + step_h) / 2)``); min corners
+    floored at 0 and max corners capped at 1 always, ``clip`` clips both
+    sides on top; ``flatten_to_2d`` gives ``[H·W·P, 4]``."""
+    feat, img = ctx.i("Input"), ctx.i("Image")
+    dev = feat.device
+    H, W = feat.shape[2], feat.shape[3]
+    IH, IW = img.shape[2], img.shape[3]
+    fixed_sizes = [float(s) for s in ctx.attr("fixed_sizes", [])]
+    fixed_ratios = [float(r) for r in ctx.attr("fixed_ratios", [1.0])]
+    densities = [int(d) for d in ctx.attr("densities", [])]
+    step_w = ctx.attr("step_w", 0.0) or IW / W
+    step_h = ctx.attr("step_h", 0.0) or IH / H
+    offset = ctx.attr("offset", 0.5)
+    variances = [float(v) for v in
+                 ctx.attr("variances", [0.1, 0.1, 0.2, 0.2])]
+    step_average = int((step_w + step_h) * 0.5)
+    whs, shifts = [], []
+    for size, density in zip(fixed_sizes, densities):
+        shift = step_average // density
+        for ratio in fixed_ratios:
+            bw, bh = size * np.sqrt(ratio), size / np.sqrt(ratio)
+            base = -step_average / 2.0 + shift / 2.0
+            for di in range(density):
+                for dj in range(density):
+                    whs.append((bw, bh))
+                    shifts.append((base + dj * shift, base + di * shift))
+    P = len(whs)
+    f32 = dict(dtype=torch.float32, device=dev)
+    wh = const(np.asarray(whs, np.float32), dev)
+    sh = const(np.asarray(shifts, np.float32), dev)
+    cx = (torch.arange(W, **f32) + offset) * step_w
+    cy = (torch.arange(H, **f32) + offset) * step_h
+    cxg = (cx[None, :, None] + sh[None, None, :, 0]).expand(H, W, P)
+    cyg = (cy[:, None, None] + sh[None, None, :, 1]).expand(H, W, P)
+    bw = wh[None, None, :, 0] / 2
+    bh = wh[None, None, :, 1] / 2
+    sx, sy = prior_scale(W, IW), prior_scale(H, IH)
+    boxes = torch.stack([torch.clamp_min(sx(cxg - bw), 0.0),
+                         torch.clamp_min(sy(cyg - bh), 0.0),
+                         torch.clamp_max(sx(cxg + bw), 1.0),
+                         torch.clamp_max(sy(cyg + bh), 1.0)], dim=-1)
+    if ctx.attr("clip", False):
+        boxes = boxes.clamp(0.0, 1.0)
+    var = const(np.asarray(variances, np.float32), dev) \
+        .expand(H, W, P, 4).contiguous()
+    if ctx.attr("flatten_to_2d", False):
+        boxes, var = boxes.reshape(-1, 4), var.reshape(-1, 4)
+    ctx.set("Boxes", boxes)
+    ctx.set("Variances", var)
+
+
+@register_op("polygon_box_transform", nondiff_inputs=("Input",),
+             stop_gradient=True)
+def _polygon_box_transform(ctx, op):
+    """misc_ops3.py:238: EAST geometry offsets ``[N, 2K, H, W]`` to
+    absolute coordinates: ``4·w - x`` on even channels, ``4·h - x`` on
+    odd ones."""
+    x = ctx.i("Input")
+    N, C, H, W = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    gw = 4.0 * torch.arange(W, **f32)[None, None, None, :]
+    gh = 4.0 * torch.arange(H, **f32)[None, None, :, None]
+    is_x = (torch.arange(C, device=x.device) % 2 == 0)[None, :, None, None]
+    ctx.set("Output", torch.where(is_x, gw - x, gh - x))
+
+
+@register_op("roi_pool", nondiff_inputs=("ROIs", "RoisBatchId"))
+def _roi_pool(ctx, op):
+    """misc_ops3.py:252: max over each quantized ROI bin (coordinates
+    rounded half up after scaling, ``+1`` sizes), 0 for an empty bin;
+    the ROI's image from RoisBatchId.  All ROIs and bins at once."""
+    x = ctx.i("X")
+    rois = ctx.i("ROIs").to(torch.float32)
+    bid = ctx.i_opt("RoisBatchId")
+    R = rois.shape[0]
+    dev = x.device
+    bid = torch.zeros(R, dtype=torch.long, device=dev) if bid is None \
+        else bid.reshape(-1).long()
+    ph = int(ctx.attr("pooled_height", 1))
+    pw = int(ctx.attr("pooled_width", 1))
+    scale = ctx.attr("spatial_scale", 1.0)
+    N, C, H, W = x.shape
+    x1, y1, x2, y2 = (round_half_up(rois[:, k] * scale)[:, None]
+                      for k in range(4))
+    one = torch.ones((), device=dev)
+    rw = torch.maximum(x2 - x1 + 1, one)
+    rh = torch.maximum(y2 - y1 + 1, one)
+    i = torch.arange(ph, device=dev)[None, :]
+    j = torch.arange(pw, device=dev)[None, :]
+    hs, he = torch.floor(y1 + i * rh / ph), torch.ceil(y1 + (i + 1) * rh / ph)
+    ws, we = torch.floor(x1 + j * rw / pw), torch.ceil(x1 + (j + 1) * rw / pw)
+    hi = torch.arange(H, dtype=torch.float32, device=dev)
+    wi = torch.arange(W, dtype=torch.float32, device=dev)
+    mh = (hi >= hs[..., None]) & (hi < he[..., None])      # [R, ph, H]
+    mw = (wi >= ws[..., None]) & (wi < we[..., None])      # [R, pw, W]
+    m = mh[:, None, :, None, :, None] & mw[:, None, None, :, None, :]
+    img = x[bid][:, :, None, None]                         # [R, C, 1, 1, H, W]
+    masked = torch.where(m, img, torch.full((), -float("inf"), device=dev,
+                                            dtype=x.dtype))
+    v = masked.amax(dim=(-2, -1))
+    ctx.set("Out", torch.where(torch.isfinite(v), v,
+                               torch.zeros((), dtype=x.dtype, device=dev)))

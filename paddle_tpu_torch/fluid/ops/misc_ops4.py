@@ -1,7 +1,7 @@
 """The op zoo's fourth batch (counterpart ``paddle_tpu/fluid/ops/
 misc_ops4.py``), so far ``add_position_encoding``, ``ctc_align`` (the
-collapse step of ``ctc_greedy_decoder``) and ``lstmp``; the rest of the
-JAX file is ROADMAP item 13c.3.
+collapse step of ``ctc_greedy_decoder``), ``lstmp`` and ``psroi_pool``;
+the rest of the JAX file is ROADMAP item 13c.3.
 
 ``lstmp`` keeps two properties of the JAX rule: it adds only the first
 4D entries of its Bias (peephole entries past them are ignored), and its
@@ -13,6 +13,7 @@ import torch
 
 from ..registry import register_op
 from .math_ops import _matmul_p
+from .detection_ops import round_half_up
 from .rnn_ops import _act, _seq_reverse
 
 
@@ -116,3 +117,43 @@ def _lstmp(ctx, op):
         cell = _seq_reverse(cell, lengths)
     ctx.set("Projection", proj_out)
     ctx.set("Cell", cell)
+
+
+@register_op("psroi_pool", nondiff_inputs=("ROIs", "RoisBatchId"))
+def _psroi_pool(ctx, op):
+    """misc_ops4.py:314: position-sensitive ROI pooling: input channels
+    ``out_C · ph · pw``, bin (i, j) the mean of its own channel group over
+    the bin's pixels (coordinates rounded half up, ``+1`` end, then
+    scaled)."""
+    x = ctx.i("X")
+    rois = ctx.i("ROIs").to(torch.float32)
+    bid = ctx.i_opt("RoisBatchId")
+    R = rois.shape[0]
+    dev = x.device
+    bid = torch.zeros(R, dtype=torch.long, device=dev) if bid is None \
+        else bid.reshape(-1).long()
+    ph = int(ctx.attr("pooled_height"))
+    pw = int(ctx.attr("pooled_width"))
+    out_c = int(ctx.attr("output_channels"))
+    scale = ctx.attr("spatial_scale", 1.0)
+    N, C, H, W = x.shape
+    r = round_half_up(rois)
+    x1, y1 = (r[:, 0] * scale)[:, None], (r[:, 1] * scale)[:, None]
+    x2, y2 = ((r[:, 2] + 1.0) * scale)[:, None], \
+        ((r[:, 3] + 1.0) * scale)[:, None]
+    lo = torch.full((), 0.1, device=dev)
+    rw = torch.maximum(x2 - x1, lo)
+    rh = torch.maximum(y2 - y1, lo)
+    i = torch.arange(ph, device=dev)[None, :]
+    j = torch.arange(pw, device=dev)[None, :]
+    hs, he = y1 + i * rh / ph, y1 + (i + 1) * rh / ph
+    ws, we = x1 + j * rw / pw, x1 + (j + 1) * rw / pw
+    hi = torch.arange(H, dtype=torch.float32, device=dev)
+    wi = torch.arange(W, dtype=torch.float32, device=dev)
+    mh = (hi >= torch.floor(hs)[..., None]) & (hi < torch.ceil(he)[..., None])
+    mw = (wi >= torch.floor(ws)[..., None]) & (wi < torch.ceil(we)[..., None])
+    m = (mh[:, :, None, :, None] & mw[:, None, :, None, :]).to(torch.float32)
+    cnt = torch.clamp_min(m.sum(dim=(-2, -1)), 1.0)         # [R, ph, pw]
+    img = x[bid].reshape(R, out_c, ph, pw, H, W)
+    v = (img * m[:, None]).sum(dim=(-2, -1)) / cnt[:, None]
+    ctx.set("Out", v.to(x.dtype))
