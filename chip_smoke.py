@@ -403,6 +403,34 @@ non-zero exit (nothing is caught):
    FLAGS_conv_pallas at base widths over the six maps (batch 8), fp32
    and bf16, against the flag-off run: K1 within its tolerances, 12
    launches a run, each variant as k1_plan plans it.
+31g. core_ops: the programs of the 34 core op types of ROADMAP item 13c.3a and
+   of ``fill_any_like`` (``core_programs``, the CPU tests' programs) on the
+   card against the port's CPU path from the same weights: floats within
+   CORE_TOL, integers and selections equal, the uniform draws by their
+   statistics on each side; no port kernel launched and no host sync in a run
+   (torch's sync debug mode).
+31h. yolov3_train: YOLOv3 on DarkNet-53 (``models/yolov3.py``, the model
+   zoo's detector) at its widths: batch 8 of 608 x 608 images, 80
+   classes, 75 convolutions, Momentum with L2 decay on the warmed-up
+   piecewise rate.  Step 1 at batch 2 and 320 x 320 on the card against
+   the port's CPU path: the loss within 1e-5, the output convs' gradients
+   within 1e-4, the whole gradient within 2e-2 (the CPU's own change under a
+   1e-7 nudge of the image shown beside it); 2 warm-up and 8 timed steps
+   through ``timing.timed_steps``: finite losses, no port kernel launched, no
+   host sync in a step; ms per step, peak memory, one profiled step and the
+   cost ledger's count of a step.
+31i. yolov3_eval: the eval program (yolo_box on the three maps,
+   transpose, concat, multiclass_nms over 80 classes) on the trained
+   scope: the [8, 100, 6] slab, ms a batch, no host sync; the slab equal
+   to the port's CPU multiclass_nms of the card's own candidates, at
+   full size and at batch 2 and 320 x 320, where the candidates' boxes
+   and scores also agree with the port's CPU path's.
+31j. yolo_k1: YOLOv3's 3x3 stride-1 convs (six shapes, 3 -> 32 at 608²
+   to 512 -> 1024 at 19², batch 8) forward and backward under
+   FLAGS_conv_pallas in fp32 and bf16 against cuDNN: K1 within its
+   tolerances, one launch a conv that k1_applies takes, each variant as
+   k1_plan plans it; then each shape's K1 time beside cuDNN, the plain
+   version and the bound.
 32. cost_ledger: ``Executor.cost_record`` of BERT-base training (phase
    9's configuration), the ResNet-50 step of phase 12 and the BERT-base
    serving buckets (``warmup(ledger=True)``): FLOPs, bytes, peak,
@@ -419,7 +447,8 @@ non-zero exit (nothing is caught):
 34. kernels: one JSON line listing every ported kernel, with its
    launches on every main path (0 on DeepFM's, the wrappers', the
    parameter server's, ResNet-50 inference's, the book models',
-   CRNN-CTC's, the detection programs' and MobileNet-SSD's; the
+   CRNN-CTC's, the detection programs', MobileNet-SSD's, the core op
+   programs' and YOLOv3's; the
    data-parallel and model-parallel paths' as their rank 0 counted
    them, the elastic path's as its world of one counted them); K2's row
    carries kernel_ring's record.
@@ -455,6 +484,10 @@ c.phase_device(); c.phase_sequence_ops(); c.phase_crnn_ctc_train()'``.
 Detection and MobileNet-SSD alone (K1 built for the head check):
 ``python3 -c 'import chip_smoke as c; c.phase_device(); c.phase_build();
 c.phase_detection_ops(); c.phase_ssd_train(); c.phase_ssd_head_k1()'``.
+The core op types and YOLOv3 alone (K1 built for yolo_k1): ``python3 -c
+'import chip_smoke as c; c.phase_device(); c.phase_build();
+c.phase_core_ops(); l, s, h = c.phase_yolov3_train();
+c.phase_yolov3_eval(s, h); c.phase_yolo_k1()'``.
 """
 
 import contextlib
@@ -485,7 +518,7 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
 from paddle_tpu_torch.models import (bert, book, crnn_ctc, deepfm, lenet,
-                                     resnet, ssd, transformer)
+                                     resnet, ssd, transformer, yolov3)
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -533,8 +566,25 @@ SERVE_PAD_TOL = 5e-2          # ... padding positions: the masked-row
 #                               spread above (~3e-3 per layer) over 12 layers
 
 
+_EMITTED = []                 # (phase, perf_counter) of every line emitted
+
+
 def emit(**kw):
+    _EMITTED.append((kw.get("phase"), time.perf_counter()))
     print(json.dumps(kw), flush=True)
+
+
+def _seconds_by_phase(t_start):
+    """Wall seconds from one run of lines of a phase name to the next,
+    the last line of each run closing it: where the whole run's time
+    went, phase by phase (a phase's own setup counted in it)."""
+    out, prev = {}, t_start
+    for i, (name, t) in enumerate(_EMITTED):
+        if i + 1 < len(_EMITTED) and _EMITTED[i + 1][0] == name:
+            continue
+        out[name] = out.get(name, 0.0) + t - prev
+        prev = t
+    return out
 
 
 def cuda_time_ms(fn, iters=50, warmup=20):
@@ -3939,10 +3989,18 @@ def _host_params(main, scope):
 
 
 def _free_port():
+    return _free_ports(1)[0]
+
+
+def _free_ports(n):
+    """``n`` distinct free loopback ports: every socket stays bound until
+    all are picked, so no port is handed out twice."""
     import socket
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for sk in socks:
+            sk.bind(("127.0.0.1", 0))
+        return [sk.getsockname()[1] for sk in socks]
 
 
 def _launch_ranks(mode, devices, d, timeout=900):
@@ -5989,7 +6047,8 @@ class _PsCluster:
     def __init__(self, init):
         self.d = _io_dir("ps")
         np.savez(self.d / "init.npz", **init)
-        self.runs = {run: dict(trainers=n, eps=["127.0.0.1:%d" % _free_port()
+        ports = iter(_free_ports(PS_SERVERS * len(PS_RUNS)))
+        self.runs = {run: dict(trainers=n, eps=["127.0.0.1:%d" % next(ports)
                                                 for _ in range(PS_SERVERS)])
                      for run, n in PS_RUNS.items()}
         (self.d / "ps.json").write_text(json.dumps({"runs": self.runs}))
@@ -9067,129 +9126,1039 @@ def phase_ssd_head_k1():
     return total
 
 
+CORE_TOL = {"plain": (1e-5, 1e-6),   # float32 rules: rtol, atol
+            "exact": (0.0, 0.0),     # shape/layout ops, selections
+            "stats": None}           # uniform_random_batch_size_like:
+#                                      the packages' and devices' random
+#                                      streams differ, so its draws are
+#                                      held by shape, dtype, range and
+#                                      their mean and variance (URBSL_*)
+URBSL_SIGMAS = 5.0            # mean and variance within 5 standard errors
+
+
+def core_programs():
+    """The programs of the 34 core op types of ROADMAP item 13c.3a and of
+    ``fill_any_like`` (the op behind ``layers.ones_like``), one a type
+    (tests/test_torch_core_ops.py holds each against the JAX package; the
+    card's ``core_ops`` phase against the port's CPU path): {name:
+    (build(pkg) -> fetch list, feed, weight seed or None, tolerance class
+    of CORE_TOL)}.  Inputs, shapes and attributes follow
+    the JAX package's own tests of each op (test_op_oracle_sweep*.py,
+    test_sequence_ops.py, test_misc_ops2.py, test_misc_ops5.py), run
+    through the layer a user calls where there is one, every mode side
+    by side, with the points where the packages could part fed exactly:
+    0 and the threshold for relu6, 0 for leaky_relu, the bounds of
+    hard_sigmoid, tied extrema, tied sort keys, duplicate scatter ids,
+    out-of-range gather and scatter indices, predictions on the auc bin
+    edges.  Then the gradients of ``sum_i mean(out_i * c_i)`` (each
+    ``c_i`` a fixed random array fed as ``c<i>``) over the float inputs
+    the op differentiates and its parameters."""
+    progs = {}
+    D = _seq_data
+
+    def add(name, build, feed, seed=None, tol="plain"):
+        progs[name] = (build, feed, seed, tol)
+
+    def f32(rng, *shape, lo=-2.0, hi=2.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def grads(pkg, outs, wrt, feed_c):
+        cs = sorted((k, v) for k, v in feed_c.items() if k.startswith("c"))
+        return _seq_with_grads(pkg, outs, wrt, cs)
+
+    def cs(rng, *shapes):
+        return {"c%d" % i: rng.randn(*s).astype(np.float32)
+                for i, s in enumerate(shapes)}
+
+    # -- reductions: ties among the extrema, zeros in the products --------
+    rng = np.random.RandomState(9)
+    rx = f32(rng, 2, 3, 4)
+    rx[0, 0, 2] = rx[0, 2, 2] = 5.0          # a tied max over dim 1
+    rx[1, :, 1] = 5.0                        # three tied in one column
+    rx[1, 2, 3] = rx[0, 1, 0] = -5.0         # tied min over dims 0, 2
+    for name in ("reduce_max", "reduce_min"):
+        c = cs(rng, (2, 4), (1, 3, 1), (1,), (2, 3, 4))
+
+        def build(pkg, name=name, c=c):
+            x = D(pkg, "x", rx)
+            f = getattr(pkg.layers, name)
+            outs = [f(x, dim=[1]), f(x, dim=[0, 2], keep_dim=True), f(x),
+                    f(x, dim=[])]
+            return grads(pkg, outs, [x], c)
+        add(name, build, dict(c, x=rx))
+    px = f32(rng, 2, 3, 4, lo=0.5, hi=1.5) * np.sign(rng.randn(2, 3, 4)) \
+        .astype(np.float32)
+    px[0, 1, 2] = 0.0                        # one zero in a row
+    px[1, 0, 1] = px[1, 0, 3] = 0.0          # two zeros in a row
+    pc = cs(rng, (2, 3), (1, 3, 1), (1,))
+
+    def prod(pkg):
+        x = D(pkg, "x", px)
+        L = pkg.layers
+        return grads(pkg, [L.reduce_prod(x, dim=[2]),
+                           L.reduce_prod(x, dim=[0, 2], keep_dim=True),
+                           L.reduce_prod(L.scale(x, 0.8))], [x], pc)
+    add("reduce_prod", prod, dict(pc, x=px))
+
+    # -- the attribute-carrying activations: kinks fed exactly --------------
+    rng = np.random.RandomState(2)
+    ax = f32(rng, 4, 5, lo=-3.0, hi=8.0)
+    ax[0, :4] = [0.0, 6.0, 4.0, -0.0]
+    ac = cs(rng, (4, 5), (4, 5))
+
+    def relu6(pkg):
+        x = D(pkg, "x", ax)
+        return grads(pkg, [pkg.layers.relu6(x),
+                           pkg.layers.relu6(x, threshold=4.0)], [x], ac)
+    add("relu6", relu6, dict(ac, x=ax))
+
+    def leaky(pkg):
+        x = D(pkg, "x", ax)
+        return grads(pkg, [pkg.layers.leaky_relu(x, alpha=0.1),
+                           pkg.layers.leaky_relu(x)], [x], ac)
+    add("leaky_relu", leaky, dict(ac, x=ax))
+    hx = f32(rng, 4, 5, lo=-4.0, hi=4.0)
+    # the bounds at slope 0.25; slope 0.2 has none in float32 (0.2 · 2.5
+    # rounds to 0.5, but XLA's contracted multiply-add puts -2.5 · 0.2 +
+    # 0.5 below 0, as the float32 slope is above 0.2)
+    hx[0, :2] = [2.0, -2.0]
+
+    def hard_sigmoid(pkg):
+        x = D(pkg, "x", hx)
+        return grads(pkg, [pkg.layers.hard_sigmoid(x),
+                           pkg.layers.hard_sigmoid(x, slope=0.25)], [x], ac)
+    add("hard_sigmoid", hard_sigmoid, dict(ac, x=hx))
+    sx = f32(rng, 4, 5)
+
+    def swish(pkg):
+        x = D(pkg, "x", sx)
+        return grads(pkg, [pkg.layers.swish(x),
+                           pkg.layers.swish(x, beta=2.0)], [x], ac)
+    add("swish", swish, dict(ac, x=sx))
+
+    def stanh(pkg):
+        x = D(pkg, "x", sx)
+        return grads(pkg, [pkg.layers.stanh(x),
+                           pkg.layers.stanh(x, scale_a=0.5, scale_b=2.0)],
+                     [x], ac)
+    add("stanh", stanh, dict(ac, x=sx))
+    wx = sx.copy()
+    wx[0, 0] = 0.0
+    wpos = np.abs(sx) + 0.1
+    wc = cs(rng, (4, 5), (4, 5), (4, 5))
+
+    def pow_(pkg):
+        x, xp = D(pkg, "x", wx), D(pkg, "xp", wpos)
+        return grads(pkg, [pkg.layers.pow(x, factor=3.0),
+                           pkg.layers.pow_(x, factor=2.0),
+                           pkg.layers.pow(xp, factor=0.5)], [x, xp], wc)
+    add("pow", pow_, dict(wc, x=wx, xp=wpos))
+    rng = np.random.RandomState(27)
+    lx = f32(rng, 4, 7, lo=-3.0, hi=3.0)
+    lc = cs(rng, (4, 7), (4, 7))
+
+    def log_softmax(pkg):
+        x = D(pkg, "x", lx)
+        return grads(pkg, [pkg.layers.log_softmax(x),
+                           pkg.layers.log_softmax(x, axis=0)], [x], lc)
+    add("log_softmax", log_softmax, dict(lc, x=lx))
+    rng = np.random.RandomState(3)
+    cx = f32(rng, 3, 5)
+    cc = cs(rng, *[(3, 5)] * 5)
+
+    def cumsum(pkg):
+        x = D(pkg, "x", cx)
+        L = pkg.layers
+        return grads(pkg, [L.cumsum(x), L.cumsum(x, exclusive=True),
+                           L.cumsum(x, reverse=True),
+                           L.cumsum(x, axis=0, exclusive=True, reverse=True),
+                           L.cumsum(x, axis=0)], [x], cc)
+    add("cumsum", cumsum, dict(cc, x=cx))
+
+    # -- shape ops: the v1 types without XShape, flatten2 with it -----------
+    rng = np.random.RandomState(12)
+    tx, t3 = f32(rng, 3, 4), f32(rng, 2, 3, 4)
+    tc = cs(rng, (4, 3), (4, 2, 3))
+
+    def transpose(pkg):
+        x, y = D(pkg, "x", tx), D(pkg, "y", t3)
+        a, = _det_raw(pkg, "transpose", {"X": [x]}, {"Out": "float32"},
+                      {"axis": [1, 0]})
+        b, = _det_raw(pkg, "transpose", {"X": [y]}, {"Out": "float32"},
+                      {"axis": [2, 0, 1]})
+        return grads(pkg, [a, b], [x, y], tc)
+    add("transpose", transpose, dict(tc, x=tx, y=t3))
+    rng = np.random.RandomState(11)
+    fx = f32(rng, 2, 3, 4, 5)
+    fc = cs(rng, (2, 60), (1, 120), (24, 5))
+
+    def flatten2(pkg):
+        x = D(pkg, "x", fx)
+        L = pkg.layers
+        return grads(pkg, [L.flatten(x), L.flatten(x, axis=0),
+                           L.flatten(x, axis=3)], [x], fc)
+    add("flatten2", flatten2, dict(fc, x=fx))
+    fc1 = cs(rng, (6, 20))
+
+    def flatten(pkg):
+        x = D(pkg, "x", fx)
+        a, = _det_raw(pkg, "flatten", {"X": [x]}, {"Out": "float32"},
+                      {"axis": 2})
+        return grads(pkg, [a], [x], fc1)
+    add("flatten", flatten, dict(fc1, x=fx))
+    qx = f32(rng, 3, 1, 4, 1)
+    qc = cs(rng, (3, 4), (3, 4))
+
+    def squeeze(pkg):
+        x = D(pkg, "x", qx)
+        a, = _det_raw(pkg, "squeeze", {"X": [x]}, {"Out": "float32"},
+                      {"axes": [1, 3]})
+        b, = _det_raw(pkg, "squeeze", {"X": [x]}, {"Out": "float32"},
+                      {"axes": []})
+        return grads(pkg, [a, b], [x], qc)
+    add("squeeze", squeeze, dict(qc, x=qx))
+    uc = cs(rng, (3, 1, 4, 1))
+
+    def unsqueeze(pkg):
+        y = D(pkg, "y", tx)
+        a, = _det_raw(pkg, "unsqueeze", {"X": [y]}, {"Out": "float32"},
+                      {"axes": [3, 1]})
+        return grads(pkg, [a], [y], uc)
+    add("unsqueeze", unsqueeze, dict(uc, y=tx))
+    rng = np.random.RandomState(14)
+    sx4 = f32(rng, 3, 4)
+    sc = cs(rng, *([(4,)] * 3 + [(3,)] * 4))
+
+    def unstack(pkg):
+        x = D(pkg, "x", sx4)
+        return grads(pkg, pkg.layers.unstack(x) +
+                     pkg.layers.unstack(x, axis=1), [x], sc)
+    add("unstack", unstack, dict(sc, x=sx4))
+    small, target = f32(rng, 1, 4), f32(rng, 3, 4)
+    col, big = f32(rng, 2, 1), f32(rng, 4, 3)
+    ec = cs(rng, (3, 4), (4, 3))
+
+    def expand_as(pkg):
+        x, c_ = D(pkg, "x", small), D(pkg, "col", col)
+        t, b = D(pkg, "t", target, False), D(pkg, "b", big, False)
+        a, = _det_raw(pkg, "expand_as", {"X": [x], "target_tensor": [t]},
+                      {"Out": "float32"}, {})
+        e, = _det_raw(pkg, "expand_as", {"X": [c_], "target_tensor": [b]},
+                      {"Out": "float32"}, {})
+        return grads(pkg, [a, e], [x, c_], ec)
+    add("expand_as", expand_as, dict(ec, x=small, t=target, col=col, b=big))
+
+    # -- gathers and scatters: duplicate, negative, out-of-range ids --------
+    rng = np.random.RandomState(21)
+    gx = f32(rng, 3, 4, 5)
+    gidx = np.array([[0, 1], [2, 3], [2, 3], [-1, 0], [5, -9]], np.int64)
+    gidx3 = np.array([[[1], [0]], [[2], [2]]], np.int32)
+    gc = cs(rng, (5, 5), (2, 2, 4, 5))
+
+    def gather_nd(pkg):
+        x = D(pkg, "x", gx)
+        i, j = D(pkg, "i", gidx, False), D(pkg, "j", gidx3, False)
+        return grads(pkg, [pkg.layers.gather_nd(x, i),
+                           pkg.layers.gather_nd(x, j)], [x], gc)
+    add("gather_nd", gather_nd, dict(gc, x=gx, i=gidx, j=gidx3))
+    rng = np.random.RandomState(22)
+    scx = f32(rng, 6, 4)
+    sids = np.array([3, 0, -2, 9], np.int64)      # -2 is row 4; 9 dropped
+    dups = np.array([1, 1, 4, 1, -1, -8], np.int64)
+    su, sd = f32(rng, 4, 4), f32(rng, 6, 4)
+    scc = cs(rng, (6, 4), (6, 4))
+
+    def scatter(pkg):
+        x = D(pkg, "x", scx)
+        u, d = D(pkg, "u", su), D(pkg, "d", sd)
+        i, j = D(pkg, "i", sids, False), D(pkg, "j", dups, False)
+        return grads(pkg, [pkg.layers.scatter(x, i, u),
+                           pkg.layers.scatter(x, j, d, overwrite=False)],
+                     [x, u, d], scc)
+    add("scatter", scatter, dict(scc, x=scx, u=su, d=sd, i=sids, j=dups))
+    rng = np.random.RandomState(38)
+    table = f32(rng, 10, 4)
+    ids = np.array([1, 3, 3, 7, 0, 12], np.int64)
+    ids2 = np.array([[2], [3], [9]], np.int64)
+    lc2 = cs(rng, (6, 4), (3, 4))
+
+    def lookup_v2(pkg):
+        w = D(pkg, "w", table)
+        i, j = D(pkg, "i", ids, False), D(pkg, "j", ids2, False)
+        a, = _det_raw(pkg, "lookup_table_v2", {"W": [w], "Ids": [i]},
+                      {"Out": "float32"}, {"padding_idx": -1})
+        b, = _det_raw(pkg, "lookup_table_v2", {"W": [w], "Ids": [j]},
+                      {"Out": "float32"}, {"padding_idx": 3})
+        # the id past the table reads a NaN row, as jnp.take gives it:
+        # has_nan sees it, the rest holds rows 0-4 of the first lookup
+        a5 = pkg.layers.slice(a, axes=[0], starts=[0], ends=[5])
+        return [pkg.layers.has_nan(a)] + grads(
+            pkg, [a5, b], [w], {"c0": lc2["c0"][:5], "c1": lc2["c1"]})
+    add("lookup_table_v2", lookup_v2, dict(c0=lc2["c0"][:5], c1=lc2["c1"],
+                                           w=table, i=ids, j=ids2))
+
+    # -- shape, selections and sorts: integers held exactly -----------------
+    rng = np.random.RandomState(25)
+    kx = np.round(f32(rng, 4, 6), 1)             # ties in every row
+    kx[1] = 0.5
+    kx[2, [1, 4]] = kx[2].max() + 1.0
+
+    def shape(pkg):
+        x = D(pkg, "x", gx, False)
+        return [pkg.layers.shape(x), pkg.layers.shape(D(pkg, "k", kx,
+                                                        False))]
+    add("shape", shape, {"x": gx, "k": kx}, tol="exact")
+
+    def arg_max(pkg):
+        x = D(pkg, "x", kx, False)
+        return [pkg.layers.argmax(x, axis=-1), pkg.layers.argmax(x, axis=0)]
+    add("arg_max", arg_max, {"x": kx}, tol="exact")
+
+    def arg_min(pkg):
+        x = D(pkg, "x", kx, False)
+        return [pkg.layers.argmin(x, axis=-1), pkg.layers.argmin(x, axis=0)]
+    add("arg_min", arg_min, {"x": kx}, tol="exact")
+
+    def argsort(pkg):
+        x = D(pkg, "x", kx, False)
+        return list(pkg.layers.argsort(x)) + list(pkg.layers.argsort(x,
+                                                                    axis=0))
+    add("argsort", argsort, {"x": kx}, tol="exact")
+    rng = np.random.RandomState(17)
+    dx, d3 = f32(rng, 2, 3), f32(rng, 2, 3, 4)
+    dc = cs(rng, (3, 8), (2, 4, 7))
+
+    def pad(pkg):
+        x, y = D(pkg, "x", dx), D(pkg, "y", d3)
+        return grads(pkg, [pkg.layers.pad(x, [1, 0, 2, 3], pad_value=9.0),
+                           pkg.layers.pad(y, [0, 0, 1, 0, 2, 1])], [x, y],
+                     dc)
+    add("pad", pad, dict(dc, x=dx, y=d3))
+    vc = cs(rng, (2, 3, 4), (2, 3, 4))
+
+    def reverse(pkg):
+        y = D(pkg, "y", d3)
+        return grads(pkg, [pkg.layers.reverse(y, 0),
+                           pkg.layers.reverse(y, [0, -1])], [y], vc)
+    add("reverse", reverse, dict(vc, y=d3))
+    rng = np.random.RandomState(12)
+    clean = f32(rng, 3, 3)
+    nan, inf = clean.copy(), clean.copy()
+    nan[1, 1] = np.nan
+    inf[2, 0] = -np.inf
+    for name in ("has_nan", "has_inf"):
+        def build(pkg, name=name):
+            f = getattr(pkg.layers, name)
+            return [f(D(pkg, k, v, False)) for k, v in
+                    (("x", clean), ("n", nan), ("i", inf))]
+        add(name, build, {"x": clean, "n": nan, "i": inf}, tol="exact")
+    fids = np.array([[3, -1], [0, 7]], np.int64)
+
+    def fill_any_like(pkg):
+        # the op behind layers.ones_like, on a float and an int input,
+        # and by hand with another value
+        x, i = D(pkg, "x", nan, False), D(pkg, "ids", fids, False)
+        a, = _det_raw(pkg, "fill_any_like", {"X": [x]}, {"Out": "float32"},
+                      {"value": -2.5})
+        return [pkg.layers.ones_like(x), pkg.layers.ones_like(i), a]
+    add("fill_any_like", fill_any_like, {"x": nan, "ids": fids}, tol="exact")
+    ref = np.zeros((500, 3), np.float32)
+
+    def urbsl(pkg):
+        r = D(pkg, "ref", ref, False)
+        L = pkg.layers
+        return [L.uniform_random_batch_size_like(r, [-1, 300]),
+                L.uniform_random_batch_size_like(r, [7, -1], min=2.0,
+                                                 max=5.0, input_dim_idx=1,
+                                                 output_dim_idx=1)]
+    add("uniform_random_batch_size_like", urbsl, {"ref": ref}, tol="stats")
+
+    # -- the transposed convolutions, losses and the streaming auc ----------
+    rng = np.random.RandomState(0)
+    vx = f32(rng, 2, 4, 5, 5)
+    vcc = cs(rng, (2, 6, 9, 9), (2, 4, 7, 7), (2, 4, 9, 9))
+
+    def conv_t(pkg):
+        x = D(pkg, "x", vx)
+        L = pkg.layers
+        outs = [L.conv2d_transpose(x, 6, filter_size=3, stride=2, padding=1),
+                L.conv2d_transpose(x, 4, filter_size=3, groups=2,
+                                   bias_attr=False),
+                L.conv2d_transpose(x, 4, filter_size=3, dilation=2,
+                                   act="relu")]
+        return grads(pkg, outs, [x] + _seq_params(pkg), vcc)
+    add("conv2d_transpose", conv_t, dict(vcc, x=vx), seed=5)
+    dwx = rng.randn(1, 3, 5, 5).astype(np.float32)
+    dww = rng.randn(3, 1, 3, 3).astype(np.float32)
+    dwc = cs(rng, (1, 3, 9, 9))
+
+    def dw_t(pkg):
+        x, w = D(pkg, "x", dwx), D(pkg, "w", dww)
+        o, = _det_raw(pkg, "depthwise_conv2d_transpose",
+                      {"Input": [x], "Filter": [w]}, {"Output": "float32"},
+                      {"strides": [2, 2], "paddings": [1, 1],
+                       "dilations": [1, 1], "groups": 3})
+        return grads(pkg, [o], [x, w], dwc)
+    add("depthwise_conv2d_transpose", dw_t, dict(dwc, x=dwx, w=dww))
+    rng = np.random.RandomState(28)
+    hx2 = f32(rng, 4, 3)
+    hy = hx2 + f32(rng, 4, 3)
+    hx2[0, :2] = 0.0
+    hy[0, :2] = [0.8, -0.8]                      # |r| exactly delta
+    hc = cs(rng, (4, 3), (4, 3))
+
+    def huber(pkg):
+        x, y = D(pkg, "x", hx2), D(pkg, "y", hy)
+        return grads(pkg, [pkg.layers.huber_loss(x, y, 0.8),
+                           pkg.layers.huber_loss(x, y, 1.5)], [x, y], hc)
+    add("huber_loss", huber, dict(hc, x=hx2, y=hy))
+    rng = np.random.RandomState(33)
+    nt = 4095
+    p1 = rng.uniform(0, 1, 40).astype(np.float32)
+    # on and beside the bin edges k / nt, where a float product rounds
+    p1[:6] = np.float32([0.5, 1.0, 0.0, 1 / nt, 2047 / nt, 4094 / nt])
+    p1[6:10] = np.nextafter(p1[2:6], np.float32(1))
+    lab = (rng.rand(40, 1) < p1[:, None]).astype(np.int64)
+    p2 = np.stack([1 - p1, p1], axis=1)
+
+    def auc(pkg):
+        a, b = D(pkg, "p1", p1[:, None], False), D(pkg, "p2", p2, False)
+        lv = D(pkg, "lab", lab, False)
+        out1, s1 = pkg.layers.auc(a, lv)
+        out2, s2 = pkg.layers.auc(b, lv, num_thresholds=200)
+        return [out1, out2] + s1 + s2
+    add("auc", auc, {"p1": p1[:, None], "p2": p2, "lab": lab})
+    return progs
+
+
+def _stats_ok(a, lo, hi):
+    """A uniform draw's shape-free checks: all in ``[lo, hi)`` and its
+    mean and variance within URBSL_SIGMAS standard errors of the
+    uniform's ``(lo + hi) / 2`` and ``(hi - lo)² / 12``."""
+    n, w = a.size, hi - lo
+    mean_se = w / np.sqrt(12 * n)
+    # the sample variance's standard error: sqrt((mu4 - sigma^4) / n),
+    # with mu4 = w^4 / 80 and sigma^4 = w^4 / 144 for a uniform of width w
+    var_se = w * w * np.sqrt(1 / 180.0 / n)
+    return bool(a.min() >= lo and a.max() < hi and
+                abs(a.mean() - (lo + hi) / 2) <= URBSL_SIGMAS * mean_se and
+                abs(a.var() - w * w / 12) <= URBSL_SIGMAS * var_se)
+
+
+URBSL_DRAWS = ((500, 300, -1.0, 1.0), (7, 3, 2.0, 5.0))
+
+
+def urbsl_ok(outs):
+    """The two draws of the uniform_random_batch_size_like program:
+    their shapes ``[500, 300]`` and ``[7, 3]``, float32, in range, and by
+    statistics."""
+    return all(o.shape == (r, c) and o.dtype == np.float32 and
+               _stats_ok(o, lo, hi)
+               for o, (r, c, lo, hi) in zip(outs, URBSL_DRAWS))
+
+
+def _card_sync_sites(build, feed, weights):
+    """The host sync sites (``_sync_sites``) of a second run of
+    ``build``'s port program on the card, its feed already there."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        fetch = build(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    if weights:
+        fluid.load_numpy_params(scope, weights, fluid.CUDAPlace(0))
+    cfeed = _cuda_feed(feed)
+
+    def run():
+        return exe.run(main, feed=cfeed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+    run()
+    return _sync_sites(run)
+
+
+def phase_core_ops():
+    """The 34 core op types of ROADMAP item 13c.3a and ``fill_any_like``
+    (``core_programs``: forward and gradients) on the card against the port's
+    CPU path, each from the same weights: floats within CORE_TOL, integers and
+    the selections equal, ``uniform_random_batch_size_like`` by its shape,
+    range and statistics on each side; no port kernel launched, and no host
+    sync in a run of any program on the card (torch's sync debug
+    mode over a second run whose feed lies on the card: none of these
+    rules reads a value back).  Returns the port kernel launches."""
+    progs = core_programs()
+    stats = {k: v for k, v in progs.items() if v[3] == "stats"}
+    t0 = time.perf_counter()
+    rows, checks = [], {}
+    _reset_launches()
+    for name, (build, feed, seed, _) in stats.items():
+        card, _, _ = seq_run(build, feed, {}, fluid.CUDAPlace(0), ())
+        cpu, _, _ = seq_run(build, feed, {}, fluid.CPUPlace(), ())
+        ok = urbsl_ok(card) and urbsl_ok(cpu)
+        rows.append(dict(op=name, card_mean=[float(o.mean()) for o in card],
+                         cpu_mean=[float(o.mean()) for o in cpu], ok=ok))
+        checks[name] = ok
+    _programs_card_vs_cpu(
+        "core_ops", {k: v for k, v in progs.items() if k not in stats},
+        CORE_TOL, ())
+    launches = _launches()
+    sites = {}
+    for name, (build, feed, seed, _) in progs.items():
+        got = _card_sync_sites(build, feed, seq_weights(build, seed))
+        if got:
+            sites[name] = got
+    checks["no_port_kernel"] = not any(launches.values())
+    checks["no_host_sync"] = not sites
+    emit(phase="core_ops_checks", card=_card(), random_ops=rows,
+         launches=launches, sync_sites=sites,
+         seconds=time.perf_counter() - t0)
+    _fail_unless("core_ops_checks", checks)
+    return launches
+
+
+YOLO_FEEDS = 4                # yolov3_train: distinct batches, in turn
+YOLO_CPU = dict(batch=2, image=320)   # step 1 and the eval, card vs CPU:
+#                               the zoo's smallest random shape at its
+#                               widths (the CPU cannot run 8 x 608² here)
+YOLO_LOSS_RTOL = 1e-5         # ... the step-1 loss (measured 9.8e-8)
+YOLO_HEAD_GRAD_RL2 = 1e-4     # ... the three output convs' gradients,
+#                               each in relative L2 (measured 9.9e-6 at
+#                               most; TF32 or bf16 convs give ~1e-3)
+YOLO_GRAD_RL2 = 2e-2          # ... and the whole gradient (measured
+#                               4.8e-3, the same in every run): through 72
+#                               batch norms at batch 2 the backbone's
+#                               gradient is that sensitive to rounding;
+#                               the CPU's own moves by 1.2e-3 when the
+#                               image moves by ~1 ulp (YOLO_NUDGE, shown)
+YOLO_NUDGE = 1e-7             # the image's relative perturbation
+YOLO_BOX_ATOL = 1e-3          # ... the eval's candidate boxes in pixels (a
+#                               score or an exp an ulp apart moves a
+#                               320-pixel coordinate by ~1e-4)
+YOLO_SCORE_ATOL = 1e-6        # ... and their scores (measured 6e-8)
+YOLO_EVALS = 3                # timed eval batches
+YOLO_K1_BATCH = 8             # yolo_k1: the per-card batch
+
+
+def _yolo_program(cfg, evaluate=False):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = yolov3.build_eval(cfg) if evaluate else yolov3.build(cfg)
+    return main, startup, out
+
+
+def phase_yolov3_train():
+    """YOLOv3 on DarkNet-53 (``models/yolov3.py``, the model zoo's
+    detector) at ``base_config()``: batch 8 of 608 x 608 images, 80
+    classes, 50 ground-truth slots, Momentum with L2 decay on the
+    warmed-up piecewise rate; 75 cuDNN convs, 72 batch norms and
+    leaky_relus, three ``yolov3_loss``.  Step 1 from the startup weights
+    at YOLO_CPU (batch 2, 320 x 320, the same widths), on the card and on
+    the port's CPU path: losses within YOLO_LOSS_RTOL, the output convs'
+    gradients within YOLO_HEAD_GRAD_RL2 and the whole within YOLO_GRAD_RL2,
+    beside the CPU's own gap when its image is nudged by YOLO_NUDGE.  Then
+    WARM_STEPS + TIMED_STEPS steps through ``timing.timed_steps`` on the card
+    over YOLO_FEEDS synthetic batches in turn: finite losses, no port kernel
+    launched (none lies on this path), no host sync in a step (the host sync
+    counter over the steps, and torch's sync debug mode over one
+    step); ms per step, images/s, peak memory, one profiled step's
+    launches, busy share and top kernels, and the cost ledger's count of
+    the step.  Returns (the path's port kernel launches, the trained
+    scope, the card feeds)."""
+    t0 = time.perf_counter()
+    cfg = yolov3.base_config()
+    main, startup, out = _yolo_program(cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    loss = out["loss"]
+    small = dict(cfg, **YOLO_CPU)
+    smain, _, sout = _yolo_program(small)
+    shost = next(yolov3.feeds(small, SEED))
+    (card1,), _, cgrad = _book_step(exe, smain, sout["loss"], scope, shost,
+                                    grads=True)
+    (cpu1,), _, hgrad = _book_step(fluid.Executor(fluid.CPUPlace()), smain,
+                                   sout["loss"], scope, shost, grads=True)
+    card1, cpu1 = float(card1.reshape(-1)[0]), float(cpu1.reshape(-1)[0])
+    image = shost["image"]
+    noise = np.random.RandomState(SEED).randn(*image.shape)
+    nudged = dict(shost, image=(image * (1 + YOLO_NUDGE * noise))
+                  .astype(np.float32))
+    _, _, ngrad = _book_step(fluid.Executor(fluid.CPUPlace()), smain,
+                             sout["loss"], scope, nudged, grads=True)
+
+    def gap(grads):
+        return float(torch.cat([(grads[n] - g).reshape(-1) for n, g in
+                                hgrad.items()]).norm() /
+                     torch.cat([g.reshape(-1) for g in hgrad.values()]).norm())
+    heads = {n: float((cgrad[n] - g).norm() / g.norm().clamp_min(1e-30))
+             for n, g in hgrad.items() if n.startswith("yolo_output.")}
+    whole, spread = gap(cgrad), gap(ngrad)
+    it = yolov3.feeds(cfg, SEED)
+    host = [next(it) for _ in range(YOLO_FEEDS)]
+    feeds = [_cuda_feed(f) for f in host]
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = fluid.profiler.host_sync_count()
+    got = []
+
+    def step(i):
+        r = exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                    scope=scope, return_numpy=False)
+        got.append(r)
+        return r
+
+    detail = {}
+    # the main path's run: counts go to 0 here and are read after it
+    _reset_launches()
+    dt, _ = timing.timed_steps(step, TIMED_STEPS, warmup=WARM_STEPS,
+                               detail=detail)
+    launches = _launches()
+    step_ms = dt / TIMED_STEPS * 1e3
+    step_syncs = fluid.profiler.host_sync_count() - syncs0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    losses = [float(g[0].reshape(-1)[0].item()) for g in got]
+    sites = _sync_sites(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    prof, _ = _profile_record(exe, main, feeds[0], [loss], scope)
+    rec = exe.cost_record(main, feed=feeds[0], fetch_list=[loss],
+                          scope=scope, tag="yolov3_train")
+    ops = [o.type for o in main.global_block().ops]
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "step1_card_vs_cpu": abs(card1 - cpu1) <= YOLO_LOSS_RTOL * abs(cpu1),
+        "step1_head_grads_card_vs_cpu": len(heads) == 6 and
+        max(heads.values()) <= YOLO_HEAD_GRAD_RL2,
+        "step1_grad_card_vs_cpu": whole <= YOLO_GRAD_RL2,
+        "no_port_kernel": not any(launches.values()),
+        "no_host_sync_in_a_step": step_syncs == 0 and not sites,
+        # 75 convs and 72 leaky_relus at base_config (its 23 blocks)
+        "every_conv": ops.count("conv2d") == 29 + 2 * sum(cfg["stages"])
+        and ops.count("leaky_relu") == 26 + 2 * sum(cfg["stages"]) and
+        ops.count("yolov3_loss") == 3}
+    fwd_flops = _conv_flops(main)
+    emit(phase="yolov3_train", card=_card(), config=cfg,
+         steps=len(losses), program_ops=len(ops),
+         conv_gflop_forward=fwd_flops / 1e9,
+         conv_tflops_per_s_step=3 * fwd_flops / step_ms / 1e9,
+         conv_bound_ms_fp32=3 * fwd_flops / PEAK_FP32_FLOPS * 1e3,
+         ledger=dict(tflop=rec["flops"] / 1e12,
+                     gbytes=rec["bytes_accessed"] / 1e9,
+                     estimated_step_ms=rec["estimated_step_s"] * 1e3,
+                     aten_calls=rec["aten_calls"],
+                     top_ops=rec["top_ops"][:6]),
+         losses=losses, step1_loss_card=card1, step1_loss_cpu=cpu1,
+         step1_rel_err=abs(card1 - cpu1) / abs(cpu1), step1_config=YOLO_CPU,
+         step1_grad_rel_l2=dict(whole=whole, cpu_nudged=spread,
+                                heads=heads, parameters=len(hgrad)),
+         ms_per_step=step_ms, images_per_s=cfg["batch"] / step_ms * 1e3,
+         fence=dict(rtt_s=detail["fence_rtt_s"],
+                    wall_s=detail["window_wall_s"]),
+         peak_device_mb=peak_mb, host_syncs_over_steps=step_syncs,
+         step_sync_sites=sites, profiled_step=prof, launches=launches,
+         checks=checks, seconds=time.perf_counter() - t0)
+    _fail_unless("yolov3_train", checks)
+    return launches, scope, host
+
+
+def _nms_alone(nms, boxes, scores, place):
+    """The ``multiclass_nms`` op ``nms`` (its attributes) alone on
+    ``place`` over the given ``BBoxes`` and ``Scores``: its slab."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        b = _seq_data(fluid, "bboxes", boxes, False)
+        s = _seq_data(fluid, "scores", scores, False)
+        out, = _det_raw(fluid, "multiclass_nms",
+                        {"BBoxes": [b], "Scores": [s]}, {"Out": "float32"},
+                        dict(nms.attrs))
+    return np.asarray(fluid.Executor(place).run(
+        main, feed={"bboxes": boxes, "scores": scores}, fetch_list=[out])[0])
+
+
+def _nms_inputs(main):
+    """``main``'s ``multiclass_nms`` op and its (BBoxes, Scores) names."""
+    nms = [o for o in main.global_block().ops if o.type ==
+           "multiclass_nms"][0]
+    return nms, [nms.input("BBoxes")[0], nms.input("Scores")[0]]
+
+
+def phase_yolov3_eval(scope, host):
+    """The evaluation program (``yolo_box`` on the three maps, the scores
+    transposed, joined, ``multiclass_nms`` over 80 classes: the zoo's
+    0.005 / 400 / 100 / 0.45) on yolov3_train's trained scope at
+    ``base_config()``: the ``[8, 100, 6]`` slab, labels -1 or in ``[0,
+    80)``, finite, ms per batch over YOLO_EVALS batches, no host sync;
+    the card's slab equal, every entry, to the port's CPU
+    ``multiclass_nms`` run on the card's own candidates (its BBoxes and
+    Scores).  Then at YOLO_CPU on the card and on the port's CPU path
+    from the same state: every candidate box (within YOLO_BOX_ATOL
+    pixels) and score (within YOLO_SCORE_ATOL) of the three maps, and
+    again the card's slab equal to the CPU NMS of the card's candidates.
+    The two devices' slabs are not compared with each other: after the
+    warm-up's near-zero rate the kept scores all lie within ~1e-5 of
+    0.25, so the candidates' last bits decide their order.
+    Returns the path's port kernel launches (none)."""
+    t0 = time.perf_counter()
+    cfg = yolov3.base_config()
+    emain, _, eout = _yolo_program(cfg, evaluate=True)
+    nms, nms_in = _nms_inputs(emain)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    feeds = [_cuda_feed(yolov3.eval_feed(cfg, f)) for f in host]
+    syncs0 = fluid.profiler.host_sync_count()
+    _reset_launches()
+    slab = exe.run(emain, feed=feeds[0], fetch_list=eout["outs"],
+                   scope=scope, return_numpy=False)[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in range(YOLO_EVALS):
+        exe.run(emain, feed=feeds[k % len(feeds)], fetch_list=eout["outs"],
+                scope=scope, return_numpy=False)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) / YOLO_EVALS * 1e3
+    launches = _launches()
+    syncs = fluid.profiler.host_sync_count() - syncs0
+    slab = slab.cpu().numpy()
+    # one batch's slab with its candidates, outside the timed runs
+    full = [np.asarray(v) for v in exe.run(
+        emain, feed=feeds[0], fetch_list=eout["outs"] + nms_in, scope=scope)]
+    full_cpu = _nms_alone(nms, full[1], full[2], fluid.CPUPlace())
+    small = dict(cfg, **YOLO_CPU)
+    smain, _, sout = _yolo_program(small, evaluate=True)
+    snms, snms_in = _nms_inputs(smain)
+    sfeed = yolov3.eval_feed(small, next(yolov3.feeds(small, SEED + 1)))
+    sides = {}
+    for name, place in (("card", fluid.CUDAPlace(0)),
+                        ("cpu", fluid.CPUPlace())):
+        side = fluid.Executor(place)
+        sides[name] = [np.asarray(v) for v in side.run(
+            smain, feed=sfeed, fetch_list=sout["outs"] + snms_in,
+            scope=_state_copy(smain, scope, side.device))]
+    (a, boxes, scores), (b, cboxes, cscores) = sides["card"], sides["cpu"]
+    small_cpu = _nms_alone(snms, boxes, scores, fluid.CPUPlace())
+    box_err = float(np.abs(boxes - cboxes).max())
+    score_err = float(np.abs(scores - cscores).max())
+    labels = slab[..., 0]
+    kept = labels >= 0
+    checks = {
+        "slab_shape": slab.shape == (cfg["batch"], cfg["nms_posk"], 6),
+        "slab_labels": bool(((labels == -1) | (kept & (labels <
+                                                       cfg["classes"])))
+                            .all()) and bool(kept.any()),
+        "slab_finite": bool(np.isfinite(slab).all()),
+        "no_port_kernel": not any(launches.values()),
+        "no_host_sync": syncs == 0,
+        "slab_is_cpu_nms_of_card_candidates": np.array_equal(full[0],
+                                                             full_cpu),
+        "boxes_card_vs_cpu": box_err <= YOLO_BOX_ATOL,
+        "scores_card_vs_cpu": score_err <= YOLO_SCORE_ATOL,
+        "small_slab_is_cpu_nms_of_card_candidates": np.array_equal(
+            a, small_cpu)}
+    emit(phase="yolov3_eval", card=_card(), slab_shape=list(slab.shape),
+         kept_rows=int(kept.sum()), ms_per_eval_batch=eval_ms,
+         host_syncs=syncs, launches=launches,
+         full_vs_cpu_nms=dict(candidates=list(full[1].shape[:2]),
+                              kept_rows=int((full[0][..., 0] >= 0).sum()),
+                              rows_differ=int((full[0] != full_cpu)
+                                              .any(-1).sum())),
+         card_vs_cpu=dict(config=YOLO_CPU,
+                          kept_rows=int((a[..., 0] >= 0).sum()),
+                          rows_differ_from_cpu_nms=int((a != small_cpu)
+                                                       .any(-1).sum()),
+                          label_rows_differ_across_devices=int(
+                              (a[..., 0] != b[..., 0]).sum()),
+                          kept_score_spread=[
+                              float(np.ptp(x[x[:, 0] >= 0, 1])) for x in b],
+                          candidates=list(boxes.shape[:2]),
+                          boxes_max_abs_err=box_err,
+                          scores_max_abs_err=score_err),
+         checks=checks, seconds=time.perf_counter() - t0)
+    _fail_unless("yolov3_eval", checks)
+    return launches
+
+
+def yolo_k1_shapes(cfg):
+    """YOLOv3's 3x3 stride-1 convs at ``cfg``: (C, O, side, count): the
+    first conv, one 3x3 conv a basic block, two a detection block and
+    its tip (three of C -> 2C on each of the three maps)."""
+    div, side = cfg["width_div"], cfg["image"]
+    shapes = [(3, 32 // div, side, 1)]
+    for i, n in enumerate(cfg["stages"]):
+        c = 32 * 2 ** i // div
+        extra = 3 if i >= 2 else 0         # detection blocks on the
+        shapes.append((c, 2 * c, side // 2 ** (i + 1), n + extra))
+    return shapes
+
+
+def _yolo_k1_program(dtype, shapes):
+    """One conv2d (3x3, stride 1, padding 1, no bias) a shape over its
+    own data input, and the gradients of ``sum mean(out²)`` over the
+    inputs and filters."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        xs, outs = [], []
+        for k, (c, o, s, _) in enumerate(shapes):
+            x = fluid.layers.data("x%d" % k, [YOLO_K1_BATCH, c, s, s],
+                                  dtype=dtype, append_batch_size=False)
+            x.stop_gradient = False
+            xs.append(x)
+            outs.append(fluid.layers.conv2d(x, o, 3, padding=1,
+                                            bias_attr=False))
+        loss = None
+        for y in outs:
+            term = fluid.layers.mean(fluid.layers.square(
+                fluid.layers.cast(y, "float32")))
+            loss = term if loss is None else loss + term
+        params = main.global_block().all_parameters()
+        grads = fluid.gradients(loss, xs + params)
+    return main, startup, outs + grads
+
+
+def phase_yolo_k1():
+    """K1 at YOLOv3's 3x3 stride-1 shapes (``yolo_k1_shapes`` at
+    ``base_config()``, batch YOLO_K1_BATCH): one program of their convs
+    forward and backward through Executor under ``FLAGS_conv_pallas``,
+    in float32 and bfloat16, against the same program with the flag off
+    (cuDNN), from the same weights: outputs and gradients within K1's
+    tolerances of max|flag off|; one K1 launch for each conv that
+    ``k1_applies`` takes (the 8 MiB padded-image gate leaves float32's
+    304² x 32 conv to cuDNN), each of the variant ``k1_plan`` plans, and
+    what the gate decides for the 3 -> 32 first conv at 608² recorded.
+    Then each shape's K1 forward time (NHWC input, K-major weights, as
+    kernel_conv times it) beside cuDNN, the plain version and the bound.
+    Returns the flag-on runs' port kernel launches."""
+    from paddle_tpu_torch.fluid import flags
+    from paddle_tpu_torch.fluid.ops.conv_ops import k1_applies
+    t0 = time.perf_counter()
+    shapes = yolo_k1_shapes(yolov3.base_config())
+    rng = np.random.RandomState(SEED)
+    N = YOLO_K1_BATCH
+    rows, checks, total = [], {}, {n: 0 for n in KERNELS}
+    applies = {}
+    for dt in ("float32", "bfloat16"):
+        tdt = getattr(torch, dt)
+        esz = 4 if dt == "float32" else 2
+        main, startup, fetch = _yolo_k1_program(dt, shapes)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        feed = {"x%d" % k: torch.from_numpy(rng.randn(N, c, s, s).astype(
+            np.float32)).to("cuda", tdt)
+            for k, (c, o, s, _) in enumerate(shapes)}
+        took = [k1_applies((N, c, s, s), esz, (o, c, 3, 3), (1, 1), (1, 1),
+                           (1, 1), 1) for c, o, s, _ in shapes]
+        applies[dt] = took
+        got = {}
+        for on in (False, True):
+            flags.set_flag("conv_pallas", on)
+            try:
+                _reset_launches()
+                got[on] = exe.run(main, feed=feed, fetch_list=fetch,
+                                  scope=scope, return_numpy=False)
+                torch.cuda.synchronize()
+                if on:
+                    launches = _launches()
+                    variants = dict(conv3x3_bn_relu.launches_by_variant)
+            finally:
+                flags.set_flag("conv_pallas", False)
+        for n, c in launches.items():
+            total[n] += c
+        want_variants = dict.fromkeys(K1_VARIANTS, 0)
+        for (c, o, s, _), t in zip(shapes, took):
+            if t:
+                want_variants[k1_plan(N, s, s, c, o, tdt)["variant"]] += 1
+        tol = K1_FP32_TOL if dt == "float32" else K1_BF16_TOL
+        # compared on the card: the fetches hold ~1.5 GB
+        errs = [_rel(a, b) for a, b in zip(got[True], got[False])]
+        ok = max(errs) <= tol and \
+            launches["conv3x3_bn_relu"] == sum(took) and \
+            variants == want_variants and \
+            all(bool(torch.isfinite(a.float()).all()) for a in got[True])
+        rows.append(dict(dtype=dt, k1_applies=dict(zip(
+            ["%d->%d@%d" % s[:3] for s in shapes], took)),
+            max_err_rel=max(errs), errs_rel=errs,
+            tolerance="max|diff| <= %g max|flag off|" % tol,
+            k1_launches=launches["conv3x3_bn_relu"], variants=variants,
+            want_variants=want_variants, ok=ok))
+        checks[dt] = ok
+        del feed, got, scope
+    checks["first_conv_gate_recorded"] = all(
+        isinstance(applies[d][0], bool) for d in applies)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    times = []
+    for c, o, s, count in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            esz = 4 if dt == torch.float32 else 2
+            if not k1_applies((N, c, s, s), esz, (o, c, 3, 3), (1, 1),
+                              (1, 1), (1, 1), 1):
+                continue
+            x = torch.randn(N, s, s, c, device=dev, generator=gen).to(dt)
+            wk = (torch.randn(o, 3, 3, c, device=dev, generator=gen) *
+                  0.05).to(dt)
+            w = wk.permute(1, 2, 3, 0)
+            xl = x.permute(0, 3, 1, 2)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            t = dict(
+                ms=cuda_time_ms(lambda: conv3x3_bn_relu(x, w, relu=False)),
+                plain_ms=cuda_time_ms(lambda: conv3x3_bn_relu_reference(
+                    x, w, relu=False), iters=2, warmup=1),
+                library_ms=cuda_time_ms(lambda: torch.nn.functional.conv2d(
+                    xl, wl, padding=1)))
+            peak = PEAK_BF16_FLOPS if esz == 2 else PEAK_FP32_FLOPS
+            b = _bound(*k1_work(N, s, c, o, esz), peak)
+            row = dict(shape=[N, s, s, c, o], dtype=str(dt),
+                       convs_per_step=count,
+                       variant=k1_plan(N, s, s, c, o, dt)["variant"],
+                       bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                       roofline_share=b["bound_ms"] / t["ms"],
+                       tflops=b["gflop"] / t["ms"], **t)
+            emit(phase="yolo_k1_time", **row)
+            times.append(row)
+            del x, w, wk, xl, wl
+    emit(phase="yolo_k1", card=_card(), shapes=[list(s) for s in shapes],
+         batch=N, runs=rows, seconds=time.perf_counter() - t0)
+    _fail_unless("yolo_k1", checks)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
               "is false", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    bounds = phase_bounds()
-    k2 = phase_kernel()
-    bwd = phase_kernel_bwd()
-    nmt = phase_kernel_nmt()
-    k1 = phase_kernel_conv(bounds)
-    k6 = phase_kernel_ln(bounds)
-    by_path = {"serve": phase_slice()}
-    train = phase_train()
-    by_path["train"] = train["launches"]
-    by_path["dp_train"] = phase_dp_train(train)
-    by_path["dp_two_ranks"] = phase_dp_two_ranks(train)
-    by_path["dp_wus"], by_path["dp_wus_bert_int8"] = phase_dp_wus(train)
-    by_path["dp_two_ranks_sharded"], by_path["dp_two_ranks_int8"] = \
-        phase_dp_two_ranks_sharded(train)
-    by_path.update(phase_train_surface(train))
-    mp_paths, mp_ref, pp_two = phase_mp_bert(train)
-    by_path.update(mp_paths)
-    by_path.update(phase_pp_bert(train, mp_ref, pp_two))
-    del train, mp_ref
-    by_path["train_bias"] = phase_train_bias()
-    phase_train_attn_dropout()
-    resnet = phase_resnet_train()
-    by_path["resnet_train"] = resnet["launches"]
-    by_path["dp_resnet"] = phase_dp_resnet(resnet)
-    by_path["ln_path"] = phase_ln_path()
-    by_path["nmt_train"] = phase_nmt_train()
-    by_path["nmt_train_flash"] = phase_nmt_train_flash()
-    by_path["lenet_train"] = phase_lenet_train()
-    by_path["deepfm_train"] = phase_deepfm_train()
-    phase_deepfm_optimizers()
-    by_path["wrappers"] = phase_wrappers()
-    with _PsCluster(_ps_init()) as cluster:
-        by_path["ps_deepfm"], ps_ref = phase_ps_deepfm(cluster)
-        by_path["ps_two_trainers"] = phase_ps_two_trainers(cluster, ps_ref)
-    del ps_ref
-    phase_lookup_grad()
-    by_path["ckpt_resume"] = phase_ckpt_resume()
-    by_path["export_serve"] = phase_export_serve()
-    by_path["predictor_resnet"] = phase_predictor_resnet()
-    by_path["window_train"] = phase_window_train()
-    by_path["dataset_train"] = phase_dataset_train()
-    by_path["elastic_shrink"] = phase_elastic_shrink()
-    phase_watchdog_stall()
-    moe_paths, ring = phase_moe(pp_two)
-    del pp_two
-    by_path.update(moe_paths)
-    book_paths, mt = phase_book_train()
-    by_path.update(book_paths)
-    phase_book_check(mt)
-    del mt
-    phase_control_flow()
-    phase_sequence_ops()
-    by_path["crnn_ctc_train"] = phase_crnn_ctc_train()
-    _reset_launches()
-    phase_detection_ops()
-    by_path["detection_ops"] = _launches()
-    by_path["ssd_train"] = phase_ssd_train()
-    by_path["ssd_head_k1"] = phase_ssd_head_k1()
-    phase_cost_ledger()
-    phase_op_bench()
-    timings = dict(flash_attention_fwd=k2,
-                   flash_attention_bwd_dq=bwd["dq"],
-                   flash_attention_bwd_dkv=bwd["dkv"],
-                   flash_attention_bwd_dbias=bwd["dbias"],
-                   conv3x3_bn_relu=k1, layer_norm=k6)
-    csrc = "paddle_tpu_torch/csrc/"
-    rows = []
-    for name, source, replaces in (
-            ("flash_attention_fwd", "flash_attention_fwd.cu",
-             "pallas_ops.py:44"),
-            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-             "pallas_ops.py:115"),
-            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-             "pallas_ops.py:152"),
-            ("flash_attention_bwd_dbias", "flash_attention_bwd.cu",
-             "pallas_ops.py:196"),
-            ("conv3x3_bn_relu", "conv3x3_bn_relu.cu", "conv_pallas.py:33"),
-            ("layer_norm", "layer_norm.cu", "pallas_ops.py:706")):
-        t = timings[name]
-        paths = {p: c.get(name, 0) for p, c in by_path.items()}
-        rows.append(dict(
-            name=name, route="cuda", source=csrc + source,
-            replaces="paddle_tpu/fluid/ops/" + replaces,
-            launches=sum(paths.values()), launches_by_path=paths,
-            max_abs_err=t["max_abs_err"], ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"],
-            **({"ops_peak": t["ops_peak"]} if "ops_peak" in t else {}),
-            **({"per": t["per"]} if "per" in t else {})))
-        if name == "conv3x3_bn_relu":
-            rows[-1]["variants_resnet_train"] = resnet[
-                "k1_launches_by_variant"]
-        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-        if name == "flash_attention_fwd":
-            # the row's numbers are the serving shape's; training
-            # launches it with the LSE at BH = 384
-            rows[-1]["training_with_lse"] = {
-                key: bwd["fwd_with_lse"][key] for key in keys}
-            # the flash ring (K2 with the LSE per step, K3/K4 with the
-            # global LSE) at the MoE block's shape, rank 0's wall ms of
-            # forward + backward beside the einsum ring's
-            rows[-1]["flash_ring"] = ring
-        nmt_key = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq":
-                   "dq", "flash_attention_bwd_dkv": "dkv"}.get(name)
-        if nmt_key:
-            # Transformer NMT's shape (BH = 256, S = 256, D = 64; K2 with
-            # the LSE), causal and with the pad bias, fp32 and bf16
-            rows[-1]["nmt"] = {}
-            for case, t in nmt["timings"][nmt_key].items():
-                e = nmt["errors"][case]
-                err = max(e["dk"], e["dv"]) if nmt_key == "dkv" else \
-                    e[nmt_key]
-                rows[-1]["nmt"][case] = dict(
-                    {key: t[key] for key in keys}, max_abs_err=err)
-    emit(phase="wall", seconds=time.perf_counter() - t_start)
+    try:
+        smi = phase_device()
+        phase_build()
+        bounds = phase_bounds()
+        k2 = phase_kernel()
+        bwd = phase_kernel_bwd()
+        nmt = phase_kernel_nmt()
+        k1 = phase_kernel_conv(bounds)
+        k6 = phase_kernel_ln(bounds)
+        by_path = {"serve": phase_slice()}
+        train = phase_train()
+        by_path["train"] = train["launches"]
+        by_path["dp_train"] = phase_dp_train(train)
+        by_path["dp_two_ranks"] = phase_dp_two_ranks(train)
+        by_path["dp_wus"], by_path["dp_wus_bert_int8"] = phase_dp_wus(train)
+        by_path["dp_two_ranks_sharded"], by_path["dp_two_ranks_int8"] = \
+            phase_dp_two_ranks_sharded(train)
+        by_path.update(phase_train_surface(train))
+        mp_paths, mp_ref, pp_two = phase_mp_bert(train)
+        by_path.update(mp_paths)
+        by_path.update(phase_pp_bert(train, mp_ref, pp_two))
+        del train, mp_ref
+        by_path["train_bias"] = phase_train_bias()
+        phase_train_attn_dropout()
+        resnet = phase_resnet_train()
+        by_path["resnet_train"] = resnet["launches"]
+        by_path["dp_resnet"] = phase_dp_resnet(resnet)
+        by_path["ln_path"] = phase_ln_path()
+        by_path["nmt_train"] = phase_nmt_train()
+        by_path["nmt_train_flash"] = phase_nmt_train_flash()
+        by_path["lenet_train"] = phase_lenet_train()
+        by_path["deepfm_train"] = phase_deepfm_train()
+        phase_deepfm_optimizers()
+        by_path["wrappers"] = phase_wrappers()
+        with _PsCluster(_ps_init()) as cluster:
+            by_path["ps_deepfm"], ps_ref = phase_ps_deepfm(cluster)
+            by_path["ps_two_trainers"] = phase_ps_two_trainers(cluster, ps_ref)
+        del ps_ref
+        phase_lookup_grad()
+        by_path["ckpt_resume"] = phase_ckpt_resume()
+        by_path["export_serve"] = phase_export_serve()
+        by_path["predictor_resnet"] = phase_predictor_resnet()
+        by_path["window_train"] = phase_window_train()
+        by_path["dataset_train"] = phase_dataset_train()
+        by_path["elastic_shrink"] = phase_elastic_shrink()
+        phase_watchdog_stall()
+        moe_paths, ring = phase_moe(pp_two)
+        del pp_two
+        by_path.update(moe_paths)
+        book_paths, mt = phase_book_train()
+        by_path.update(book_paths)
+        phase_book_check(mt)
+        del mt
+        phase_control_flow()
+        phase_sequence_ops()
+        by_path["crnn_ctc_train"] = phase_crnn_ctc_train()
+        _reset_launches()
+        phase_detection_ops()
+        by_path["detection_ops"] = _launches()
+        by_path["ssd_train"] = phase_ssd_train()
+        by_path["ssd_head_k1"] = phase_ssd_head_k1()
+        by_path["core_ops"] = phase_core_ops()
+        by_path["yolov3_train"], yscope, yhost = phase_yolov3_train()
+        by_path["yolov3_eval"] = phase_yolov3_eval(yscope, yhost)
+        del yscope, yhost
+        torch.cuda.empty_cache()
+        by_path["yolo_k1"] = phase_yolo_k1()
+        phase_cost_ledger()
+        phase_op_bench()
+        timings = dict(flash_attention_fwd=k2,
+                       flash_attention_bwd_dq=bwd["dq"],
+                       flash_attention_bwd_dkv=bwd["dkv"],
+                       flash_attention_bwd_dbias=bwd["dbias"],
+                       conv3x3_bn_relu=k1, layer_norm=k6)
+        csrc = "paddle_tpu_torch/csrc/"
+        rows = []
+        for name, source, replaces in (
+                ("flash_attention_fwd", "flash_attention_fwd.cu",
+                 "pallas_ops.py:44"),
+                ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+                 "pallas_ops.py:115"),
+                ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+                 "pallas_ops.py:152"),
+                ("flash_attention_bwd_dbias", "flash_attention_bwd.cu",
+                 "pallas_ops.py:196"),
+                ("conv3x3_bn_relu", "conv3x3_bn_relu.cu", "conv_pallas.py:33"),
+                ("layer_norm", "layer_norm.cu", "pallas_ops.py:706")):
+            t = timings[name]
+            paths = {p: c.get(name, 0) for p, c in by_path.items()}
+            rows.append(dict(
+                name=name, route="cuda", source=csrc + source,
+                replaces="paddle_tpu/fluid/ops/" + replaces,
+                launches=sum(paths.values()), launches_by_path=paths,
+                max_abs_err=t["max_abs_err"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                **({"ops_peak": t["ops_peak"]} if "ops_peak" in t else {}),
+                **({"per": t["per"]} if "per" in t else {})))
+            if name == "conv3x3_bn_relu":
+                rows[-1]["variants_resnet_train"] = resnet[
+                    "k1_launches_by_variant"]
+            keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+            if name == "flash_attention_fwd":
+                # the row's numbers are the serving shape's; training
+                # launches it with the LSE at BH = 384
+                rows[-1]["training_with_lse"] = {
+                    key: bwd["fwd_with_lse"][key] for key in keys}
+                # the flash ring (K2 with the LSE per step, K3/K4 with the
+                # global LSE) at the MoE block's shape, rank 0's wall ms of
+                # forward + backward beside the einsum ring's
+                rows[-1]["flash_ring"] = ring
+            nmt_key = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq":
+                       "dq", "flash_attention_bwd_dkv": "dkv"}.get(name)
+            if nmt_key:
+                # Transformer NMT's shape (BH = 256, S = 256, D = 64; K2 with
+                # the LSE), causal and with the pad bias, fp32 and bf16
+                rows[-1]["nmt"] = {}
+                for case, t in nmt["timings"][nmt_key].items():
+                    e = nmt["errors"][case]
+                    err = max(e["dk"], e["dv"]) if nmt_key == "dkv" else \
+                        e[nmt_key]
+                    rows[-1]["nmt"][case] = dict(
+                        {key: t[key] for key in keys}, max_abs_err=err)
+    except BaseException:
+        # where a failed run's time went; the failure goes on as it was
+        emit(phase="wall_at_failure", seconds=time.perf_counter() - t_start,
+             by_phase=_seconds_by_phase(t_start))
+        raise
+    emit(phase="wall", seconds=time.perf_counter() - t_start,
+         by_phase=_seconds_by_phase(t_start))
     emit(kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,15 +35,17 @@ from . import flags
 from . import framework
 from .framework import (Program, Variable, Parameter, OpRole,
                         default_main_program, default_startup_program,
-                        program_guard, name_scope, cpu_places, cuda_places,
+                        program_guard, grad_var_name, name_scope,
+                        cpu_places, cuda_places, cuda_pinned_places,
                         is_compiled_with_cuda)
 from . import unique_name
 from .executor import (Executor, Scope, global_scope, scope_guard,
                        CPUPlace, CUDAPlace)
 from . import layers
 from . import initializer
-from .initializer import Constant, Uniform, Normal, TruncatedNormal, Xavier
-from .param_attr import ParamAttr
+from .initializer import (Constant, Uniform, Normal,  # noqa: F401
+                          TruncatedNormal, Xavier, MSRA)
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import backward
 from .backward import append_backward, gradients
 from . import regularizer

@@ -556,7 +556,7 @@ def grad_var_name(name):
 
 # ---------------------------------------------------------------------------
 # name_scope / place helpers (reference framework.py name_scope:62,
-# cpu_places/cuda_places, is_compiled_with_cuda)
+# cpu_places/cuda_places/cuda_pinned_places, is_compiled_with_cuda)
 # ---------------------------------------------------------------------------
 
 _name_scope_stack = []
@@ -600,3 +600,9 @@ def cuda_places(device_ids=None):
     if device_ids is None:
         device_ids = range(torch.cuda.device_count())
     return [CUDAPlace(int(i)) for i in device_ids]
+
+
+def cuda_pinned_places(device_count=None):
+    """Host places for pinned staging buffers: CPU places, as in the JAX
+    package (framework.py:690)."""
+    return cpu_places(device_count)

@@ -9,7 +9,10 @@ comparison, logical and modulo layers with ``increment`` and
 ``isfinite``, and the control flow: ``While``, ``cond``, ``Switch``,
 ``IfElse``, the tensor arrays and ``Print``, and the sequence, RNN and
 CTC layers (``sequence.py``, ``rnn.py``, ``nn_extras.py``,
-``nn_extras2.py``), and the detection layers (``detection.py``).
+``nn_extras2.py``), and the detection layers (``detection.py``), and the
+core layers of ROADMAP item 13c.3a (the reductions, shape, scatter and
+gather layers, ``conv2d_transpose``, ``mul``, the attribute-carrying
+activations, ``argsort``, the fills, ``auc``).
 """
 
 from . import io
@@ -39,12 +42,18 @@ from .nn import (fc, embedding, layer_norm, dropout, softmax,  # noqa: F401
                  reduce_sum, reduce_mean, one_hot, label_smooth,
                  sigmoid_cross_entropy_with_logits, clip, clip_by_norm,
                  cross_entropy, square_error_cost, squeeze, stack,
-                 expand, where, split)
+                 expand, where, split, conv2d_transpose, flatten,
+                 gather_nd, gaussian_random, huber_loss, l2_normalize, mul,
+                 pad, reduce_max, reduce_min, reduce_prod, scatter,
+                 uniform_random, uniform_random_batch_size_like)
 from .ops import *                                           # noqa: F401,F403
-from .metric_op import accuracy                              # noqa: F401
+from .metric_op import accuracy, auc                         # noqa: F401
 from .tensor import (assign, create_parameter, fill_constant,  # noqa: F401
                      cast, concat, sums, fill_constant_batch_size_like,
-                     zeros_like, range, isfinite)
+                     zeros_like, range, isfinite, create_tensor,
+                     create_global_var, zeros, ones, ones_like, argmax,
+                     argmin, argsort, reverse, has_nan, has_inf,
+                     tensor_array_to_tensor)
 from .rnn import (fused_attention, switch_moe, dynamic_lstm,  # noqa: F401
                   dynamic_gru, linear_chain_crf, crf_decoding, cos_sim,
                   nce, hsigmoid, beam_search, beam_search_decode)

@@ -8,6 +8,7 @@ Variable.  Shapes are build-time metadata (batch dim may be -1).
 
 import numpy as np
 
+from ..data_types import canonical_dtype
 from ..layer_helper import LayerHelper
 from ..initializer import ConstantInitializer, NormalInitializer
 
@@ -123,6 +124,54 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
                      outputs={"Output": [out]},
                      attrs={"strides": list(stride), "paddings": list(padding),
                             "dilations": list(dilation), "groups": groups})
+    pre_act = out
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters],
+                                    input.dtype, is_bias=True)
+        pre_act = helper.create_variable_for_type_inference(input.dtype)
+        pre_act.shape = out.shape
+        helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [pre_act]}, attrs={"axis": 1})
+    return helper.append_activation(pre_act, act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """Transposed 2-D convolution, NCHW (JAX nn.py:136): the filter is
+    ``[C_in, num_filters / groups, kh, kw]``; ``filter_size`` is required
+    and ``output_size`` is not read (the output side is ``(H - 1) s - 2 p
+    + d (k - 1) + 1``), as in the JAX package."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        raise ValueError("filter_size required")
+    fsize = _pair(filter_size)
+    filter_shape = [num_channels, num_filters // (groups or 1)] + list(fsize)
+    w = helper.create_parameter(helper.param_attr, filter_shape, input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+
+    def _out(size, k, p, s, d):
+        if size is None or size < 0:
+            return -1
+        return (size - 1) * s - 2 * p + d * (k - 1) + 1
+
+    out.shape = (input.shape[0], num_filters,
+                 _out(input.shape[2], fsize[0], padding[0], stride[0],
+                      dilation[0]),
+                 _out(input.shape[3], fsize[1], padding[1], stride[1],
+                      dilation[1]))
+    helper.append_op("conv2d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": list(stride), "paddings": list(padding),
+                            "dilations": list(dilation),
+                            "groups": groups or 1})
     pre_act = out
     if helper.bias_attr is not False:
         b = helper.create_parameter(helper.bias_attr, [num_filters],
@@ -563,6 +612,18 @@ def reduce_mean(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_mean", input, dim, keep_dim, name)
 
 
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
 def one_hot(input, depth):
     helper = LayerHelper("one_hot")
     out = helper.create_variable_for_type_inference("float32")
@@ -685,3 +746,147 @@ def split(input, num_or_sections, dim=-1, name=None):
     helper.append_op("split", inputs={"X": [input]}, outputs={"Out": outs},
                      attrs={"axis": axis, "num": num, "sections": sections})
     return outs
+
+
+def huber_loss(input, label, delta):
+    """Huber loss on ``label - input`` (JAX nn.py:363); the Residual
+    output is a temporary."""
+    helper = LayerHelper("huber_loss")
+    residual = helper.create_variable_for_type_inference(input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op("huber_loss", inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """``x`` flattened to 2-D at ``x_num_col_dims`` times ``y`` flattened
+    at ``y_num_col_dims`` (JAX nn.py:382): one ``mul`` op."""
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(x.shape[:x_num_col_dims]) + tuple(
+        y.shape[y_num_col_dims:])
+    helper.append_op("mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    """``x`` as ``[prod(shape[:axis]), prod(shape[axis:])]``: a
+    ``flatten2`` op (JAX nn.py:534)."""
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        lead = int(np.prod([s for s in x.shape[:axis]])) if axis > 0 else 1
+        trail = int(np.prod([s for s in x.shape[axis:]]))
+        out.shape = (lead if all(s > 0 for s in x.shape[:axis]) else -1,
+                     trail)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op("flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
+    return out
+
+
+def gather_nd(input, index, name=None):
+    """``input`` at the coordinates in the last dim of ``index`` (JAX
+    nn.py:662)."""
+    helper = LayerHelper("gather_nd", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather_nd", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def scatter(input, index, updates, overwrite=True, name=None):
+    """``input`` with rows ``index`` set to (or, without ``overwrite``,
+    increased by) ``updates`` (JAX nn.py:670)."""
+    helper = LayerHelper("scatter", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op("scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x / sqrt(sum(x², axis) + epsilon)``, composed of elementwise,
+    reduce and ``rsqrt`` ops as the JAX layer composes it (nn.py:718)."""
+    sq = elementwise_mul(x, x)
+    ssum = reduce_sum(sq, dim=axis, keep_dim=True)
+    norm = scale(ssum, 1.0, epsilon)
+    helper = LayerHelper("l2_normalize")
+    rsq = helper.create_variable_for_type_inference(x.dtype)
+    rsq.shape = norm.shape
+    helper.append_op("rsqrt", inputs={"X": [norm]}, outputs={"Out": [rsq]})
+    return elementwise_mul(x, rsq, axis=0 if axis == 0 else -1)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    """``x`` padded with ``pad_value``: ``paddings`` holds (before, after)
+    for each dim in order (JAX nn.py:748)."""
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None:
+        out.shape = tuple(
+            (s + paddings[2 * i] + paddings[2 * i + 1]) if s and s > 0 else -1
+            for i, s in enumerate(x.shape))
+    helper.append_op("pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32", min=-1.0,
+                                   max=1.0, seed=0, input_dim_idx=0,
+                                   output_dim_idx=0):
+    """Uniform draws in ``[min, max)`` of ``shape`` with the batch dim
+    taken from ``input`` (JAX nn.py:761)."""
+    helper = LayerHelper("uniform_random_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    out.shape = tuple(shape)
+    helper.append_op("uniform_random_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "min": min, "max": max,
+                            "seed": seed, "dtype": canonical_dtype(dtype),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx,
+                            "__op_seed__":
+                                helper.main_program.next_op_seed()})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    """Normal draws of ``shape`` (JAX nn.py:779)."""
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    out.shape = tuple(shape)
+    helper.append_op("gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": mean, "std": std,
+                            "seed": seed, "dtype": canonical_dtype(dtype),
+                            "__op_seed__":
+                                helper.main_program.next_op_seed()})
+    return out
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    """Uniform draws in ``[min, max)`` of ``shape`` (JAX nn.py:792)."""
+    helper = LayerHelper("uniform_random")
+    out = helper.create_variable_for_type_inference(dtype,
+                                                    stop_gradient=True)
+    out.shape = tuple(shape)
+    helper.append_op("uniform_random", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "min": min, "max": max,
+                            "seed": seed, "dtype": canonical_dtype(dtype),
+                            "__op_seed__":
+                                helper.main_program.next_op_seed()})
+    return out

@@ -5,8 +5,10 @@ ones: ``add_position_encoding``, ``ctc_greedy_decoder``,
 ``gru_unit``, ``lstm_unit``, ``dynamic_lstmp``, ``lstm``,
 ``sequence_reshape``, ``sequence_scatter`` and ``sequence_erase``, and
 the detection ones: ``roi_pool``, ``psroi_pool``, ``deformable_conv``
-and ``deformable_roi_pooling``; the rest of the JAX file is ROADMAP item
-13c.3."""
+and ``deformable_roi_pooling``, and the shape and loss ones: ``sum``,
+``shape``, ``pow``, ``unstack``, ``dice_loss``, ``npair_loss``,
+``image_resize_short`` and ``autoincreased_step_counter``; the rest of
+the JAX file is ROADMAP item 13c.3b."""
 
 from ..layer_helper import LayerHelper
 from .nn_extras import _simple
@@ -16,7 +18,9 @@ __all__ = [
     "warpctc", "row_conv", "chunk_eval", "gru_unit", "lstm_unit",
     "dynamic_lstmp", "lstm", "sequence_reshape", "sequence_scatter",
     "sequence_erase", "roi_pool", "psroi_pool", "deformable_conv",
-    "deformable_roi_pooling",
+    "deformable_roi_pooling", "sum", "shape", "pow", "unstack",
+    "dice_loss", "npair_loss", "image_resize_short",
+    "autoincreased_step_counter",
 ]
 
 
@@ -361,3 +365,108 @@ def deformable_roi_pooling(input, rois, trans, no_trans=False,
                "sample_per_part": int(sample_per_part),
                "trans_std": float(trans_std)})
     return out
+
+
+def sum(x):
+    """The sum of the list ``x`` (or of ``x`` alone): one ``sum`` op (JAX
+    nn_extras2.py:330)."""
+    from . import tensor as tensor_layers
+    return tensor_layers.sums(x if isinstance(x, (list, tuple)) else [x])
+
+
+def shape(input):
+    """``input``'s shape as an int32 tensor (JAX nn_extras2.py:335)."""
+    return _simple("shape", {"Input": [input]}, dtype="int32")
+
+
+def pow(x, factor=1.0, name=None):
+    """``x ** factor`` (JAX nn_extras2.py:629)."""
+    return _simple("pow", {"X": [x]}, {"factor": factor}, shape_of=x)
+
+
+def unstack(x, axis=0, num=None):
+    """The slices of ``x`` along ``axis``, that axis dropped (JAX
+    nn_extras2.py:347)."""
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = int(x.shape[axis])
+    outs = [helper.create_variable_for_type_inference(x.dtype)
+            for _ in range(num)]
+    helper.append_op("unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """``1 - 2 |X∩Y| / (|X| + |Y| + epsilon)`` over the whole batch,
+    composed as the JAX layer composes it (nn_extras2.py:358)."""
+    from . import nn as nn_layers
+    from . import tensor as tensor_layers
+    label_f = tensor_layers.cast(label, input.dtype)
+    inter = nn_layers.reduce_sum(nn_layers.elementwise_mul(input, label_f))
+    union = nn_layers.elementwise_add(nn_layers.reduce_sum(input),
+                                      nn_layers.reduce_sum(label_f))
+    two_inter = nn_layers.scale(inter, 2.0)
+    denom = nn_layers.scale(union, 1.0, bias=epsilon)
+    ratio = nn_layers.elementwise_div(two_inter, denom)
+    return nn_layers.scale(ratio, -1.0, bias=1.0)
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    """The N-pair loss (JAX nn_extras2.py:372): soft-label cross entropy
+    of ``softmax(anchor positiveᵀ)`` against the row-normalized
+    same-label matrix, plus ``l2_reg / 4`` times the mean squared norms
+    of both embeddings."""
+    from . import nn as nn_layers
+    from . import ops as op_layers
+    from . import tensor as tensor_layers
+    sim = nn_layers.matmul(anchor, positive, transpose_y=True)
+    prob = nn_layers.softmax(sim)
+    lab = nn_layers.reshape(labels, [-1, 1])
+    labf = tensor_layers.cast(lab, anchor.dtype)
+    diff = nn_layers.elementwise_sub(
+        labf, nn_layers.transpose(labf, [1, 0]))
+    # 1 where the labels are equal: 1 - sign(|li - lj|)
+    eq_f = nn_layers.scale(op_layers.sign(op_layers.abs(diff)), -1.0,
+                           bias=1.0)
+    row_sum = nn_layers.reduce_sum(eq_f, dim=1, keep_dim=True)
+    targets = nn_layers.elementwise_div(eq_f, row_sum)
+    ce = nn_layers.cross_entropy(prob, targets, soft_label=True)
+    loss_ce = nn_layers.reduce_mean(ce)
+    l2 = nn_layers.scale(
+        nn_layers.elementwise_add(
+            nn_layers.reduce_mean(nn_layers.reduce_sum(
+                nn_layers.elementwise_mul(anchor, anchor), dim=1)),
+            nn_layers.reduce_mean(nn_layers.reduce_sum(
+                nn_layers.elementwise_mul(positive, positive), dim=1))),
+        l2_reg * 0.25)
+    return nn_layers.elementwise_add(loss_ce, l2)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """``input`` resized so that its shorter side is ``out_short_len``,
+    the aspect kept (JAX nn_extras2.py:417)."""
+    from .detection import image_resize
+    H, W = int(input.shape[2]), int(input.shape[3])
+    short = min(H, W)
+    out_shape = [int(H * out_short_len / short),
+                 int(W * out_short_len / short)]
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 ``(1,)`` counter that reads ``begin`` on the
+    first run and grows by ``step`` a run (JAX nn_extras2.py:547): the
+    startup sets ``begin - step``, one in-place ``increment`` a run."""
+    from . import control_flow as cf
+    from ..initializer import ConstantInitializer
+    from .. import unique_name
+    helper = LayerHelper("step_counter")
+    counter = helper.create_or_get_global_variable(
+        name=counter_name or unique_name.generate("@STEP_COUNTER@"),
+        dtype="int64", shape=(1,), persistable=True)
+    counter.stop_gradient = True
+    helper.set_variable_initializer(
+        counter, ConstantInitializer(float(begin - step)))
+    cf.increment(counter, value=float(step), in_place=True)
+    return counter

@@ -3,7 +3,11 @@ counterpart paddle_tpu/fluid/layers/tensor.py): ``assign``, which BERT's
 causal composition path and the Transformer's positional table call,
 ``create_parameter``, ``fill_constant``, ``cast``, ``concat`` and
 ``sums`` (DeepFM and the global-norm clip), and the book models'
-``fill_constant_batch_size_like``, ``zeros_like`` and ``range``."""
+``fill_constant_batch_size_like``, ``zeros_like`` and ``range``; the
+fills ``zeros``, ``ones``, ``ones_like``, the global variables
+``create_tensor``/``create_global_var``, ``argmax``/``argmin``/
+``argsort``, ``reverse``, ``has_nan``/``has_inf`` and
+``tensor_array_to_tensor``."""
 
 import numpy as np
 
@@ -168,3 +172,95 @@ def range(start, end, step, dtype="int64"):
     helper.append_op("range", inputs={"Start": [s], "End": [e], "Step": [st]},
                      outputs={"Out": [out]})
     return out
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def ones_like(x, out=None):
+    """``x``'s shape and dtype filled with 1: a ``fill_any_like`` op (JAX
+    tensor.py:194)."""
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 1.0})
+    return out
+
+
+def argmax(x, axis=0):
+    """int64 index of the largest entry along ``axis``, the first among
+    ties (JAX tensor.py:125)."""
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("arg_max", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("arg_min", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def argsort(x, axis=-1, name=None):
+    """``(sorted x, int64 order)`` along ``axis``, ascending and stable
+    (JAX tensor.py:143)."""
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    ids = helper.create_variable_for_type_inference("int64",
+                                                    stop_gradient=True)
+    helper.append_op("argsort", inputs={"X": [x]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis})
+    return out, ids
+
+
+def reverse(x, axis):
+    """``x`` flipped along ``axis`` (an int or a list; JAX tensor.py:177)."""
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op("reverse", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis if isinstance(axis, (list, tuple))
+                            else [axis]})
+    return out
+
+
+def has_nan(x):
+    """One ``(1,)`` bool: some entry of ``x`` is NaN (JAX tensor.py:220)."""
+    helper = LayerHelper("has_nan")
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op("has_nan", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def has_inf(x):
+    """One ``(1,)`` bool: some entry of ``x`` is infinite (JAX
+    tensor.py:230)."""
+    helper = LayerHelper("has_inf")
+    out = helper.create_variable_for_type_inference("bool")
+    helper.append_op("has_inf", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def tensor_array_to_tensor(input, axis=1, name=None):
+    """A tensor array joined into one tensor along ``axis``, with each
+    entry's size along it (JAX tensor.py:238): ``(out, out_index)``."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    out_index = helper.create_variable_for_type_inference("int32")
+    helper.append_op("tensor_array_to_tensor", inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [out_index]},
+                     attrs={"axis": int(axis)})
+    return out, out_index

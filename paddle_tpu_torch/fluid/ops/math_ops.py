@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from ..registry import register_op
 from ..flags import matmul_precision
 from ..lowering import amp_operands
+from .detection_ops import clip
 
 # ---------------------------------------------------------------------------
 # Paddle elementwise broadcast: Y aligns to X starting at `axis`
@@ -187,12 +188,8 @@ def _scalar(v, like):
 
 @register_op("clip")
 def _clip(ctx, op):
-    """math_ops.py:248, ``jnp.clip``: ``minimum(maximum(x, min), max)``.
-    The composition keeps jnp's gradient at a bound (half on each side of
-    a tie), where ``torch.clamp`` passes all of it."""
-    x = ctx.i("X")
-    out = torch.maximum(x, _scalar(ctx.attr("min"), x))
-    ctx.set("Out", torch.minimum(out, _scalar(ctx.attr("max"), x)))
+    """math_ops.py:248, ``jnp.clip``."""
+    ctx.set("Out", clip(ctx.i("X"), ctx.attr("min"), ctx.attr("max")))
 
 
 @register_op("clip_by_norm")
@@ -232,35 +229,155 @@ def _mean(ctx, op):
     ctx.set("Out", torch.mean(ctx.i("X")).reshape((1,)))
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, op):
-    """math_ops.py:136: the sum over ``dim`` (Paddle's negative axes
-    allowed), or over every axis with ``reduce_all``, which gives a 0-d
-    tensor as ``jnp.sum(axis=None)`` does (a 1-element one of rank
-    ``x.dim()`` with ``keep_dim``).  An empty ``dim`` sums nothing."""
-    x = ctx.i("X")
-    keep = ctx.attr("keep_dim", False)
-    if ctx.attr("reduce_all", False):
-        axes = tuple(range(x.dim()))
-    else:
-        axes = tuple(sorted({d % x.dim() for d in ctx.attr("dim", [0])}))
-    ctx.set("Out", torch.sum(x, dim=axes, keepdim=keep) if axes else x)
-
-
-@register_op("reduce_mean")
-def _reduce_mean(ctx, op):
-    """math_ops.py:151: the mean over ``dim``, or over every axis with
-    ``reduce_all`` (0-d, as ``jnp.mean(axis=None)``), as reduce_sum
-    reads its attributes."""
-    x = ctx.i("X")
-    keep = ctx.attr("keep_dim", False)
-    if ctx.attr("reduce_all", False):
-        axes = tuple(range(x.dim()))
-    else:
-        axes = tuple(sorted({d % x.dim() for d in ctx.attr("dim", [0])}))
-    ctx.set("Out", torch.mean(x, dim=axes, keepdim=keep) if axes else x)
-
-
 @register_op("softmax")
 def _softmax(ctx, op):
     ctx.set("Out", torch.softmax(ctx.i("X"), dim=ctx.attr("axis", -1)))
+
+
+def _reduce_axes(ctx, x):
+    """The sorted axes a reduce op names (Paddle's negative axes allowed),
+    every axis with ``reduce_all``."""
+    if ctx.attr("reduce_all", False):
+        return tuple(range(x.dim()))
+    return tuple(sorted({d % x.dim() for d in ctx.attr("dim", [0])}))
+
+
+class _LastProd(torch.autograd.Function):
+    """The product over the last dim.  Its gradient, each entry's product
+    of all the others, is the exclusive running product from the left
+    times the one from the right: exact where entries are 0, as JAX's,
+    and with no host read (``torch.prod``'s backward asks the host
+    whether an entry is 0)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return torch.prod(y, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        one = torch.ones_like(y[..., :1])
+        left = torch.cumprod(torch.cat([one, y[..., :-1]], -1), -1)
+        right = torch.flip(torch.cumprod(torch.cat(
+            [one, torch.flip(y[..., 1:], (-1,))], -1), -1), (-1,))
+        return g.unsqueeze(-1) * left * right
+
+
+def _prod(x, axes, keep):
+    """``jnp.prod`` over ``axes``: the reduced axes moved last and
+    flattened into one (:class:`_LastProd`)."""
+    rest = [d for d in range(x.dim()) if d not in axes]
+    y = x.permute(*rest, *axes).reshape(
+        [x.shape[d] for d in rest] + [-1])
+    out = _LastProd.apply(y)
+    if keep:
+        out = out.reshape([1 if d in axes else s
+                           for d, s in enumerate(x.shape)])
+    return out
+
+
+def _reduce(fn):
+    def lower(ctx, op):
+        x = ctx.i("X")
+        axes = _reduce_axes(ctx, x)
+        ctx.set("Out", fn(x, axes, ctx.attr("keep_dim", False))
+                if axes else x)
+    return lower
+
+
+# math_ops.py:149-154: the reduction over ``dim`` (Paddle's negative
+# axes allowed), or over every axis with ``reduce_all``, which gives a
+# 0-d tensor as ``jnp.sum(axis=None)`` does (a 1-element one of rank
+# ``x.dim()`` with ``keep_dim``).  torch.amax/amin share the gradient
+# equally among tied extrema, as JAX's max/min do (torch.max(dim) would
+# give it all to one); an empty ``dim`` reduces nothing (torch's dim=()
+# would reduce every axis)
+for _name, _fn in [
+    ("reduce_sum", lambda x, a, k: torch.sum(x, dim=a, keepdim=k)),
+    ("reduce_mean", lambda x, a, k: torch.mean(x, dim=a, keepdim=k)),
+    ("reduce_max", lambda x, a, k: torch.amax(x, dim=a, keepdim=k)),
+    ("reduce_min", lambda x, a, k: torch.amin(x, dim=a, keepdim=k)),
+    ("reduce_prod", _prod),
+]:
+    register_op(_name)(_reduce(_fn))
+
+
+@register_op("relu6")
+def _relu6(ctx, op):
+    """math_ops.py:199: ``clip(x, 0, threshold)``: gradient 0.5 at exactly
+    0 and at exactly the threshold."""
+    x = ctx.i("X")
+    ctx.set("Out", clip(x, 0.0, ctx.attr("threshold", 6.0)))
+
+
+@register_op("leaky_relu")
+def _leaky_relu(ctx, op):
+    """math_ops.py:206: ``where(x >= 0, x, alpha x)``: gradient 1 at
+    exactly 0 (``F.leaky_relu`` gives alpha there)."""
+    x = ctx.i("X")
+    ctx.set("Out", torch.where(x >= 0, x,
+                               x * _scalar(ctx.attr("alpha", 0.02), x)))
+
+
+@register_op("hard_sigmoid")
+def _hard_sigmoid(ctx, op):
+    """math_ops.py:219: ``clip(slope x + offset, 0, 1)``: gradient half
+    the slope at either bound."""
+    x = ctx.i("X")
+    y = x * _scalar(ctx.attr("slope", 0.2), x) + \
+        _scalar(ctx.attr("offset", 0.5), x)
+    ctx.set("Out", clip(y, 0.0, 1.0).to(x.dtype))
+
+
+@register_op("swish")
+def _swish(ctx, op):
+    """math_ops.py:227: ``x sigmoid(beta x)``."""
+    x = ctx.i("X")
+    ctx.set("Out", x * torch.sigmoid(_scalar(ctx.attr("beta", 1.0), x) * x))
+
+
+@register_op("stanh")
+def _stanh(ctx, op):
+    """math_ops.py:234: ``b tanh(a x)``."""
+    x = ctx.i("X")
+    a = _scalar(ctx.attr("scale_a", 0.67), x)
+    ctx.set("Out", _scalar(ctx.attr("scale_b", 1.7159), x) *
+            torch.tanh(a * x))
+
+
+@register_op("pow")
+def _pow(ctx, op):
+    """math_ops.py:242: ``x ** factor``, the factor rounded to float32 as
+    the JAX rule's ``jnp.asarray(factor, x.dtype)`` rounds it.  A Python
+    exponent, not a 0-d tensor: the tensor exponent's backward reads a
+    value back to the host."""
+    x = ctx.i("X")
+    factor = _scalar(ctx.attr("factor", 1.0), x).item()    # a host value
+    ctx.set("Out", torch.pow(x, factor))
+
+
+@register_op("log_softmax")
+def _log_softmax(ctx, op):
+    """math_ops.py:269: ``jax.nn.log_softmax`` over ``axis``."""
+    ctx.set("Out", torch.log_softmax(ctx.i("X"), dim=ctx.attr("axis", -1)))
+
+
+@register_op("cumsum")
+def _cumsum(ctx, op):
+    """math_ops.py:275: the running sum along ``axis``; ``exclusive``
+    shifts it one place (the first entry 0), ``reverse`` runs it from
+    the end."""
+    x = ctx.i("X")
+    axis = ctx.attr("axis", -1) % x.dim()
+    reverse = ctx.attr("reverse", False)
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis)
+    if ctx.attr("exclusive", False):
+        first = torch.zeros_like(out.narrow(axis, 0, 1))
+        out = torch.cat([first, out.narrow(axis, 0, out.shape[axis] - 1)],
+                        dim=axis)
+    if reverse:
+        out = torch.flip(out, (axis,))
+    ctx.set("Out", out)

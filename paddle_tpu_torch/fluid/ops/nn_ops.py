@@ -2,7 +2,8 @@
 nn_ops.py``): conv2d / depthwise_conv2d, pool2d, batch_norm, layer_norm,
 dropout, softmax_with_cross_entropy, sigmoid_cross_entropy_with_logits,
 accuracy, and the book models' losses: cross_entropy, square_error_cost,
-cos_sim and nce.
+cos_sim and nce; conv2d_transpose (and its depthwise type), huber_loss
+and the streaming auc.
 
 Every conv route but K1's stays a library convolution (``F.conv2d``,
 cuDNN on the card), as the JAX package leaves its convs to XLA; K1 is
@@ -80,6 +81,33 @@ def _conv2d(ctx, op):
 # groups == in_channels (the reference has a dedicated kernel; here the
 # same rule covers it)
 register_op("depthwise_conv2d")(_conv2d)
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, op):
+    """nn_ops.py:153: the transposed convolution of NCHW Input by Filter
+    ``[C_in, C_out/groups, kh, kw]`` (the layout both packages and
+    ``F.conv_transpose2d`` share), as the JAX rule's dilated forward conv
+    of the flipped filter computes it.  The JAX rule reads no
+    ``output_size``: the output side is ``(H - 1) s - 2 p + d (k - 1) +
+    1``, so torch's ``output_padding`` is 0.  A library convolution
+    (cuDNN on the card), as XLA's is in the JAX package; AMP as conv2d."""
+    x = ctx.i("Input")
+    w = ctx.i("Filter")
+    strides = tuple(ctx.attr("strides", [1, 1]))
+    pads = tuple(ctx.attr("paddings", [0, 0]))[:2]
+    dilations = tuple(ctx.attr("dilations", [1, 1]))
+    groups = ctx.attr("groups", 1) or 1
+    x, w, acc = amp_operands(ctx.state, x, w.to(x.dtype))
+    out = F.conv_transpose2d(x, w, None, strides, pads, 0, groups,
+                             dilations)
+    if acc is not None:
+        out = out.to(acc)
+    ctx.set("Output", out)
+
+
+# groups == in_channels (nn_ops.py:190): the grouped rule covers it
+register_op("depthwise_conv2d_transpose")(_conv2d_transpose)
 
 
 @register_op("pool2d")
@@ -368,6 +396,55 @@ def _cross_entropy(ctx, op):
 def _square_error_cost(ctx, op):
     """nn_ops.py:394: ``(X − Y)²`` entry by entry."""
     ctx.set("Out", torch.square(ctx.i("X") - ctx.i("Y")))
+
+
+@register_op("huber_loss")
+def _huber_loss(ctx, op):
+    """nn_ops.py:401: on the residual ``r = Y - X``, ``r²/2`` where
+    ``|r| <= delta``, else ``delta (|r| - delta/2)``; Residual is r."""
+    x = ctx.i("X")
+    r = ctx.i("Y") - x
+    delta = ctx.attr("delta", 1.0)
+    ar = torch.abs(r)
+    d = torch.tensor(delta, dtype=x.dtype)
+    loss = torch.where(ar <= d, 0.5 * r * r,
+                       d * (ar - torch.tensor(0.5 * delta, dtype=x.dtype)))
+    ctx.set("Residual", r)
+    ctx.set("Out", loss)
+
+
+@register_op("auc", stop_gradient=True)
+def _auc(ctx, op):
+    """nn_ops.py:428, the streaming AUC: each prediction's positive score
+    (column 1 of a 2-column Predict, else Predict flattened) falls in bin
+    ``int32(p * num_thresholds)`` (a float32 product truncated, as the
+    JAX rule rounds it), clipped to ``[0, num_thresholds]``; the batch's
+    label counts are added to the persistable StatPos/StatNeg histograms
+    (StatPosOut/StatNegOut name the same variables), and the AUC is the
+    trapezoid sum over the thresholds from the top, over tp·fp, 0 when
+    either total is 0."""
+    preds = ctx.i("Predict")
+    stat_pos, stat_neg = ctx.i("StatPos"), ctx.i("StatNeg")
+    nt = int(ctx.attr("num_thresholds", 4095))
+    pos = preds[:, 1] if preds.dim() == 2 and preds.shape[1] == 2 \
+        else preds.reshape(-1)
+    lab = ctx.i("Label").reshape(-1).to(torch.float32)
+    idx = (pos * nt).to(torch.int32).clamp(0, nt).long()
+    new_pos = stat_pos + torch.zeros_like(stat_pos).index_add(
+        0, idx, lab.to(stat_pos.dtype))
+    new_neg = stat_neg + torch.zeros_like(stat_neg).index_add(
+        0, idx, (1.0 - lab).to(stat_neg.dtype))
+    tp = torch.flip(torch.cumsum(torch.flip(new_pos, (0,)), 0), (0,)) \
+        .to(torch.float32)
+    fp = torch.flip(torch.cumsum(torch.flip(new_neg, (0,)), 0), (0,)) \
+        .to(torch.float32)
+    auc = torch.sum((fp[:-1] - fp[1:]) * (tp[:-1] + tp[1:]) / 2.0)
+    denom = tp[0] * fp[0]
+    auc = torch.where(denom > 0, auc / torch.clamp_min(denom, 1.0),
+                      torch.zeros_like(auc))
+    ctx.set("AUC", auc.reshape(()))
+    ctx.set("StatPosOut", new_pos)
+    ctx.set("StatNegOut", new_neg)
 
 
 @register_op("cos_sim")

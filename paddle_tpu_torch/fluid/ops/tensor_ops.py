@@ -112,6 +112,25 @@ def _transpose2(ctx, op):
     ctx.set("XShape", _empty_xshape(ctx))
 
 
+# the v1 types share their v2 rule (tensor_ops.py:90-130); they have no
+# XShape output, so the rule's XShape goes nowhere
+register_op("transpose")(_transpose2)
+
+
+@register_op("flatten2")
+def _flatten2(ctx, op):
+    """tensor_ops.py:93: X as ``[prod(shape[:axis]), -1]`` (1 rows ahead
+    of axis 0)."""
+    x = ctx.i("X")
+    axis = ctx.attr("axis", 1)
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+    ctx.set("Out", x.reshape((lead, -1)))
+    ctx.set("XShape", _empty_xshape(ctx))
+
+
+register_op("flatten")(_flatten2)
+
+
 @register_op("unsqueeze2")
 def _unsqueeze2(ctx, op):
     x = ctx.i("X")
@@ -119,6 +138,9 @@ def _unsqueeze2(ctx, op):
         x = x.unsqueeze(a)
     ctx.set("Out", x)
     ctx.set("XShape", _empty_xshape(ctx))
+
+
+register_op("unsqueeze")(_unsqueeze2)
 
 
 @register_op("squeeze2")
@@ -137,6 +159,9 @@ def _squeeze2(ctx, op):
     ctx.set("XShape", _empty_xshape(ctx))
 
 
+register_op("squeeze")(_squeeze2)
+
+
 @register_op("stack")
 def _stack(ctx, op):
     """tensor_ops.py:153: the X list stacked along a new ``axis``."""
@@ -144,10 +169,29 @@ def _stack(ctx, op):
                              dim=ctx.attr("axis", 0)))
 
 
+@register_op("unstack")
+def _unstack(ctx, op):
+    """tensor_ops.py:158: X cut into its slices along ``axis``, that
+    axis dropped."""
+    x = ctx.i("X")
+    for i, part in enumerate(torch.unbind(x, dim=ctx.attr("axis", 0))):
+        ctx.set("Y", part, idx=i)
+
+
 @register_op("expand")
 def _expand(ctx, op):
     """tensor_ops.py:181: X tiled ``expand_times`` along each axis."""
     ctx.set("Out", ctx.i("X").repeat(*ctx.attr("expand_times")))
+
+
+@register_op("expand_as")
+def _expand_as(ctx, op):
+    """tensor_ops.py:188: X tiled to target_tensor's shape (each of its
+    dims a whole multiple of X's)."""
+    x = ctx.i("X")
+    target = ctx.i("target_tensor")
+    ctx.set("Out", x.repeat(*(t // s for t, s in zip(target.shape,
+                                                      x.shape))))
 
 
 @register_op("fill_zeros_like")
@@ -232,6 +276,50 @@ def _gather(ctx, op):
     ctx.set("Out", torch.index_select(x, 0, ctx.i("Index").long()))
 
 
+def _wrap_negative(ids, n):
+    """jnp indexing's reading of an index into a dim of ``n``: a negative
+    index counts from the end."""
+    return torch.where(ids < 0, ids + n, ids)
+
+
+@register_op("gather_nd", nondiff_inputs=("Index",))
+def _gather_nd(ctx, op):
+    """tensor_ops.py:203: ``x[tuple(moveaxis(index, -1, 0))]``: the last
+    dim of Index holds the leading coordinates into X.  As jnp indexing
+    reads them, a negative coordinate counts from the end and one still
+    out of range is clamped to the nearest row, so the gather never
+    reads outside X; the gradient of such a clamped read is dropped, as
+    the scatter-add of JAX's backward drops an out-of-range update."""
+    x = ctx.i("X")
+    index = ctx.i("Index").long()
+    coords, valid = [], None
+    for k in range(index.shape[-1]):
+        c = _wrap_negative(index[..., k], x.shape[k])
+        ok = (c >= 0) & (c < x.shape[k])
+        valid = ok if valid is None else valid & ok
+        coords.append(c.clamp(0, x.shape[k] - 1))
+    out = x[tuple(coords)]
+    valid = valid.reshape(valid.shape + (1,) * (out.dim() - valid.dim()))
+    ctx.set("Out", torch.where(valid, out, out.detach()))
+
+
+@register_op("scatter", nondiff_inputs=("Ids",))
+def _scatter(ctx, op):
+    """tensor_ops.py:210: ``x.at[ids].set(updates)`` (``overwrite``) or
+    ``.add`` (duplicate ids summed).  A negative id counts from the end;
+    one still out of range is dropped, as JAX's scatter drops it: it
+    writes to a trash row one past X's, sliced off.  With duplicate ids
+    and ``overwrite`` which write wins is unspecified in both packages."""
+    x = ctx.i("X")
+    n = x.shape[0]
+    ids = _wrap_negative(ctx.i("Ids").long(), n)
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    buf = torch.cat([x, torch.zeros_like(x[:1])])
+    out = buf.index_put((ids,), ctx.i("Updates").to(x.dtype),
+                        accumulate=not ctx.attr("overwrite", True))
+    ctx.set("Out", out[:n])
+
+
 @contextlib.contextmanager
 def _deterministic():
     """torch's deterministic algorithms inside, the caller's setting
@@ -295,12 +383,39 @@ def _lookup_table(ctx, op):
     ctx.set("Out", out)
 
 
-def _random_fill(ctx, draw):
-    shape = tuple(ctx.attr("shape"))
+# tensor_ops.py:253: v2 is the same rule; a trailing 1 on the ids is
+# dropped here too, as the JAX package's shared rule drops it
+register_op("lookup_table_v2", nondiff_inputs=("Ids",))(_lookup_table)
+
+
+@register_op("shape", stop_gradient=True)
+def _shape(ctx, op):
+    """tensor_ops.py:256: Input's static shape as int32, a constant
+    copied to the card once (no host copy, so no sync, in a step)."""
+    from .detection_ops import const
+    ctx.set("Out", const(np.asarray(ctx.i("Input").shape, np.int32),
+                         ctx.state.device))
+
+
+def _random_fill(ctx, draw, shape=None):
+    shape = tuple(ctx.attr("shape")) if shape is None else shape
     dtype = torch_dtype(ctx.attr("dtype", "float32"))
     out = torch.empty(shape, dtype=torch.float32, device=ctx.state.device)
     draw(out, ctx.generator())
     ctx.set("Out", out.to(dtype))
+
+
+@register_op("uniform_random_batch_size_like", stop_gradient=True,
+             nondiff_inputs=("Input",))
+def _uniform_random_batch_size_like(ctx, op):
+    """tensor_ops.py:400: ``uniform_random`` of ``shape`` with its
+    ``output_dim_idx`` entry taken from Input's ``input_dim_idx`` dim."""
+    shape = list(ctx.attr("shape"))
+    shape[ctx.attr("output_dim_idx", 0)] = \
+        ctx.i("Input").shape[ctx.attr("input_dim_idx", 0)]
+    lo, hi = ctx.attr("min", -1.0), ctx.attr("max", 1.0)
+    _random_fill(ctx, lambda t, g: torch.nn.init.uniform_(
+        t, lo, hi, generator=g), tuple(shape))
 
 
 @register_op("uniform_random", stop_gradient=True)
@@ -345,6 +460,75 @@ def _top_k(ctx, op):
     vals, idxs = top_k_stable(ctx.i("X"), ctx.attr("k", 1))
     ctx.set("Out", vals)
     ctx.set("Indices", idxs)
+
+
+@register_op("arg_max", stop_gradient=True)
+def _arg_max(ctx, op):
+    """tensor_ops.py:318: int64 index of the largest entry along
+    ``axis``, the first one among ties (as ``jnp.argmax``; torch
+    documents the same)."""
+    ctx.set("Out", torch.argmax(ctx.i("X"), dim=ctx.attr("axis", -1)))
+
+
+@register_op("arg_min", stop_gradient=True)
+def _arg_min(ctx, op):
+    """tensor_ops.py:324: as arg_max, the smallest entry."""
+    ctx.set("Out", torch.argmin(ctx.i("X"), dim=ctx.attr("axis", -1)))
+
+
+@register_op("argsort", stop_gradient=True)
+def _argsort(ctx, op):
+    """tensor_ops.py:330: X sorted ascending along ``axis`` (Out) and the
+    int64 order (Indices); tied entries keep their order, as
+    ``jnp.argsort``'s stable sort keeps it."""
+    out, idx = torch.sort(ctx.i("X"), dim=ctx.attr("axis", -1),
+                          stable=True)
+    ctx.set("Out", out)
+    ctx.set("Indices", idx)
+
+
+@register_op("pad")
+def _pad(ctx, op):
+    """tensor_ops.py:344: ``paddings`` holds (before, after) for each dim
+    in order; ``F.pad`` takes them last dim first."""
+    x = ctx.i("X")
+    p = ctx.attr("paddings")
+    pairs = [int(v) for d in reversed(range(x.dim()))
+             for v in (p[2 * d], p[2 * d + 1])]
+    ctx.set("Out", torch.nn.functional.pad(
+        x, pairs, value=float(ctx.attr("pad_value", 0.0))))
+
+
+@register_op("reverse")
+def _reverse(ctx, op):
+    """tensor_ops.py:353: X flipped along each of ``axis``."""
+    x = ctx.i("X")
+    ctx.set("Out", torch.flip(x, tuple(a % x.dim()
+                                      for a in ctx.attr("axis"))))
+
+
+@register_op("has_nan", stop_gradient=True)
+def _has_nan(ctx, op):
+    """tensor_ops.py:369: one ``(1,)`` bool on X's device, true when any
+    entry of any X is NaN; nothing is read back."""
+    xs = [ctx.env[n] for n in op.input("X")]
+    ctx.set("Out", torch.stack([torch.isnan(x).any() for x in xs])
+            .any().reshape((1,)))
+
+
+@register_op("has_inf", stop_gradient=True)
+def _has_inf(ctx, op):
+    """tensor_ops.py:379: as has_nan, for an infinite entry."""
+    xs = [ctx.env[n] for n in op.input("X")]
+    ctx.set("Out", torch.stack([torch.isinf(x).any() for x in xs])
+            .any().reshape((1,)))
+
+
+@register_op("fill_any_like")
+def _fill_any_like(ctx, op):
+    """misc_ops5.py:26 (the op behind ``layers.ones_like``): X's shape
+    and dtype filled with ``value``."""
+    ctx.set("Out", torch.full_like(ctx.i("X"), ctx.attr("value", 0.0)))
 
 
 @register_op("one_hot", nondiff_inputs=("X",), stop_gradient=True)

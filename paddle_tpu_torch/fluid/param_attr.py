@@ -30,3 +30,13 @@ class ParamAttr:
         if isinstance(arg, (list, tuple)):
             return [ParamAttr._to_attr(a) for a in arg]
         raise TypeError("Unsupported param_attr: %r" % (arg,))
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that carries ``dim`` (JAX param_attr.py:35).  As in the
+    JAX package, nothing reparametrises the weight: a layer given one
+    creates and trains a plain parameter."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim
