@@ -62,7 +62,7 @@ non-zero exit (nothing is caught):
    may launch.  Then a profile.
 9. train: BERT-base pretraining (build_pretrain: batch 32, 20 masked
    positions, fp32, Adam lr 1e-4, hidden dropout 0.1, attention dropout
-   0) through Executor, 2 warm-up and 8 timed steps on one synthetic
+   0) through Executor, 2 warm-up and 4 timed steps on one synthetic
    batch: finite falling losses, 12 K2, 12 K3, 12 K4 and 0 K5 launches
    per step, ms per step, sequences/s, tokens/s, peak memory, one
    profiled step; then fused vs composition path and card vs the port's
@@ -70,7 +70,7 @@ non-zero exit (nothing is caught):
 9b. dp_train: phase 9 again as one rank of an NCCL world, a child of
    ``python -m paddle_tpu_torch.distributed.launch``: BERT-base through
    fleet.distributed_optimizer (fused GradAllReduce, 32 MB buckets) from
-   phase 9's initial parameters and batch, 10 steps: the NCCL backend,
+   phase 9's initial parameters and batch, 6 steps: the NCCL backend,
    one c_allreduce_sum per bucket a step, 12 K2/K3/K4 and 0 K5 a step,
    losses and parameters bit-equal to phase 9's (or within twice the
    spread of a second plain run); ms per step against phase 9's, the
@@ -84,14 +84,14 @@ non-zero exit (nothing is caught):
    dropout masks different.
 9d. dp_wus: Transformer NMT base as phase 16 runs it (pure bf16, batch
    32, attention dropout off), one NCCL rank under the launcher, through
-   GradAllReduce(weight_update_sharding=True), 10 steps from the plain
+   GradAllReduce(weight_update_sharding=True), 6 steps from the plain
    program's startup weights: losses and parameters bit-equal to the
    plain program's (or within twice the spread of two plain runs), 18
    K2/K3/K4 a step, one reduce-scatter and one all-gather per bucket a
    step; the same on the int8 wire (the quantizer at N = 1), each loss
    within 2/127 of plain (the CPU tests' bound); ms per step against
    plain and the rank's optimizer-state bytes.  BERT-base (phase 9's
-   weights and batch) through fleet on the int8 wire, 10 steps: each
+   weights and batch) through fleet on the int8 wire, 6 steps: each
    loss within 2/127 of phase 9's, 12 K2/K3/K4 a step; fleet's
    weight-update sharding of BERT refused, as in the JAX package (its
    tied word embedding takes a gradient summed from two contributions).
@@ -106,7 +106,7 @@ non-zero exit (nothing is caught):
 9f. train_surface, three parts, each from phase 9's initial parameters
    and batch.  bert_recompute: phase 9's program with
    RecomputeOptimizer over its Adam, the 12 post-FFN layer_norm outputs
-   as checkpoints, 2 + 8 steps (after the same of the plain program,
+   as checkpoints, 2 + 4 steps (after the same of the plain program,
    timed beside it): losses and parameters bit-equal to phase 9's (or
    within twice a second plain run's spread), 24 K2, 12 K3, 12 K4 and 0
    K5 a step (K2 runs again in each span's replay), peak memory below
@@ -131,7 +131,7 @@ non-zero exit (nothing is caught):
    composition route: finite losses, no flash kernel launched.
 12. resnet_train: bench.py's bench_resnet program built with the port —
    ResNet-50 v1.5, 224 x 224, batch 256, pure bf16, Momentum 0.9 with
-   L2Decay 1e-4, lr 0.1, FLAGS_conv_pallas=1 — 2 warm-up and 8 timed
+   L2Decay 1e-4, lr 0.1, FLAGS_conv_pallas=1 — 2 warm-up and 4 timed
    steps on one synthetic batch: finite falling losses, 13 K1 launches
    per step, all of the wgmma variant, and no other kernel; how many of
    the 13 copy their input to NHWC first; ms per step, images/s, peak
@@ -147,7 +147,7 @@ non-zero exit (nothing is caught):
 13b. dp_resnet: phase 12's program through
    CompiledProgram.with_data_parallel with BuildStrategy.sync_batch_norm
    as one NCCL rank (a child of the launcher), from phase 12's startup
-   weights, 10 steps: 53 sync_batch_norm ops with one all-reduce each
+   weights, 6 steps: 53 sync_batch_norm ops with one all-reduce each
    and 13 wgmma K1 a step, one c_allreduce_sum per bucket a step, each
    loss within resnet_check's 1e-2 of phase 12's; ms per step against
    phase 12's.
@@ -158,8 +158,8 @@ non-zero exit (nothing is caught):
    Transformer NMT base (6 + 6 layers, width 512, 8 heads, S=256,
    vocabularies of 30,000, dropout 0.1, label smoothing 0.1), Adam on
    noam_decay, pure bf16, batch 32, bench_nmt's two all-ones-mask feeds
-   in turn — 2 warm-up and 8 timed steps: finite losses, the fetched
-   learning rate equal to the Noam closed form at steps 1-10, the step
+   in turn — 2 warm-up and 4 timed steps: finite losses, the fetched
+   learning rate equal to the Noam closed form at steps 1-6, the step
    counter at 10, no flash kernel (attention dropout takes the
    composition); ms per step, tokens/s, peak memory, one profiled step.
 16. nmt_train_flash: the same with attention dropout off and ragged
@@ -170,11 +170,11 @@ non-zero exit (nothing is caught):
    within the larger of its fixed bound and twice the spread of the
    fused route running the kernels' plain versions.
 17. lenet_train: bench_lenet's program (LeNet-5, batch 1024, Adam 1e-3,
-   two feeds in turn), 2 warm-up and 8 timed steps: finite falling
+   two feeds in turn), 2 warm-up and 4 timed steps: finite falling
    losses, images/s, none of the port's kernels launched.
 18. deepfm_train: bench_deepfm's program (DeepFM base_config: 26
    fields over a 1,000,001-row table, embeddings of 10, a 400 x 3 tower;
-   Adam 1e-3, batch 4096, two feeds in turn), 2 warm-up and 8 timed
+   Adam 1e-3, batch 4096, two feeds in turn), 2 warm-up and 4 timed
    steps: finite falling losses, examples/s, peak memory, one profiled
    step, none of the port's kernels launched; then deepfm_check: three
    steps from the startup weights on the card (twice, then with each
@@ -206,7 +206,7 @@ non-zero exit (nothing is caught):
    pservers in two row blocks each (the tower's 273 x 400 and 400 x 400
    weights are sliced too); the trainer prefetches the rows a batch
    touches and pushes their gradient rows.  The plain program from the
-   same startup weights and feeds timed beside it; 2 warm-up and 8 timed
+   same startup weights and feeds timed beside it; 2 warm-up and 4 timed
    PS steps: step 1's loss bit-equal to the plain step 1, step 2 within
    1e-4 of the plain step 2, finite losses, the last below the first, no
    port kernel, neither table in the trainer's scope, peak device memory
@@ -302,7 +302,7 @@ non-zero exit (nothing is caught):
    mark 5, hidden 512, depth 8), rnn_encoder_decoder (a StaticRNN
    decoder; dictionary 30,000, word 16, hidden 32, T 8) and
    machine_translation (a DynamicRNN decoder; the same widths), each
-   12 steps (2 warm-up) over its first 4 batches: finite losses, no port
+   8 steps (2 warm-up) over its first 4 batches: finite losses, no port
    kernel launched; ms per step, one profiled step's launches and busy
    share, peak memory; then machine_translation's beam decode (beam 2,
    8 steps) from the trained weights.
@@ -319,7 +319,7 @@ non-zero exit (nothing is caught):
    paths, checked in 29b and 30): BERT-base at phase 9's configuration with
    all dropout off (batch 32, fp32, Adam 1e-4), from phase 9's initial
    parameters and batch, through fleet with mp_degree=2 (tp_bert), then
-   sp_degree=2 ring and Ulysses (sp_bert_ring, sp_bert_ulysses), 1 + 2
+   sp_degree=2 ring and Ulysses (sp_bert_ring, sp_bert_ulysses), 1 + 1
    steps each, against the same program in this process: every step's
    loss within 1e-4 (steps 2-3 after the layer's backward and sharded
    update), both ranks' losses equal, 12 K2/K3/K4 a step (0 on the
@@ -330,7 +330,7 @@ non-zero exit (nothing is caught):
 29b. pp_bert, pp_mp_bert, mp_sp_bert: pipelines and the compositions,
    gloo ranks on card 0 (pp_bert in mp_bert's pack, ``dp_child
    pp_mp_bert``), BERT-base at phase 9's configuration with all dropout
-   off from phase 9's initial parameters and batch, 1 + 2 steps each,
+   off from phase 9's initial parameters and batch, 1 + 1 steps each,
    against mp_bert's run of the same program in this process: pp_bert,
    two stages of six layers (``device_guard`` at layer 6,
    PipelineOptimizer with 4 microbatches, ``mask_pos`` re-based to its
@@ -381,7 +381,7 @@ non-zero exit (nothing is caught):
    images, four conv groups of 16-128 channels with batch norm,
    ``im2sequence`` to 64 steps of 768, GRUs of 200 both ways, 96
    classes, ``warpctc``, Momentum with L2 decay.  Step 1 on the card
-   within 1e-4 of the port's CPU path; 2 warm-up and 8 timed steps:
+   within 1e-4 of the port's CPU path; 2 warm-up and 4 timed steps:
    finite losses, no port kernel launched; ms per step, images/s, peak
    memory, one profiled step; the greedy decode and edit distances on
    the trained scope.
@@ -395,7 +395,7 @@ non-zero exit (nothing is caught):
    detector) at its widths: batch 64 of 300 x 300 images, 1917 priors,
    21 classes, RMSProp on the piecewise rate with L2 decay.  Step 1 at
    batch 8 on the card within 1e-3 of the port's CPU path; 2 warm-up and
-   8 timed steps: finite losses, no port kernel launched, no host sync
+   4 timed steps: finite losses, no port kernel launched, no host sync
    in a step; ms per step, peak memory, one profiled step; the eval
    program (detection_output + detection_map) on the trained scope: the
    [64, 200, 6] slab, the mAP, one detection_map sync, ms a batch.
@@ -415,7 +415,7 @@ non-zero exit (nothing is caught):
    piecewise rate.  Step 1 at batch 2 and 320 x 320 on the card against
    the port's CPU path: the loss within 1e-5, the output convs' gradients
    within 1e-4, the whole gradient within 2e-2 (the CPU's own change under a
-   1e-7 nudge of the image shown beside it); 2 warm-up and 8 timed steps
+   1e-7 nudge of the image shown beside it); 2 warm-up and 4 timed steps
    through ``timing.timed_steps``: finite losses, no port kernel launched, no
    host sync in a step; ms per step, peak memory, one profiled step and the
    cost ledger's count of a step.
@@ -431,6 +431,22 @@ non-zero exit (nothing is caught):
    tolerances, one launch a conv that k1_applies takes, each variant as
    k1_plan plans it; then each shape's K1 time beside cuDNN, the plain
    version and the bound.
+31k. misc_ops: the programs of the 49 op types of misc_ops.py and
+   misc_ops2.py (activations, losses, group/instance/spectral norms, the
+   image and shape ops, temporal_shift, grid_sampler, linspace, the 3-D
+   convs and pool3d, lrn, the CTR ops, mean_iou; forward and gradients)
+   on the card against the port's CPU path: floats within the CPU tests'
+   tolerances, integers and linspace's points equal, sampling_id by its
+   frequencies on each side; no port kernel, no host sync.
+31l. tsm_train: TSM, the model zoo's temporal-shift ResNet-50 video
+   classifier (16 clips x 8 frames of 224², 400 classes, 16
+   temporal_shifts, fp32, Momentum + L2Decay on the piecewise rate):
+   step 1 at 2 clips of 112², dropout off, within 1e-5 of the port's CPU
+   path (loss), the fc gradients within 1e-4, the whole gradient within
+   10x the CPU's own gap under a 1e-7 nudge of the frames; 2 warm-up and
+   8 timed steps: finite losses, no port kernel launched, no host sync in
+   a step; ms per step, clips and frames a second, peak memory, one
+   profiled step and the cost ledger's count of a step.
 32. cost_ledger: ``Executor.cost_record`` of BERT-base training (phase
    9's configuration), the ResNet-50 step of phase 12 and the BERT-base
    serving buckets (``warmup(ledger=True)``): FLOPs, bytes, peak,
@@ -448,7 +464,7 @@ non-zero exit (nothing is caught):
    launches on every main path (0 on DeepFM's, the wrappers', the
    parameter server's, ResNet-50 inference's, the book models',
    CRNN-CTC's, the detection programs', MobileNet-SSD's, the core op
-   programs' and YOLOv3's; the
+   programs', YOLOv3's, the misc op programs' and TSM's; the
    data-parallel and model-parallel paths' as their rank 0 counted
    them, the elastic path's as its world of one counted them); K2's row
    carries kernel_ring's record.
@@ -487,7 +503,9 @@ c.phase_detection_ops(); c.phase_ssd_train(); c.phase_ssd_head_k1()'``.
 The core op types and YOLOv3 alone (K1 built for yolo_k1): ``python3 -c
 'import chip_smoke as c; c.phase_device(); c.phase_build();
 c.phase_core_ops(); l, s, h = c.phase_yolov3_train();
-c.phase_yolov3_eval(s, h); c.phase_yolo_k1()'``.
+c.phase_yolov3_eval(s, h); c.phase_yolo_k1()'``.  The misc op types and
+TSM alone (no build needed): ``python3 -c 'import chip_smoke as c;
+c.phase_device(); c.phase_misc_ops(); c.phase_tsm_train()'``.
 """
 
 import contextlib
@@ -518,7 +536,7 @@ from paddle_tpu_torch.fluid.ops.conv_ops import (
 from paddle_tpu_torch.fluid.ops.norm_ops import (
     layer_norm_reference, row_layer_norm)
 from paddle_tpu_torch.models import (bert, book, crnn_ctc, deepfm, lenet,
-                                     resnet, ssd, transformer, yolov3)
+                                     resnet, ssd, transformer, tsm, yolov3)
 
 # H100 SXM published peaks (NVIDIA data sheet): device memory rate, and
 # float32 on the CUDA cores (the main path runs fp32 with TF32 off)
@@ -961,7 +979,7 @@ def _timeline(prof):
     return busy_us / 1e3, idle_us / 1e3, len(spans)
 
 
-WARM_STEPS, TIMED_STEPS = 2, 8      # every training phase
+WARM_STEPS, TIMED_STEPS = 2, 4      # every training phase but tsm_train
 
 
 def _train_steps(exe, main, feeds, fetch, scope):
@@ -1712,7 +1730,7 @@ def phase_train():
     """BERT-base pretraining (12 x 768, 12 heads, S=128, vocab 30522,
     batch 32, 20 masked positions, fp32, Adam lr 1e-4, hidden dropout
     0.1, attention dropout 0) through Executor on the card: 2 warm-up and
-    8 timed steps on one batch, then the checks against the composition
+    4 timed steps on one batch, then the checks against the composition
     path and the port's CPU path."""
     cfg = bert.base_config(attn_dropout=0.0)
     main, startup, out = _build_pretrain(cfg)
@@ -2676,7 +2694,7 @@ def phase_nmt_check(exe, init, feed):
 def phase_lenet_train():
     """bench_lenet's configuration through Executor on the card: LeNet-5,
     1 x 28 x 28, batch 1024, Adam 1e-3, bench_lenet's two feeds taken in
-    turn, 2 warm-up and 8 timed steps: finite losses, the last below the
+    turn, 2 warm-up and 4 timed steps: finite losses, the last below the
     first, and none of the port's kernels launched (its 5x5 convs are
     cuDNN's)."""
     main, startup = fluid.Program(), fluid.Program()
@@ -2847,7 +2865,7 @@ def phase_deepfm_train():
     base_config (26 fields over a 1,000,001-row table, embeddings of 10,
     13 dense features, a 273 -> 400 -> 400 -> 400 -> 1 tower), Adam 1e-3,
     batch 4096, bench_deepfm's two feeds from RandomState(0) taken in
-    turn, 2 warm-up and 8 timed steps: finite losses, the last below the
+    turn, 2 warm-up and 4 timed steps: finite losses, the last below the
     first, none of the port's kernels launched (the lookups, their dense
     scatter-add gradients and the tower are PyTorch's); ms per step,
     examples/s, peak memory, one profiled step.  Then phase_deepfm_check
@@ -4258,7 +4276,7 @@ def phase_dp_train(train):
     """BERT-base as phase train runs it, through fleet.distributed_optimizer
     (fused GradAllReduce, 32 MB buckets) as one rank of an NCCL world
     under the launcher, from train's initial parameters and batch: the
-    losses and parameters after the 10 steps bit-equal to train's, or
+    losses and parameters after the 6 steps bit-equal to train's, or
     within twice the spread of two plain runs."""
     d = _io_dir("dp_train")
     torch.save(train["init"], d / "init.pt")
@@ -4451,7 +4469,7 @@ def _nmt_dp_run(exe, cfg, init, feed, kw, rank, n, steps=None):
     """``cfg``'s NMT program (pure bf16), transpiled by GradAllReduce(**kw)
     for a world of ``n`` unless ``kw`` is None, from ``init``: the main
     path's run (launch counts to 0 before it, read after).  ``steps``
-    runs that many untimed steps instead of _train_steps' 2 + 8."""
+    runs that many untimed steps instead of _train_steps' 2 + 4."""
     from paddle_tpu_torch.fluid import telemetry
     from paddle_tpu_torch.fluid.ops import collective_ops
     from paddle_tpu_torch.fluid.transpiler import GradAllReduce
@@ -4753,7 +4771,7 @@ def phase_dp_wus(train):
     N = 1) with each loss within INT8_LOSS_RTOL of the plain run's; ms
     per step against the plain run's; the rank's optimizer-state bytes.
     BERT-base (train's configuration and batch) through fleet on the
-    int8 wire, 10 steps: each loss within INT8_LOSS_RTOL of train's, 12
+    int8 wire, 6 steps: each loss within INT8_LOSS_RTOL of train's, 12
     K2/K3/K4 a step; its weight-update sharding refused (its word
     embedding is tied: a gradient summed from two contributions), as in
     the JAX package."""
@@ -5027,7 +5045,7 @@ def phase_elastic_shrink():
 
 
 
-BOOK_STEPS = 12               # book_train: 2 warm-up + 10 timed steps
+BOOK_STEPS = 8                # book_train: 2 warm-up + 6 timed steps
 BOOK_FEEDS = 4                # distinct batches of each program, in turn
 BOOK_CHECK_BATCH = {          # book_check: the CNNs' CPU side stays cheap
     "image_classification_resnet": 16, "image_classification_vgg": 16}
@@ -5441,7 +5459,7 @@ def _bert_recompute(train):
     """bert_recompute: phase train's program (hidden dropout 0.1) with
     RecomputeOptimizer over its Adam, the 12 post-FFN layer_norm outputs
     as checkpoints, from train's initial parameters and batch: 2 warm-up
-    and 8 timed steps, after the same of the plain program."""
+    and 4 timed steps, after the same of the plain program."""
     cfg = bert.base_config(attn_dropout=0.0)
     L = cfg.num_layers
     # the plain program first, timed in this phase too: the two step
@@ -5949,7 +5967,7 @@ def phase_wrappers():
 
 PS_SERVERS = 2                # pservers of both PS paths, on 127.0.0.1
 PS_RUNS = {                   # run -> trainers its pair of pservers serves
-    "timed": 1,               # ps_deepfm: 2 warm-up + 8 timed, profiled
+    "timed": 1,               # ps_deepfm: 2 warm-up + 4 timed, profiled
     "card": 1,                # card against host: DFM_CHECK_STEPS each,
     "card_reversed": 1,       # ... from fresh pservers (the reversed
     "host": 1,                # ... batches give each side's spread)
@@ -6276,7 +6294,7 @@ def phase_ps_deepfm(cluster):
     [1000001, 1] live on the pservers in two row blocks, the 273 x 400
     and 400 x 400 tower weights are sliced too.  The plain program from
     the same startup weights on the same two feeds, timed in this phase;
-    then the PS run, 2 warm-up and 8 timed steps, and one profiled step.
+    then the PS run, 2 warm-up and 4 timed steps, and one profiled step.
     Checks: step 1's loss bit-equal to the plain program's step 1; step
     2 within DFM_LOSS_RTOL of the plain step 2 (dense Adam runs on the
     host pservers); finite losses, the last below the first; no port
@@ -6467,7 +6485,7 @@ def phase_ps_two_trainers(cluster, ref):
 # Tensor, sequence and expert parallelism: two gloo ranks on card 0
 # ---------------------------------------------------------------------------
 
-MP_STEPS = 3                  # 1 warm-up + 2 timed steps a path
+MP_STEPS = 2                  # 1 warm-up + 1 timed step a path
 MP_LOSS_RTOL = 1e-4           # every step's loss, two ranks vs one process
 MOE_OUT_RTOL = {"fp32": 1e-4,  # the MoE output at step 1 vs one process,
                 "int8": 2.0 / 127}  # over its largest entry (int8: the
@@ -8924,16 +8942,18 @@ SSD_HEAD_BATCH = 8            # ssd_head_k1: the six maps at base widths
 SSD_HEAD_TOL = {"float32": K1_FP32_TOL, "bfloat16": K1_BF16_TOL}
 
 
-def _conv_flops(main):
+def _conv_flops(main, batch=None):
     """The forward FLOPs of ``main``'s convolutions from their static
     shapes (2 x multiply-adds), the work that dominates a CNN's step; a
-    training step's convolutions do about three times it."""
+    training step's convolutions do about three times it.  ``batch``
+    stands for a batch dimension the program leaves at -1."""
     block = main.global_block()
     total = 0
     for op in block.ops:
         if op.type in ("conv2d", "depthwise_conv2d"):
             O, cg, kh, kw = block.var(op.input("Filter")[0]).shape
             N, _, Ho, Wo = block.var(op.output("Output")[0]).shape
+            N = batch if N < 0 else N
             total += 2 * N * Ho * Wo * O * cg * kh * kw
     return total
 
@@ -9577,16 +9597,15 @@ def _card_sync_sites(build, feed, weights):
     return _sync_sites(run)
 
 
-def phase_core_ops():
-    """The 34 core op types of ROADMAP item 13c.3a and ``fill_any_like``
-    (``core_programs``: forward and gradients) on the card against the port's
-    CPU path, each from the same weights: floats within CORE_TOL, integers and
-    the selections equal, ``uniform_random_batch_size_like`` by its shape,
-    range and statistics on each side; no port kernel launched, and no host
-    sync in a run of any program on the card (torch's sync debug
-    mode over a second run whose feed lies on the card: none of these
-    rules reads a value back).  Returns the port kernel launches."""
-    progs = core_programs()
+def _random_op_programs(phase, progs, tols, random_row):
+    """The body of ``core_ops`` and ``misc_ops``: ``progs`` (as
+    ``core_programs`` gives them) on the card against the port's CPU
+    path (``_programs_card_vs_cpu`` at ``tols``), those of tolerance
+    class ``stats`` instead by ``random_row(name, card fetches, cpu
+    fetches) -> (row, ok)`` on each side; no port kernel launched, and
+    no host sync in a run of any program on the card (torch's sync debug
+    mode over a second run whose feed lies on the card).  Returns the
+    port kernel launches."""
     stats = {k: v for k, v in progs.items() if v[3] == "stats"}
     t0 = time.perf_counter()
     rows, checks = [], {}
@@ -9594,13 +9613,10 @@ def phase_core_ops():
     for name, (build, feed, seed, _) in stats.items():
         card, _, _ = seq_run(build, feed, {}, fluid.CUDAPlace(0), ())
         cpu, _, _ = seq_run(build, feed, {}, fluid.CPUPlace(), ())
-        ok = urbsl_ok(card) and urbsl_ok(cpu)
-        rows.append(dict(op=name, card_mean=[float(o.mean()) for o in card],
-                         cpu_mean=[float(o.mean()) for o in cpu], ok=ok))
-        checks[name] = ok
+        row, checks[name] = random_row(name, card, cpu)
+        rows.append(row)
     _programs_card_vs_cpu(
-        "core_ops", {k: v for k, v in progs.items() if k not in stats},
-        CORE_TOL, ())
+        phase, {k: v for k, v in progs.items() if k not in stats}, tols, ())
     launches = _launches()
     sites = {}
     for name, (build, feed, seed, _) in progs.items():
@@ -9609,11 +9625,92 @@ def phase_core_ops():
             sites[name] = got
     checks["no_port_kernel"] = not any(launches.values())
     checks["no_host_sync"] = not sites
-    emit(phase="core_ops_checks", card=_card(), random_ops=rows,
+    emit(phase=phase + "_checks", card=_card(), random_ops=rows,
          launches=launches, sync_sites=sites,
          seconds=time.perf_counter() - t0)
-    _fail_unless("core_ops_checks", checks)
+    _fail_unless(phase + "_checks", checks)
     return launches
+
+
+def phase_core_ops():
+    """The 34 core op types of ROADMAP item 13c.3a and ``fill_any_like``
+    (``core_programs``: forward and gradients) on the card against the port's
+    CPU path, each from the same weights: floats within CORE_TOL, integers and
+    the selections equal, ``uniform_random_batch_size_like`` by its shape,
+    range and statistics on each side; no port kernel launched, and no host
+    sync in a run of any program on the card (none of these rules reads a
+    value back).  Returns the port kernel launches."""
+    def urbsl_row(name, card, cpu):
+        ok = urbsl_ok(card) and urbsl_ok(cpu)
+        return dict(op=name, card_mean=[float(o.mean()) for o in card],
+                    cpu_mean=[float(o.mean()) for o in cpu], ok=ok), ok
+    return _random_op_programs("core_ops", core_programs(), CORE_TOL,
+                               urbsl_row)
+
+
+def _step1_gaps(exe, smain, sloss, scope, shost, image, nudge, head):
+    """Step 1 of ``smain`` from ``scope``'s state on the card (``exe``)
+    and on the port's CPU path, and again on the CPU with ``shost[image]``
+    moved by a relative ``nudge`` of seeded noise: (card loss, CPU loss,
+    the whole gradient's relative L2 gap card vs CPU, the CPU's own gap
+    under the nudge, {parameter named ``head``...: its gap card vs
+    CPU})."""
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    (card1,), _, cgrad = _book_step(exe, smain, sloss, scope, shost,
+                                    grads=True)
+    (cpu1,), _, hgrad = _book_step(cpu_exe, smain, sloss, scope, shost,
+                                   grads=True)
+    x = shost[image]
+    noise = np.random.RandomState(SEED).randn(*x.shape)
+    nudged = dict(shost, **{image: (x * (1 + nudge * noise))
+                            .astype(np.float32)})
+    _, _, ngrad = _book_step(cpu_exe, smain, sloss, scope, nudged,
+                             grads=True)
+
+    def gap(grads):
+        return float(torch.cat([(grads[n] - g).reshape(-1) for n, g in
+                                hgrad.items()]).norm() /
+                     torch.cat([g.reshape(-1) for g in hgrad.values()]).norm())
+    heads = {n: float((cgrad[n] - g).norm() / g.norm().clamp_min(1e-30))
+             for n, g in hgrad.items() if n.startswith(head)}
+    return (float(card1.reshape(-1)[0]), float(cpu1.reshape(-1)[0]),
+            gap(cgrad), gap(ngrad), heads)
+
+
+def _timed_train(exe, main, loss, feeds, scope, warm, timed, tag):
+    """``warm`` + ``timed`` steps of ``main`` over the card ``feeds`` in
+    turn through ``timing.timed_steps`` (the main path's run: the launch
+    counts go to 0 just before it and are read just after), then one
+    step under torch's sync debug mode, one profiled step and the cost
+    ledger's record of a step (tagged ``tag``): a dict of the losses, ms
+    per step, launches, host syncs over the steps, peak MB, the fence's
+    detail, the sync sites, the profile and the record."""
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = fluid.profiler.host_sync_count()
+    got = []
+
+    def step(i):
+        r = exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
+                    scope=scope, return_numpy=False)
+        got.append(r)
+        return r
+
+    detail = {}
+    _reset_launches()
+    dt, _ = timing.timed_steps(step, timed, warmup=warm, detail=detail)
+    launches = _launches()
+    out = dict(step_ms=dt / timed * 1e3, launches=launches,
+               step_syncs=fluid.profiler.host_sync_count() - syncs0,
+               peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+               losses=[float(g[0].reshape(-1)[0].item()) for g in got],
+               detail=detail)
+    out["sites"] = _sync_sites(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope,
+        return_numpy=False))
+    out["prof"], _ = _profile_record(exe, main, feeds[0], [loss], scope)
+    out["rec"] = exe.cost_record(main, feed=feeds[0], fetch_list=[loss],
+                                 scope=scope, tag=tag)
+    return out
 
 
 YOLO_FEEDS = 4                # yolov3_train: distinct batches, in turn
@@ -9674,55 +9771,16 @@ def phase_yolov3_train():
     loss = out["loss"]
     small = dict(cfg, **YOLO_CPU)
     smain, _, sout = _yolo_program(small)
-    shost = next(yolov3.feeds(small, SEED))
-    (card1,), _, cgrad = _book_step(exe, smain, sout["loss"], scope, shost,
-                                    grads=True)
-    (cpu1,), _, hgrad = _book_step(fluid.Executor(fluid.CPUPlace()), smain,
-                                   sout["loss"], scope, shost, grads=True)
-    card1, cpu1 = float(card1.reshape(-1)[0]), float(cpu1.reshape(-1)[0])
-    image = shost["image"]
-    noise = np.random.RandomState(SEED).randn(*image.shape)
-    nudged = dict(shost, image=(image * (1 + YOLO_NUDGE * noise))
-                  .astype(np.float32))
-    _, _, ngrad = _book_step(fluid.Executor(fluid.CPUPlace()), smain,
-                             sout["loss"], scope, nudged, grads=True)
-
-    def gap(grads):
-        return float(torch.cat([(grads[n] - g).reshape(-1) for n, g in
-                                hgrad.items()]).norm() /
-                     torch.cat([g.reshape(-1) for g in hgrad.values()]).norm())
-    heads = {n: float((cgrad[n] - g).norm() / g.norm().clamp_min(1e-30))
-             for n, g in hgrad.items() if n.startswith("yolo_output.")}
-    whole, spread = gap(cgrad), gap(ngrad)
+    card1, cpu1, whole, spread, heads = _step1_gaps(
+        exe, smain, sout["loss"], scope, next(yolov3.feeds(small, SEED)),
+        "image", YOLO_NUDGE, "yolo_output.")
     it = yolov3.feeds(cfg, SEED)
     host = [next(it) for _ in range(YOLO_FEEDS)]
     feeds = [_cuda_feed(f) for f in host]
-    torch.cuda.reset_peak_memory_stats()
-    syncs0 = fluid.profiler.host_sync_count()
-    got = []
-
-    def step(i):
-        r = exe.run(main, feed=feeds[i % len(feeds)], fetch_list=[loss],
-                    scope=scope, return_numpy=False)
-        got.append(r)
-        return r
-
-    detail = {}
-    # the main path's run: counts go to 0 here and are read after it
-    _reset_launches()
-    dt, _ = timing.timed_steps(step, TIMED_STEPS, warmup=WARM_STEPS,
-                               detail=detail)
-    launches = _launches()
-    step_ms = dt / TIMED_STEPS * 1e3
-    step_syncs = fluid.profiler.host_sync_count() - syncs0
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    losses = [float(g[0].reshape(-1)[0].item()) for g in got]
-    sites = _sync_sites(lambda: exe.run(
-        main, feed=feeds[0], fetch_list=[loss], scope=scope,
-        return_numpy=False))
-    prof, _ = _profile_record(exe, main, feeds[0], [loss], scope)
-    rec = exe.cost_record(main, feed=feeds[0], fetch_list=[loss],
-                          scope=scope, tag="yolov3_train")
+    run = _timed_train(exe, main, loss, feeds, scope, WARM_STEPS,
+                       TIMED_STEPS, "yolov3_train")
+    launches, step_ms, losses = run["launches"], run["step_ms"], run["losses"]
+    rec = run["rec"]
     ops = [o.type for o in main.global_block().ops]
     checks = {
         "losses_finite": bool(np.isfinite(losses).all()),
@@ -9731,7 +9789,8 @@ def phase_yolov3_train():
         max(heads.values()) <= YOLO_HEAD_GRAD_RL2,
         "step1_grad_card_vs_cpu": whole <= YOLO_GRAD_RL2,
         "no_port_kernel": not any(launches.values()),
-        "no_host_sync_in_a_step": step_syncs == 0 and not sites,
+        "no_host_sync_in_a_step": run["step_syncs"] == 0 and
+        not run["sites"],
         # 75 convs and 72 leaky_relus at base_config (its 23 blocks)
         "every_conv": ops.count("conv2d") == 29 + 2 * sum(cfg["stages"])
         and ops.count("leaky_relu") == 26 + 2 * sum(cfg["stages"]) and
@@ -9750,12 +9809,15 @@ def phase_yolov3_train():
          losses=losses, step1_loss_card=card1, step1_loss_cpu=cpu1,
          step1_rel_err=abs(card1 - cpu1) / abs(cpu1), step1_config=YOLO_CPU,
          step1_grad_rel_l2=dict(whole=whole, cpu_nudged=spread,
-                                heads=heads, parameters=len(hgrad)),
+                                heads=heads, parameters=len(
+                                    smain.global_block().all_parameters())),
          ms_per_step=step_ms, images_per_s=cfg["batch"] / step_ms * 1e3,
-         fence=dict(rtt_s=detail["fence_rtt_s"],
-                    wall_s=detail["window_wall_s"]),
-         peak_device_mb=peak_mb, host_syncs_over_steps=step_syncs,
-         step_sync_sites=sites, profiled_step=prof, launches=launches,
+         fence=dict(rtt_s=run["detail"]["fence_rtt_s"],
+                    wall_s=run["detail"]["window_wall_s"]),
+         peak_device_mb=run["peak_mb"],
+         host_syncs_over_steps=run["step_syncs"],
+         step_sync_sites=run["sites"], profiled_step=run["prof"],
+         launches=launches,
          checks=checks, seconds=time.perf_counter() - t0)
     _fail_unless("yolov3_train", checks)
     return launches, scope, host
@@ -10023,6 +10085,686 @@ def phase_yolo_k1():
     return total
 
 
+MISC_TOL = {"plain": (1e-5, 1e-6),   # float32 rules: rtol, atol
+            "exact": (0.0, 0.0),     # shape, index and integer ops, linspace
+            "stats": None}           # sampling_id: each package and device
+#                                      draws from its own stream, so its
+#                                      draws are held by shape, dtype,
+#                                      range and frequencies (SAMPLING_*)
+SAMPLING_ROWS = 20000         # sampling_id: rows of the statistics row
+SAMPLING_P = (0.1, 0.0, 0.3, 0.6)    # ... its class probabilities
+SAMPLING_SIGMAS = 5.0         # frequencies within 5 standard errors
+
+
+def misc_programs():
+    """The programs of the 49 op types of ``misc_ops.py`` and
+    ``misc_ops2.py`` (ROADMAP item 13c.3b), one a type
+    (tests/test_torch_misc_ops.py holds each against the JAX package; the
+    card's ``misc_ops`` phase against the port's CPU path): {name:
+    (build(pkg) -> fetch list, feed, weight seed or None, tolerance class
+    of MISC_TOL)}.  Inputs and attributes follow the JAX package's own
+    tests of each op (tests/test_misc_ops.py, test_misc_ops2.py,
+    test_op_oracle_sweep4.py, test_api_stragglers.py), run through the
+    layer a user calls where there is one (the op by hand for
+    ``hinge_loss``, ``modified_huber_loss``, ``squared_l2_distance``,
+    ``l1_norm``, ``norm``, ``label_smooth`` and ``minus``, which have
+    none), every mode side by side, with the points where the packages
+    could part fed exactly: thresholds and clip bounds, 0 for the
+    ``x > 0`` branches, ties of ``maximum``, grid points outside ``[-1,
+    1]``, a channel count whose shift split is not whole, crop offsets
+    past the edge, linspace end points that ``torch.linspace`` would
+    round otherwise.  Then the gradients of ``sum_i mean(out_i * c_i)``
+    over the float inputs the op differentiates and its parameters."""
+    progs = {}
+    D = _seq_data
+
+    def add(name, build, feed, seed=None, tol="plain"):
+        progs[name] = (build, feed, seed, tol)
+
+    def f32(rng, *shape, lo=-2.0, hi=2.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def cs(rng, *shapes):
+        return {"c%d" % i: rng.randn(*s).astype(np.float32)
+                for i, s in enumerate(shapes)}
+
+    def flat(pkg, outs):
+        """0-d outputs as ``[1]``, for their ``c``."""
+        return [pkg.layers.reshape(o, [1]) for o in outs]
+
+    def grads(pkg, outs, wrt, feed_c):
+        c = sorted((k, v) for k, v in feed_c.items() if k.startswith("c"))
+        return _seq_with_grads(pkg, outs, wrt, c)
+
+    def op(pkg, op_type, inputs, outputs, attrs=None):
+        return _det_raw(pkg, op_type, inputs, outputs, attrs or {})
+
+    # -- the attribute activations: thresholds and bounds fed exactly ------
+    rng = np.random.RandomState(31)
+    ax = f32(rng, 4, 6, lo=-3.0, hi=3.0)
+    ax[0] = [0.0, 0.5, -0.5, 1.0, -1.0, 0.3]
+    ax[1, :3] = [np.float32(0.3), -np.float32(0.3), 24.5]
+    ac = cs(rng, (4, 6), (4, 6))
+    acts = {
+        "elu": lambda L, x: [L.elu(x), L.elu(x, 0.5)],
+        "softshrink": lambda L, x: [L.softshrink(x),
+                                    L.softshrink(x, lambda_=0.3)],
+        "hard_shrink": lambda L, x: [L.hard_shrink(x),
+                                     L.hard_shrink(x, 0.3)],
+        "tanh_shrink": lambda L, x: [L.tanh_shrink(x)],
+        "thresholded_relu": lambda L, x: [L.thresholded_relu(x),
+                                          L.thresholded_relu(x, 0.3)],
+        "brelu": lambda L, x: [L.brelu(x), L.brelu(x, -1.0, 1.0)],
+        "soft_relu": lambda L, x: [L.soft_relu(x),
+                                   L.soft_relu(x, threshold=1.0)],
+    }
+    for name, layer in acts.items():
+        def act(pkg, layer=layer):
+            x = D(pkg, "x", ax)
+            return grads(pkg, layer(pkg.layers, x), [x], ac)
+        add(name, act, dict(ac, x=ax))
+
+    px = f32(rng, 2, 3, 2, 2)
+    px[0, :, 0, 0] = 0.0                     # the negative branch at 0
+    pc = cs(rng, (2, 3, 2, 2), (2, 3, 2, 2), (2, 3, 2, 2))
+
+    def prelu(pkg):
+        x = D(pkg, "x", px)
+        L = pkg.layers
+        outs = [L.prelu(x, mode) for mode in ("all", "channel", "element")]
+        return grads(pkg, outs, [x] + _seq_params(pkg), pc)
+    add("prelu", prelu, dict(pc, x=px), seed=32)
+    mx = f32(rng, 2, 4, 3, 3)
+    mx[0, 1, 0, :] = mx[0, 0, 0, :]          # tied pairs within a group
+    mx[1, 3, 2, 2] = mx[1, 2, 2, 2]
+    mc = cs(rng, (2, 2, 3, 3), (2, 1, 3, 3))
+
+    def maxout(pkg):
+        x = D(pkg, "x", mx)
+        return grads(pkg, [pkg.layers.maxout(x, 2), pkg.layers.maxout(x, 4)],
+                     [x], mc)
+    add("maxout", maxout, dict(mc, x=mx))
+
+    # -- the losses ---------------------------------------------------------
+    rng = np.random.RandomState(33)
+    logp = np.log(_probs(rng, (4, 5)))
+    tgt = _probs(rng, (4, 5))
+    tgt[0, 2] = 0.0                          # log(max(t, 1e-10)) · 0
+    kc = cs(rng, (1,), (1,), (1,), (4, 5))
+
+    def kldiv(pkg):
+        x, t = D(pkg, "x", logp), D(pkg, "t", tgt, False)
+        outs = [pkg.layers.kldiv_loss(x, t, r)
+                for r in ("mean", "sum", "batchmean", "none")]
+        return grads(pkg, flat(pkg, outs[:3]) + outs[3:], [x], kc)
+    add("kldiv_loss", kldiv, dict(kc, x=logp, t=tgt))
+    pp = rng.uniform(0.05, 0.95, (6, 1)).astype(np.float32)
+    yy = (rng.rand(6, 1) > 0.5).astype(np.float32)
+    lc = cs(rng, (6, 1), (6, 1))
+
+    def log_loss(pkg):
+        p, y = D(pkg, "p", pp), D(pkg, "y", yy, False)
+        L = pkg.layers
+        return grads(pkg, [L.log_loss(p, y), L.log_loss(p, y, 1e-2)], [p], lc)
+    add("log_loss", log_loss, dict(lc, p=pp, y=yy))
+    left = f32(rng, 6, 1)
+    right = f32(rng, 6, 1)
+    right[0] = left[0]                       # d = 0: softplus' slope 1/2
+    rc = cs(rng, (6, 1))
+
+    def rank_loss(pkg):
+        y = D(pkg, "y", yy, False)
+        lv, rv = D(pkg, "l", left), D(pkg, "r", right)
+        return grads(pkg, [pkg.layers.rank_loss(y, lv, rv)], [lv, rv], rc)
+    add("rank_loss", rank_loss, dict(rc, y=yy, l=left, r=right))
+    sign = np.where(yy > 0, 1.0, -1.0).astype(np.float32)
+    mrc = cs(rng, (6, 1), (6, 1), (6, 1))
+
+    def margin(pkg):
+        y = D(pkg, "s", sign, False)
+        lv, rv = D(pkg, "l", left, True), D(pkg, "r", right, True)
+        L = pkg.layers
+        a = L.margin_rank_loss(y, lv, rv)
+        act = _seq_op_output(pkg, "margin_rank_loss", "Activated")
+        b = L.margin_rank_loss(y, lv, rv, margin=0.0)   # a tie at l = r
+        return grads(pkg, [a, b], [lv, rv], mrc) + [act]
+    add("margin_rank_loss", margin, dict(mrc, s=sign, l=left, r=right))
+    scores = f32(rng, 4, 5)
+    blab = np.array([[0], [4], [2], [2]], np.int64)
+    bc = cs(rng, (4, 1))
+
+    def bpr(pkg):
+        s, lab = D(pkg, "s", scores), D(pkg, "lab", blab, False)
+        return grads(pkg, [pkg.layers.bpr_loss(s, lab)], [s], bc)
+    add("bpr_loss", bpr, dict(bc, s=scores, lab=blab))
+
+    # -- the norms: the statistics' outputs and the parameters' gradients -
+    rng = np.random.RandomState(34)
+    gx = f32(rng, 2, 4, 3, 3)
+    gx3 = f32(rng, 2, 6, 5)
+    gc = cs(rng, (2, 4, 3, 3), (2, 6, 5))
+
+    def group_norm(pkg):
+        x, x3 = D(pkg, "x", gx), D(pkg, "x3", gx3)
+        L = pkg.layers
+        a = L.group_norm(x, groups=2)
+        stats = [_seq_op_output(pkg, "group_norm", s)
+                 for s in ("Mean", "Variance")]
+        b = L.group_norm(x3, groups=3, epsilon=1e-3, act="relu")
+        return grads(pkg, [a, b], [x, x3] + _seq_params(pkg), gc) + stats
+    add("group_norm", group_norm, dict(gc, x=gx, x3=gx3), seed=35)
+    ic = cs(rng, (2, 4, 3, 3))
+
+    def instance_norm(pkg):
+        x = D(pkg, "x", gx)
+        a = pkg.layers.instance_norm(x)
+        stats = [_seq_op_output(pkg, "instance_norm", s)
+                 for s in ("SavedMean", "SavedVariance")]
+        return grads(pkg, [a], [x] + _seq_params(pkg), ic) + stats
+    add("instance_norm", instance_norm, dict(ic, x=gx), seed=36)
+    sw = f32(rng, 6, 4)
+    sw3 = f32(rng, 3, 4, 2)
+    sc = cs(rng, (6, 4), (3, 4, 2))
+
+    def spectral(pkg):
+        w, w3 = D(pkg, "w", sw), D(pkg, "w3", sw3)
+        L = pkg.layers
+        outs = [L.spectral_norm(w, power_iters=0),      # runs one
+                L.spectral_norm(w3, dim=1, power_iters=3)]
+        return grads(pkg, outs, [w, w3], sc)
+    add("spectral_norm", spectral, dict(sc, w=sw, w3=sw3), seed=37)
+
+    # -- image and shape ops --------------------------------------------------
+    rng = np.random.RandomState(38)
+    ix = f32(rng, 2, 3, 4, 5)
+    padc = cs(rng, (2, 3, 7, 8), (2, 3, 7, 8), (2, 3, 7, 8))
+
+    def pad2d(pkg):
+        x = D(pkg, "x", ix)
+        L = pkg.layers
+        outs = [L.pad2d(x, [1, 2, 2, 1], pad_value=7.0),
+                L.pad2d(x, [1, 2, 2, 1], mode="reflect"),
+                L.pad2d(x, [1, 2, 2, 1], mode="edge")]
+        return grads(pkg, outs, [x], padc)
+    add("pad2d", pad2d, dict(padc, x=ix))
+    sx = f32(rng, 2, 8, 3, 3)
+    psc = cs(rng, (2, 2, 6, 6))
+
+    def pixel_shuffle(pkg):
+        x = D(pkg, "x", sx)
+        return grads(pkg, [pkg.layers.pixel_shuffle(x, 2)], [x], psc)
+    add("pixel_shuffle", pixel_shuffle, dict(psc, x=sx))
+    dx = f32(rng, 2, 3, 4, 6)
+    dc = cs(rng, (2, 12, 2, 3))
+
+    def space_to_depth(pkg):
+        x = D(pkg, "x", dx)
+        return grads(pkg, [pkg.layers.space_to_depth(x, 2)], [x], dc)
+    add("space_to_depth", space_to_depth, dict(dc, x=dx))
+    hx = f32(rng, 2, 6, 3, 3)
+    hc = cs(rng, (2, 6, 3, 3), (2, 6, 3, 3))
+
+    def shuffle_channel(pkg):
+        x = D(pkg, "x", hx)
+        L = pkg.layers
+        return grads(pkg, [L.shuffle_channel(x, 3), L.shuffle_channel(x, 2)],
+                     [x], hc)
+    add("shuffle_channel", shuffle_channel, dict(hc, x=hx))
+    afx, afx2 = f32(rng, 2, 3, 4, 4), f32(rng, 4, 3)
+    afs, afb = f32(rng, 3), f32(rng, 3)
+    afc = cs(rng, (2, 3, 4, 4), (4, 3))
+
+    def affine_channel(pkg):
+        x, x2 = D(pkg, "x", afx), D(pkg, "x2", afx2)
+        s, b = D(pkg, "s", afs), D(pkg, "b", afb)
+        L = pkg.layers
+        return grads(pkg, [L.affine_channel(x, s, b),
+                           L.affine_channel(x2, s, b)], [x, x2, s, b], afc)
+    add("affine_channel", affine_channel,
+        dict(afc, x=afx, x2=afx2, s=afs, b=afb))
+    # C = 10: C / 4 = 2.5 and C / 2 = 5 (truncated split points); C = 8 at
+    # TSM's 1/8
+    tx, tx8 = f32(rng, 2 * 4, 10, 2, 2), f32(rng, 3 * 2, 8, 2, 3)
+    tc = cs(rng, (8, 10, 2, 2), (6, 8, 2, 3))
+
+    def temporal_shift(pkg):
+        x, x8 = D(pkg, "x", tx), D(pkg, "x8", tx8)
+        L = pkg.layers
+        return grads(pkg, [L.temporal_shift(x, 4),
+                           L.temporal_shift(x8, 2, 1.0 / 8)], [x, x8], tc)
+    add("temporal_shift", temporal_shift, dict(tc, x=tx, x8=tx8))
+    gsx = f32(rng, 2, 3, 4, 5)
+    grid = f32(rng, 2, 3, 4, 2, lo=-1.6, hi=1.6)
+    grid[0, 0, :, 0] = [-1.0, 1.0, -1.5, 1.5]    # the ends, and outside
+    grid[0, 1, :, 1] = [-1.0, 1.0, -1.25, 2.0]
+    gsc = cs(rng, (2, 3, 3, 4))
+
+    def grid_sampler(pkg):
+        x, g = D(pkg, "x", gsx), D(pkg, "g", grid)
+        return grads(pkg, [pkg.layers.grid_sampler(x, g)], [x, g], gsc)
+    add("grid_sampler", grid_sampler, dict(gsc, x=gsx, g=grid))
+
+    # -- sampling, indices, linspace, diag, roll ------------------------------
+    probs = np.tile(np.asarray(SAMPLING_P, np.float32), (SAMPLING_ROWS, 1))
+    probs[0] = [0.0, 0.0, 1.0, 0.0]          # a certain draw
+
+    def sampling_id(pkg):
+        return [pkg.layers.sampling_id(D(pkg, "p", probs, False))]
+    add("sampling_id", sampling_id, {"p": probs}, tol="stats")
+    ids = np.arange(-4, 20, dtype=np.int64).reshape(24, 1)
+
+    def shard_index(pkg):
+        i = D(pkg, "i", ids, False)
+        L = pkg.layers
+        return [L.shard_index(i, 20, 3, 1), L.shard_index(i, 20, 3, 0, -2),
+                L.shard_index(i, 19, 2, 1)]
+    add("shard_index", shard_index, {"i": ids}, tol="exact")
+    ends = {"e%d" % k: np.array([v], np.float32)
+            for k, v in enumerate([0.1, 3.7, -2.0, 5.0, 3.0, -1.0])}
+
+    def linspace(pkg):
+        L = pkg.layers
+        b = [D(pkg, k, v, False) for k, v in sorted(ends.items())]
+        return [L.linspace(b[0], b[1], 7), L.linspace(b[0], b[1], 100),
+                L.linspace(b[2], b[3], 1), L.linspace(b[4], b[5], 5),
+                L.linspace(b[2], b[3], 2)]
+    add("linspace", linspace, dict(ends), tol="exact")
+    dv, dvi = f32(rng, 5), np.array([3, -1, 7], np.int64)
+
+    def diag(pkg):
+        L = pkg.layers
+        return [L.diag(D(pkg, "v", dv, False)), L.diag(D(pkg, "vi", dvi,
+                                                          False))]
+    add("diag", diag, {"v": dv, "vi": dvi}, tol="exact")
+    rx = f32(rng, 3, 4)
+    rlc = cs(rng, (3, 4), (3, 4), (3, 4))
+
+    def roll(pkg):
+        x = D(pkg, "x", rx)
+        L = pkg.layers
+        outs = [L.roll(x, 5), L.roll(x, -1, dims=0),
+                L.roll(x, [1, -2], dims=[0, 1])]
+        return grads(pkg, outs, [x], rlc)
+    add("roll", roll, dict(rlc, x=rx))
+
+    # -- misc_ops2.py: 3-D vision ------------------------------------------
+    rng = np.random.RandomState(39)
+    cx = f32(rng, 1, 2, 4, 5, 5)
+    c3c = cs(rng, (1, 3, 5, 6, 6), (1, 4, 2, 3, 2))
+
+    def conv3d(pkg):
+        x = D(pkg, "x", cx)
+        L = pkg.layers
+        outs = [L.conv3d(x, 3, 2, padding=1),
+                L.conv3d(x, 4, [2, 3, 3], stride=2, padding=[0, 1, 1],
+                         dilation=[1, 1, 2], groups=2, bias_attr=False,
+                         act="relu")]
+        return grads(pkg, outs, [x] + _seq_params(pkg), c3c)
+    add("conv3d", conv3d, dict(c3c, x=cx), seed=40)
+    tx3 = f32(rng, 1, 4, 3, 3, 3)
+    tw = f32(rng, 4, 2, 2, 2, 2)
+    ttc = cs(rng, (1, 3, 4, 4, 4), (1, 4, 4, 4, 4))
+
+    def conv3d_t(pkg):
+        x, w = D(pkg, "x", tx3), D(pkg, "w", tw)
+        L = pkg.layers
+        a = L.conv3d_transpose(x, 3, 2, stride=2, padding=1)
+        b, = op(pkg, "conv3d_transpose", {"Input": [x], "Filter": [w]},
+                {"Output": "float32"},
+                {"strides": [1, 1, 1], "paddings": [0, 0, 0],
+                 "dilations": [1, 1, 1], "groups": 2})
+        return grads(pkg, [a, b], [x, w] + _seq_params(pkg), ttc)
+    add("conv3d_transpose", conv3d_t, dict(ttc, x=tx3, w=tw), seed=41)
+    plx = rng.permutation(2 * 2 * 4 * 4 * 4).astype(np.float32) \
+        .reshape(2, 2, 4, 4, 4) / 16.0       # distinct: no tie in a window
+    plc = cs(rng, (2, 2, 4, 4, 4), (2, 2, 3, 3, 3), (2, 2, 1, 1, 1),
+             (2, 2, 1, 1, 1))
+
+    def pool3d(pkg):
+        x = D(pkg, "x", plx)
+        L = pkg.layers
+        outs = [L.pool3d(x, 3, "max", 1, 1),         # overlapping windows
+                L.pool3d(x, 2, "avg", 2, 1),         # padding counted
+                L.pool3d(x, pool_type="max", global_pooling=True),
+                L.pool3d(x, 3, "avg", 2, 1, global_pooling=True)]
+        return grads(pkg, outs, [x], plc)
+    add("pool3d", pool3d, dict(plc, x=plx))
+
+    # -- misc_ops2.py: norms, activations, losses ----------------------------
+    rng = np.random.RandomState(42)
+    lx = f32(rng, 2, 6, 3, 3)
+    lrc = cs(rng, (2, 6, 3, 3), (2, 6, 3, 3))
+
+    def lrn(pkg):
+        x = D(pkg, "x", lx)
+        a = pkg.layers.lrn(x)                        # the layer's k = 1
+        b, mid = op(pkg, "lrn", {"X": [x]},
+                    {"Out": "float32", "MidOut": "float32"},
+                    {"n": 3, "alpha": 0.1, "beta": 0.6})   # the op's k = 2
+        return grads(pkg, [a, b], [x], lrc) + [mid]
+    add("lrn", lrn, dict(lrc, x=lx))
+    sex = f32(rng, 4, 3)
+    sex[0] = [0.0, -0.0, 1e-3]
+    sec = cs(rng, (4, 3), (4, 3))
+
+    def selu(pkg):
+        x = D(pkg, "x", sex)
+        L = pkg.layers
+        return grads(pkg, [L.selu(x), L.selu(x, scale=1.5, alpha=2.0)], [x],
+                     sec)
+    add("selu", selu, dict(sec, x=sex))
+    hl = f32(rng, 5, 1)
+    hlab = np.array([[1], [0], [1], [0], [1]], np.float32)
+    hl[0], hl[1] = 1.0, -1.0                 # the hinge at 0 exactly
+    hlc = cs(rng, (5, 1))
+
+    def hinge(pkg):
+        lg, lb = D(pkg, "lg", hl), D(pkg, "lb", hlab, False)
+        h, = op(pkg, "hinge_loss", {"Logits": [lg], "Labels": [lb]},
+                {"Loss": "float32"})
+        return grads(pkg, [h], [lg], hlc)
+    add("hinge_loss", hinge, dict(hlc, lg=hl, lb=hlab))
+    mhx = np.array([[0.5], [1.0], [-1.0], [3.0], [-2.0], [0.2]], np.float32)
+    mhy = np.array([[1], [1], [1], [0], [1], [0]], np.float32)
+    mhc = cs(rng, (6, 1))
+
+    def huber(pkg):
+        x, y = D(pkg, "x", mhx), D(pkg, "y", mhy, False)
+        out, s = op(pkg, "modified_huber_loss", {"X": [x], "Y": [y]},
+                    {"Out": "float32", "IntermediateVal": "float32"})
+        return grads(pkg, [out], [x], mhc) + [s]
+    add("modified_huber_loss", huber, dict(mhc, x=mhx, y=mhy))
+    sqx, sqy, sqy1 = f32(rng, 4, 3), f32(rng, 4, 3), f32(rng, 1, 3)
+    sq3x, sq3y = f32(rng, 2, 3, 2), f32(rng, 2, 3, 2)
+    sqc = cs(rng, (4, 1), (4, 1), (2, 1, 1))
+
+    def sq_l2(pkg):
+        x, y, y1 = D(pkg, "x", sqx), D(pkg, "y", sqy), D(pkg, "y1", sqy1)
+        x3, y3 = D(pkg, "x3", sq3x), D(pkg, "y3", sq3y)
+        outs, subs = [], []
+        for a, b in ((x, y), (x, y1), (x3, y3)):
+            o, sub = op(pkg, "squared_l2_distance", {"X": [a], "Y": [b]},
+                        {"Out": "float32", "sub_result": "float32"})
+            outs.append(o)
+            subs.append(sub)
+        return grads(pkg, outs, [x, y, y1, x3, y3], sqc) + subs
+    add("squared_l2_distance", sq_l2,
+        dict(sqc, x=sqx, y=sqy, y1=sqy1, x3=sq3x, y3=sq3y))
+    l1x = f32(rng, 3, 4)
+    l1x[0, 0] = 0.0                          # |x|'s gradient 0 at 0
+    l1c = cs(rng, (1,))
+
+    def l1_norm(pkg):
+        x = D(pkg, "x", l1x)
+        o, = op(pkg, "l1_norm", {"X": [x]}, {"Out": "float32"})
+        return grads(pkg, flat(pkg, [o]), [x], l1c)
+    add("l1_norm", l1_norm, dict(l1c, x=l1x))
+    nx = f32(rng, 3, 4, 2)
+    nx[0, :, 0] = 0.0                        # a zero column: epsilon
+    nc = cs(rng, (3, 4, 2), (3, 4, 2))
+
+    def norm(pkg):
+        x = D(pkg, "x", nx)
+        outs, norms = [], []
+        for axis in (1, -1):
+            o, n = op(pkg, "norm", {"X": [x]},
+                      {"Out": "float32", "Norm": "float32"},
+                      {"axis": axis, "epsilon": 1e-10})
+            outs.append(o)
+            norms.append(n)
+        return grads(pkg, outs, [x], nc) + norms
+    add("norm", norm, dict(nc, x=nx))
+    bx, by = f32(rng, 4, 5), f32(rng, 4, 6)
+    btc = cs(rng, (4, 3), (4, 2))
+
+    def bilinear(pkg):
+        x, y = D(pkg, "x", bx), D(pkg, "y", by)
+        L = pkg.layers
+        outs = [L.bilinear_tensor_product(x, y, 3),
+                L.bilinear_tensor_product(x, y, 2, act="tanh",
+                                          bias_attr=False)]
+        return grads(pkg, outs, [x, y] + _seq_params(pkg), btc)
+    add("bilinear_tensor_product", bilinear, dict(btc, x=bx, y=by), seed=43)
+    tsx = f32(rng, 8, 1)
+    tslab = np.array([[-2.5], [-1.0], [-0.5], [0.0], [0.3], [1.0], [1.7],
+                      [-1.5]], np.float32)       # every branch, its bounds
+    tsc = cs(rng, (8, 1))
+
+    def ts_loss(pkg):
+        x, lab = D(pkg, "x", tsx), D(pkg, "lab", tslab, False)
+        return grads(pkg, [pkg.layers.teacher_student_sigmoid_loss(x, lab)],
+                     [x], tsc)
+    add("teacher_student_sigmoid_loss", ts_loss, dict(tsc, x=tsx, lab=tslab))
+    cvx = f32(rng, 4, 6, lo=-1.0, hi=5.0)
+    cvx[0, :2] = [-0.5, 0.0]                 # max(·, 0) below and at 0
+    cvm_in = np.ones((4, 2), np.float32)
+    cvc = cs(rng, (4, 6), (4, 4))
+
+    def cvm(pkg):
+        x, c = D(pkg, "x", cvx), D(pkg, "cvm", cvm_in, False)
+        L = pkg.layers
+        return grads(pkg, [L.continuous_value_model(x, c),
+                           L.continuous_value_model(x, c, use_cvm=False)],
+                     [x], cvc)
+    add("cvm", cvm, dict(cvc, x=cvx, cvm=cvm_in))
+    onehot = np.eye(4, dtype=np.float32)[[0, 2, 3]]
+    prior = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    lsc = cs(rng, (3, 4), (3, 4))
+
+    def label_smooth(pkg):
+        x, p = D(pkg, "x", onehot), D(pkg, "prior", prior, False)
+        a, = op(pkg, "label_smooth", {"X": [x]}, {"Out": "float32"},
+                {"epsilon": 0.1})
+        b, = op(pkg, "label_smooth", {"X": [x], "PriorDist": [p]},
+                {"Out": "float32"}, {"epsilon": 0.25})
+        return grads(pkg, [a, b], [x], lsc)
+    add("label_smooth", label_smooth, dict(lsc, x=onehot, prior=prior))
+
+    # -- misc_ops2.py: shape ops, size, minus, mean_iou -----------------------
+    rng = np.random.RandomState(44)
+    crx = f32(rng, 3, 5, 4)
+    crc = cs(rng, (2, 3, 2), (2, 2, 2), (3, 5, 4))
+
+    def crop(pkg):
+        x = D(pkg, "x", crx)
+        L = pkg.layers
+        outs = [L.crop(x, [2, 3, 2], [1, 1, 2]),
+                L.crop(x, [2, 2, 2], [2, 4, 3]),     # past the edge: clamped
+                L.crop(x, [3, 5, 4])]
+        return grads(pkg, outs, [x], crc)
+    add("crop", crop, dict(crc, x=crx))
+    big, small = f32(rng, 4, 5, 3), f32(rng, 2, 3, 3)
+    pcc = cs(rng, (4, 5, 3))
+
+    def pad_like(pkg):
+        x, y = D(pkg, "big", big, False), D(pkg, "small", small)
+        return grads(pkg, [pkg.layers.pad_constant_like(x, y, 1.5)], [y], pcc)
+    add("pad_constant_like", pad_like, dict(pcc, big=big, small=small))
+    ux = f32(rng, 2, 3, 5, 6)
+    uc = cs(rng, (2, 18, 14), (2, 12, 20))
+
+    def unfold(pkg):
+        x = D(pkg, "x", ux)
+        L = pkg.layers
+        outs = [L.unfold(x, [2, 3], strides=[1, 2], paddings=[1, 0, 2, 1],
+                         dilations=[1, 2]),
+                L.unfold(x, 2)]
+        return grads(pkg, outs, [x], uc)
+    add("unfold", unfold, dict(uc, x=ux))
+    szx, szi = f32(rng, 3, 4, 5), np.zeros((7,), np.int64)
+
+    def size(pkg):
+        L = pkg.layers
+        return [L.size(D(pkg, "x", szx, False)),
+                L.size(D(pkg, "i", szi, False))]
+    add("size", size, {"x": szx, "i": szi}, tol="exact")
+    mix, miy = f32(rng, 3, 4), f32(rng, 3, 4)
+    mic = cs(rng, (3, 4))
+
+    def minus(pkg):
+        x, y = D(pkg, "x", mix), D(pkg, "y", miy)
+        o, = op(pkg, "minus", {"X": [x], "Y": [y]}, {"Out": "float32"})
+        return grads(pkg, [o], [x, y], mic)
+    add("minus", minus, dict(mic, x=mix, y=miy))
+    # class 3 never appears (no union), class 4 only predicted
+    pred = np.array([0, 0, 1, 1, 2, 4, 2, 0], np.int64)
+    lab = np.array([0, 1, 1, 1, 2, 2, 0, 0], np.int64)
+
+    def mean_iou(pkg):
+        p, lv = D(pkg, "pred", pred, False), D(pkg, "lab", lab, False)
+        return list(pkg.layers.mean_iou(p, lv, 5))
+    add("mean_iou", mean_iou, {"pred": pred, "lab": lab})
+    return progs
+
+
+def _probs(rng, shape):
+    e = np.exp(rng.randn(*shape))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+def sampling_ok(ids):
+    """The sampling_id program's draws: one a row, in ``[0, 4)``, the
+    first row's certain class, no draw of the class of probability 0,
+    and each class's frequency over the other rows within
+    SAMPLING_SIGMAS standard errors of its probability."""
+    ids = np.asarray(ids).reshape(-1)
+    rest = ids[1:]
+    n = rest.size
+    freq_ok = all(abs((rest == k).mean() - p) <=
+                  SAMPLING_SIGMAS * np.sqrt(p * (1 - p) / n) + 1e-12
+                  for k, p in enumerate(SAMPLING_P))
+    return bool(ids.shape == (SAMPLING_ROWS,) and ids.min() >= 0 and
+                ids.max() < 4 and ids[0] == 2 and freq_ok)
+
+
+def phase_misc_ops():
+    """The 49 op types of ``misc_ops.py`` and ``misc_ops2.py`` (ROADMAP
+    item 13c.3b; ``misc_programs``: forward and gradients) on the card
+    against the port's CPU path, each from the same weights: floats
+    within MISC_TOL, integers and linspace's points equal, sampling_id's
+    draws held by statistics on each side (``sampling_ok``; its dtype
+    int64 on both); no port kernel launched, and no host sync in a run
+    of any program on the card (none of these rules reads a value back).
+    Returns the port kernel launches."""
+    def sampling_row(name, card, cpu):
+        ok = sampling_ok(card[0]) and sampling_ok(cpu[0]) and \
+            card[0].dtype == cpu[0].dtype == np.int64
+        freq = {side: [float((ids[0] == k).mean()) for k in range(4)]
+                for side, ids in (("card", card), ("cpu", cpu))}
+        return dict(op=name, card_freq=freq["card"], cpu_freq=freq["cpu"],
+                    ok=ok), ok
+    return _random_op_programs("misc_ops", misc_programs(), MISC_TOL,
+                               sampling_row)
+
+
+TSM_FEEDS = 4                 # tsm_train: distinct batches, in turn
+TSM_CPU = dict(clips=2, image=112, dropout=0.0)   # step 1, card vs CPU:
+#                               the zoo's widths and depth, 2 clips of 8
+#                               frames at 112² (the CPU cannot run 128
+#                               frames of 224² here), dropout off (the
+#                               devices' random streams never match)
+TSM_LOSS_RTOL = 1e-5          # ... the step-1 loss
+TSM_HEAD_GRAD_RL2 = 1e-4      # ... the fc's gradients, each in relative
+#                               L2 (TF32 or bf16 products give ~1e-3)
+TSM_GRAD_SPREADS = 10.0       # ... and the whole gradient, within this
+#                               many times the CPU's own gap when its
+#                               frames move by TSM_NUDGE (about an ulp):
+#                               53 batch norms over 16 frames make the
+#                               gradient that sensitive to rounding
+TSM_NUDGE = 1e-7              # the frames' relative perturbation
+TSM_WARM, TSM_TIMED = 2, 8    # tsm_train's warm-up and timed steps
+
+
+def _tsm_program(cfg):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out = tsm.build(cfg)
+    return main, startup, out
+
+
+def phase_tsm_train():
+    """TSM, the temporal-shift ResNet-50 video classifier
+    (``models/tsm.py``, the model zoo's) at ``base_config()``: 16 clips of
+    8 frames of 224 x 224 (128 frames a step), 400 classes, 16
+    ``temporal_shift``s of 1/8, 53 cuDNN convs and batch norms in fp32,
+    dropout 0.5, Momentum 0.9 with L2Decay(1e-4) on the piecewise rate.
+    Step 1 from the startup weights at TSM_CPU (2 clips of 8 frames at
+    112², dropout off, the same widths and depth), on the card and on the
+    port's CPU path: losses within TSM_LOSS_RTOL, the fc's gradients
+    within TSM_HEAD_GRAD_RL2, and the whole gradient within
+    TSM_GRAD_SPREADS times the CPU's own gap when its frames are nudged
+    by TSM_NUDGE.  Then TSM_WARM + TSM_TIMED steps through
+    ``timing.timed_steps`` on the card over TSM_FEEDS synthetic batches
+    in turn: finite losses, no port kernel launched (``FLAGS_conv_pallas``
+    off, as on the reference's ResNet-50 bench), no host sync in a step
+    (the host sync counter over the steps, and torch's sync debug mode
+    over one step); ms per step, clips and frames a second, peak memory,
+    one profiled step's launches, busy share and top kernels, and the
+    cost ledger's count of the step.  Returns the path's port kernel
+    launches."""
+    t0 = time.perf_counter()
+    cfg = tsm.base_config()
+    main, startup, out = _tsm_program(cfg)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    loss = out["loss"]
+    small = dict(cfg, **TSM_CPU)
+    smain, _, sout = _tsm_program(small)
+    card1, cpu1, whole, spread, heads = _step1_gaps(
+        exe, smain, sout["loss"], scope, next(tsm.feeds(small, SEED)),
+        "image", TSM_NUDGE, "fc_")
+    it = tsm.feeds(cfg, SEED)
+    feeds = [_cuda_feed(next(it)) for _ in range(TSM_FEEDS)]
+    run = _timed_train(exe, main, loss, feeds, scope, TSM_WARM, TSM_TIMED,
+                       "tsm_train")
+    launches, step_ms, losses = run["launches"], run["step_ms"], run["losses"]
+    rec = run["rec"]
+    ops = [o.type for o in main.global_block().ops]
+    frames = tsm.images_per_step(cfg)
+    checks = {
+        "losses_finite": bool(np.isfinite(losses).all()),
+        "step1_card_vs_cpu": abs(card1 - cpu1) <= TSM_LOSS_RTOL * abs(cpu1),
+        "step1_head_grads_card_vs_cpu": len(heads) == 2 and
+        max(heads.values()) <= TSM_HEAD_GRAD_RL2,
+        "step1_grad_card_vs_cpu": whole <= TSM_GRAD_SPREADS * spread,
+        "no_port_kernel": not any(launches.values()),
+        "no_host_sync_in_a_step": run["step_syncs"] == 0 and
+        not run["sites"],
+        # one shift a bottleneck, ahead of its first 1x1 conv; 53 convs
+        "every_shift": ops.count("temporal_shift") == sum(cfg["depth"]) ==
+        16 and ops.count("conv2d") == 53 and ops.count("dropout") == 1}
+    fwd_flops = _conv_flops(main, frames)
+    emit(phase="tsm_train", card=_card(), config=cfg,
+         steps=len(losses), program_ops=len(ops),
+         conv_gflop_forward=fwd_flops / 1e9,
+         conv_tflops_per_s_step=3 * fwd_flops / step_ms / 1e9,
+         conv_bound_ms_fp32=3 * fwd_flops / PEAK_FP32_FLOPS * 1e3,
+         ledger=dict(tflop=rec["flops"] / 1e12,
+                     gbytes=rec["bytes_accessed"] / 1e9,
+                     estimated_step_ms=rec["estimated_step_s"] * 1e3,
+                     aten_calls=rec["aten_calls"],
+                     top_ops=rec["top_ops"][:6]),
+         losses=losses, step1_loss_card=card1, step1_loss_cpu=cpu1,
+         step1_rel_err=abs(card1 - cpu1) / abs(cpu1), step1_config=TSM_CPU,
+         step1_grad_rel_l2=dict(whole=whole, cpu_nudged=spread,
+                                gate=TSM_GRAD_SPREADS * spread,
+                                heads=heads, parameters=len(
+                                    smain.global_block().all_parameters())),
+         ms_per_step=step_ms, clips_per_s=cfg["clips"] / step_ms * 1e3,
+         frames_per_s=frames / step_ms * 1e3,
+         fence=dict(rtt_s=run["detail"]["fence_rtt_s"],
+                    wall_s=run["detail"]["window_wall_s"]),
+         peak_device_mb=run["peak_mb"],
+         host_syncs_over_steps=run["step_syncs"],
+         step_sync_sites=run["sites"], profiled_step=run["prof"],
+         launches=launches,
+         checks=checks, seconds=time.perf_counter() - t0)
+    _fail_unless("tsm_train", checks)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda.is_available() "
@@ -10096,6 +10838,9 @@ def main():
         del yscope, yhost
         torch.cuda.empty_cache()
         by_path["yolo_k1"] = phase_yolo_k1()
+        by_path["misc_ops"] = phase_misc_ops()
+        by_path["tsm_train"] = phase_tsm_train()
+        torch.cuda.empty_cache()
         phase_cost_ledger()
         phase_op_bench()
         timings = dict(flash_attention_fwd=k2,

@@ -12,7 +12,10 @@ CTC layers (``sequence.py``, ``rnn.py``, ``nn_extras.py``,
 ``nn_extras2.py``), and the detection layers (``detection.py``), and the
 core layers of ROADMAP item 13c.3a (the reductions, shape, scatter and
 gather layers, ``conv2d_transpose``, ``mul``, the attribute-carrying
-activations, ``argsort``, the fills, ``auc``).
+activations, ``argsort``, the fills, ``auc``), and the first half of
+item 13c.3b (``nn_extras.py``'s activations, losses, norms, image and
+shape layers; ``nn_extras2.py``'s 3-D vision, ``lrn``, CTR and shape
+layers).
 """
 
 from . import io
@@ -58,7 +61,7 @@ from .rnn import (fused_attention, switch_moe, dynamic_lstm,  # noqa: F401
                   dynamic_gru, linear_chain_crf, crf_decoding, cos_sim,
                   nce, hsigmoid, beam_search, beam_search_decode)
 from .sequence import *                                      # noqa: F401,F403
-from .nn_extras import im2sequence, smooth_l1                # noqa: F401
+from .nn_extras import *                                     # noqa: F401,F403
 from .nn_extras2 import *                                    # noqa: F401,F403
 from .detection import *                                     # noqa: F401,F403
 from .control_flow import (increment, less_than,  # noqa: F401

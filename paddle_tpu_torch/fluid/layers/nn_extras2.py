@@ -1,19 +1,27 @@
 """Layers closing more of the reference's ``layers/nn.py`` (counterpart
-paddle_tpu/fluid/layers/nn_extras2.py), so far the sequence, RNN and CTC
-ones: ``add_position_encoding``, ``ctc_greedy_decoder``,
+paddle_tpu/fluid/layers/nn_extras2.py): the 3-D vision ones
+(``conv3d``, ``conv3d_transpose``, ``pool3d``), ``lrn``,
+``pad_constant_like``, ``selu``, ``crop``, ``mean_iou``,
+``bilinear_tensor_product``, ``teacher_student_sigmoid_loss``,
+``continuous_value_model``, ``unfold`` and ``size``; the sequence, RNN
+and CTC ones: ``add_position_encoding``, ``ctc_greedy_decoder``,
 ``edit_distance``, ``warpctc``, ``row_conv``, ``chunk_eval``,
 ``gru_unit``, ``lstm_unit``, ``dynamic_lstmp``, ``lstm``,
-``sequence_reshape``, ``sequence_scatter`` and ``sequence_erase``, and
-the detection ones: ``roi_pool``, ``psroi_pool``, ``deformable_conv``
-and ``deformable_roi_pooling``, and the shape and loss ones: ``sum``,
+``sequence_reshape``, ``sequence_scatter`` and ``sequence_erase``; the
+detection ones: ``roi_pool``, ``psroi_pool``, ``deformable_conv`` and
+``deformable_roi_pooling``; and the shape and loss ones: ``sum``,
 ``shape``, ``pow``, ``unstack``, ``dice_loss``, ``npair_loss``,
-``image_resize_short`` and ``autoincreased_step_counter``; the rest of
-the JAX file is ROADMAP item 13c.3b."""
+``image_resize_short`` and ``autoincreased_step_counter``.  The rest of
+the JAX file is ROADMAP item 13c.3b-ii."""
 
 from ..layer_helper import LayerHelper
 from .nn_extras import _simple
 
 __all__ = [
+    "conv3d", "conv3d_transpose", "pool3d", "lrn", "pad_constant_like",
+    "selu", "crop", "mean_iou", "bilinear_tensor_product",
+    "teacher_student_sigmoid_loss", "continuous_value_model", "unfold",
+    "size",
     "add_position_encoding", "ctc_greedy_decoder", "edit_distance",
     "warpctc", "row_conv", "chunk_eval", "gru_unit", "lstm_unit",
     "dynamic_lstmp", "lstm", "sequence_reshape", "sequence_scatter",
@@ -22,6 +30,163 @@ __all__ = [
     "dice_loss", "npair_loss", "image_resize_short",
     "autoincreased_step_counter",
 ]
+
+
+def _triple(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * 3
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           use_cudnn=True, act=None, name=None):
+    """NCDHW convolution by ``[num_filters, C/groups, kd, kh, kw]``
+    weights, then a bias a channel (unless ``bias_attr`` is False) and
+    ``act``."""
+    helper = LayerHelper("conv3d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    C = int(input.shape[1])
+    k = _triple(filter_size)
+    w = helper.create_parameter(helper.param_attr,
+                                [num_filters, C // groups] + k,
+                                input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d", inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding),
+                            "dilations": _triple(dilation),
+                            "groups": groups})
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_filters],
+                                    input.dtype, is_bias=True)
+        out2 = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [out2]}, attrs={"axis": 1})
+        out = out2
+    return helper.append_activation(out, act)
+
+
+def conv3d_transpose(input, num_filters, filter_size, stride=1, padding=0,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """The transposed NCDHW convolution by ``[C, num_filters, kd, kh,
+    kw]`` weights, then ``act``; no bias, as in the JAX layer."""
+    helper = LayerHelper("conv3d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    C = int(input.shape[1])
+    k = _triple(filter_size)
+    w = helper.create_parameter(helper.param_attr,
+                                [C, num_filters] + k, input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv3d_transpose",
+                     inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": _triple(stride),
+                            "paddings": _triple(padding)})
+    return helper.append_activation(out, act)
+
+
+def pool3d(input, pool_size=2, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, name=None):
+    return _simple("pool3d", {"X": [input]},
+                   {"pooling_type": pool_type,
+                    "ksize": _triple(pool_size),
+                    "strides": _triple(pool_stride),
+                    "paddings": _triple(pool_padding),
+                    "global_pooling": global_pooling})
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalisation across channels (the layer's k is
+    1.0, the op's default 2.0)."""
+    return _simple("lrn", {"X": [input]},
+                   {"n": n, "k": k, "alpha": alpha, "beta": beta},
+                   extra_outputs=("MidOut",), shape_of=input)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _simple("pad_constant_like", {"X": [x], "Y": [y]},
+                   {"pad_value": pad_value}, shape_of=x)
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = scale
+    if alpha is not None:
+        attrs["alpha"] = alpha
+    return _simple("selu", {"X": [x]}, attrs, shape_of=x)
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    return _simple("crop", {"X": [x]},
+                   {"shape": list(shape), "offsets": list(offsets or
+                                                          [0] * len(shape))})
+
+
+def mean_iou(input, label, num_classes):
+    """(mean IoU float32, wrong int32 ``[C]``, correct int32 ``[C]``)."""
+    helper = LayerHelper("mean_iou")
+    miou = helper.create_variable_for_type_inference("float32",
+                                                     stop_gradient=True)
+    wrong = helper.create_variable_for_type_inference("int32",
+                                                      stop_gradient=True)
+    correct = helper.create_variable_for_type_inference("int32",
+                                                        stop_gradient=True)
+    helper.append_op("mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [miou], "OutWrong": [wrong],
+                              "OutCorrect": [correct]},
+                     attrs={"num_classes": int(num_classes)})
+    return miou, wrong, correct
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """``out[b, s] = x[b]·W[s]·y[b] + bias[s]`` with W ``[size, M, N]``."""
+    helper = LayerHelper("bilinear_tensor_product", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    w = helper.create_parameter(
+        helper.param_attr, [size, int(x.shape[-1]), int(y.shape[-1])],
+        x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if helper.bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [1, size], x.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    helper.append_op("bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out, act)
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    """The bounds are not read, as in the JAX layer."""
+    return _simple("teacher_student_sigmoid_loss",
+                   {"X": [input], "Label": [label]}, outs=("Y",))
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _simple("cvm", {"X": [input], "CVM": [cvm]},
+                   {"use_cvm": use_cvm}, outs=("Y",))
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """``[N, C·kh·kw, L]`` sliding blocks; ``paddings`` one int, ``[h,
+    w]`` or ``[top, left, bottom, right]``."""
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+    pads = _pair(paddings)
+    if len(pads) == 2:
+        pads = pads + pads
+    return _simple("unfold", {"X": [x]},
+                   {"kernel_sizes": _pair(kernel_sizes),
+                    "strides": _pair(strides), "paddings": pads,
+                    "dilations": _pair(dilations)}, outs=("Y",))
+
+
+def size(input):
+    return _simple("size", {"Input": [input]}, dtype="int64")
 
 
 def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):

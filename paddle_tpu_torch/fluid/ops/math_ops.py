@@ -143,6 +143,12 @@ def _gelu(ctx, op):
                           approximate="tanh" if approx else "none"))
 
 
+def _abs(x):
+    """``jnp.abs``, whose gradient is +1 at 0 (``select(x >= 0, g, -g)``
+    in JAX's lax.py); ``torch.abs``'s is 0 there."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _softplus(x):
     # jax.nn.softplus is logaddexp(x, 0); F.softplus switches to x past
     # a threshold
@@ -159,7 +165,7 @@ for _name, _fn in [
     ("sqrt", torch.sqrt),
     ("rsqrt", torch.rsqrt),
     ("square", torch.square),
-    ("abs", torch.abs),
+    ("abs", _abs),
     ("floor", torch.floor),
     ("ceil", torch.ceil),
     ("round", torch.round),           # half to even, as jnp.round
@@ -184,6 +190,13 @@ def _scalar(v, like):
     as a scalar on any device, and rounds as ``jnp.asarray(v, dtype)``
     (or a weakly typed Python float) does in the JAX rules."""
     return torch.tensor(v, dtype=like.dtype)
+
+
+def _full(v, like):
+    """``v`` as a 0-d tensor of ``like``'s dtype filled on its device: a
+    scalar to compare with or divide by (a true division on the card too)
+    with no host copy."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 @register_op("clip")

@@ -1,9 +1,21 @@
 """The op zoo's second batch (counterpart ``paddle_tpu/fluid/ops/
-misc_ops2.py``), so far its sequence, RNN-cell and CTC ops: ``row_conv``,
-``lstm_unit``, ``gru_unit``, ``warpctc`` and ``edit_distance``, and its
-detection ops: ``sigmoid_focal_loss``, ``iou_similarity``, ``box_clip``
-and ``anchor_generator``; the rest of the JAX file is ROADMAP item
-13c.3.
+misc_ops2.py``): the 3-D vision ops (``conv3d``, ``conv3d_transpose``,
+``pool3d``), ``lrn``, ``selu``, the losses and distances
+(``hinge_loss``, ``modified_huber_loss``, ``squared_l2_distance``,
+``l1_norm``, ``norm``, ``teacher_student_sigmoid_loss``), the CTR ops
+(``bilinear_tensor_product``, ``cvm``), ``label_smooth``, the shape ops
+(``crop``, ``pad_constant_like``, ``unfold``, ``size``, ``minus``),
+``mean_iou``; its sequence, RNN-cell and CTC ops (``row_conv``,
+``lstm_unit``, ``gru_unit``, ``warpctc``, ``edit_distance``) and its
+detection ops (``sigmoid_focal_loss``, ``iou_similarity``, ``box_clip``,
+``anchor_generator``).
+
+The 3-D convolutions are library convolutions (cuDNN on the card), as
+the JAX rules leave theirs to XLA; ``pool3d`` pads explicitly (with
+``-inf`` for max, zeros for the average, which divides by the whole
+window) so that any padding the JAX rule takes is taken here; ``lrn``
+is the JAX formula, not ``F.local_response_norm`` (whose ``alpha`` is
+divided by ``n``).
 
 ``warpctc`` is the JAX package's log-space forward recursion, one step a
 time step, with its constants (``_NEG``, the ``1e-38`` inside each log),
@@ -18,9 +30,284 @@ import torch.nn.functional as F
 
 from ..registry import register_op
 from .detection_ops import clip, const
-from .math_ops import _matmul_p
+from .math_ops import _abs, _full, _matmul_p, _softplus
 
 _NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# 3-D vision
+# ---------------------------------------------------------------------------
+
+@register_op("conv3d")
+def _conv3d(ctx, op):
+    """misc_ops2.py:31: NCDHW Input by Filter ``[O, C/groups, kd, kh,
+    kw]`` with symmetric ``paddings``."""
+    x = ctx.i("Input")
+    ctx.set("Output", F.conv3d(
+        x, ctx.i("Filter").to(x.dtype), None,
+        tuple(ctx.attr("strides", [1, 1, 1])),
+        tuple(ctx.attr("paddings", [0, 0, 0])),
+        tuple(ctx.attr("dilations", [1, 1, 1])), ctx.attr("groups", 1) or 1))
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx, op):
+    """misc_ops2.py:47: the transposed convolution of NCDHW Input by
+    Filter ``[C_in, C_out/groups, kd, kh, kw]`` (the layout
+    ``F.conv_transpose3d`` shares), output side ``(D − 1) s − 2 p + d (k −
+    1) + 1``, as the JAX rule's dilated forward conv of the flipped
+    filter gives it."""
+    x = ctx.i("Input")
+    ctx.set("Output", F.conv_transpose3d(
+        x, ctx.i("Filter").to(x.dtype), None,
+        tuple(ctx.attr("strides", [1, 1, 1])),
+        tuple(ctx.attr("paddings", [0, 0, 0])), 0,
+        ctx.attr("groups", 1) or 1, tuple(ctx.attr("dilations", [1, 1, 1]))))
+
+
+@register_op("pool3d")
+def _pool3d(ctx, op):
+    """misc_ops2.py:77: max (padded with ``-inf``) or average (padded
+    with zeros, divided by the whole window, padding included) over
+    ``ksize`` windows; ``global_pooling`` takes the whole map, stride 1,
+    no padding."""
+    x = ctx.i("X")
+    ksize = tuple(ctx.attr("ksize", [2, 2, 2]))
+    strides = tuple(ctx.attr("strides", [1, 1, 1]))
+    pads = tuple(ctx.attr("paddings", [0, 0, 0]))
+    if ctx.attr("global_pooling", False):
+        ksize, strides, pads = tuple(x.shape[2:]), (1, 1, 1), (0, 0, 0)
+    widths = (pads[2], pads[2], pads[1], pads[1], pads[0], pads[0])
+    if ctx.attr("pooling_type", "max") == "max":
+        out = F.max_pool3d(F.pad(x, widths, value=float("-inf")), ksize,
+                           strides)
+    else:
+        s = F.avg_pool3d(F.pad(x, widths), ksize, strides,
+                         divisor_override=1)
+        out = s / _full(float(np.prod(ksize)), s)
+    ctx.set("Out", out)
+
+
+# ---------------------------------------------------------------------------
+# norms / activations / losses
+# ---------------------------------------------------------------------------
+
+@register_op("lrn")
+def _lrn(ctx, op):
+    """misc_ops2.py:105: ``x / (k + alpha·Σ x²)^beta``, the sum over the
+    ``n`` channels centred on each (zero-padded), alpha not divided by
+    n; MidOut is ``k + alpha·Σ x²``.  The op's default k is 2.0; the
+    layer passes 1.0."""
+    x = ctx.i("X")
+    n = ctx.attr("n", 5)
+    half = n // 2
+    pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    den = sum(pad[:, i:i + x.shape[1]] for i in range(n))
+    mid = ctx.attr("k", 2.0) + ctx.attr("alpha", 1e-4) * den
+    ctx.set("Out", x / mid ** ctx.attr("beta", 0.75))
+    ctx.set("MidOut", mid)
+
+
+@register_op("selu")
+def _selu(ctx, op):
+    """misc_ops2.py:122: ``scale·where(x > 0, x, alpha·(exp(x) − 1))``."""
+    x = ctx.i("X")
+    alpha = ctx.attr("alpha", 1.6732632423543772)
+    ctx.set("Out", ctx.attr("scale", 1.0507009873554805) * torch.where(
+        x > 0, x, alpha * (torch.exp(x) - 1)))
+
+
+@register_op("hinge_loss", nondiff_inputs=("Labels",))
+def _hinge_loss(ctx, op):
+    """misc_ops2.py:130: ``max(0, 1 − (2·label − 1)·logit)``."""
+    logits = ctx.i("Logits")
+    v = 1.0 - (2.0 * ctx.i("Labels") - 1.0) * logits
+    ctx.set("Loss", torch.maximum(torch.zeros_like(v), v))
+
+
+@register_op("modified_huber_loss", nondiff_inputs=("Y",))
+def _modified_huber(ctx, op):
+    """misc_ops2.py:138: on ``s = (2y − 1)·x``, ``−4s`` below −1, else
+    ``max(0, 1 − s)²``; IntermediateVal is s."""
+    x = ctx.i("X")
+    s = (2.0 * ctx.i("Y") - 1.0) * x
+    one = 1.0 - s
+    ctx.set("Out", torch.where(s < -1.0, -4.0 * s, torch.square(
+        torch.maximum(torch.zeros_like(one), one))))
+    ctx.set("IntermediateVal", s)
+
+
+@register_op("squared_l2_distance")
+def _squared_l2_distance(ctx, op):
+    """misc_ops2.py:149: sub_result ``X − Y`` and Out its squares summed
+    over every axis but the first (kept as 1s)."""
+    d = ctx.i("X") - ctx.i("Y")
+    ctx.set("sub_result", d)
+    ctx.set("Out", torch.sum(torch.square(d), dim=tuple(range(1, d.dim())),
+                             keepdim=True) if d.dim() > 1 else torch.square(d))
+
+
+@register_op("l1_norm")
+def _l1_norm(ctx, op):
+    """misc_ops2.py:160: ``Σ |x|`` (``|x|``'s gradient +1 at 0, as
+    ``jnp.abs``'s)."""
+    ctx.set("Out", torch.sum(_abs(ctx.i("X"))))
+
+
+@register_op("norm")
+def _norm(ctx, op):
+    """misc_ops2.py:165: X over ``sqrt(Σ x² + eps)`` along ``axis``, and
+    that Norm."""
+    x = ctx.i("X")
+    n = torch.sqrt(torch.sum(torch.square(x), dim=ctx.attr("axis", 1),
+                             keepdim=True) + ctx.attr("epsilon", 1e-10))
+    ctx.set("Out", x / n)
+    ctx.set("Norm", n)
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, op):
+    """misc_ops2.py:175: ``out[b, s] = x[b]·W[s]·y[b]`` (X ``[B, M]``, Y
+    ``[B, N]``, Weight ``[S, M, N]``) plus Bias ``[1, S]``."""
+    x, y, w = ctx.i("X"), ctx.i("Y"), ctx.i("Weight")
+    S, M, N = w.shape
+    xw = _matmul_p(x, w.permute(1, 0, 2).reshape(M, S * N))   # [B, S*N]
+    out = torch.sum(xw.reshape(-1, S, N) * y[:, None, :], dim=-1)
+    bias = ctx.i_opt("Bias")
+    if bias is not None:
+        out = out + bias.reshape(1, -1)
+    ctx.set("Out", out)
+
+
+@register_op("teacher_student_sigmoid_loss", nondiff_inputs=("Label",))
+def _ts_sigmoid_loss(ctx, op):
+    """misc_ops2.py:204, the CTR distillation loss: ``softplus(x)`` for a
+    label below −1 (no teacher, no click), ``softplus(x) − x`` in ``[−1,
+    0)`` (no teacher, click), ``2·softplus(x) − x·label`` from 0 (the
+    teacher's score in the fraction): Y ``[N, 1]``."""
+    x = ctx.i("X").reshape(-1)
+    label = ctx.i("Label").reshape(-1)
+    sp = _softplus(x)
+    y = torch.where(label < -1.0, sp,
+                    torch.where(label < 0.0, sp - x, 2.0 * sp - x * label))
+    ctx.set("Y", y[:, None])
+
+
+@register_op("cvm", nondiff_inputs=("CVM",))
+def _cvm(ctx, op):
+    """misc_ops2.py:222: with ``use_cvm``, the show and click columns of
+    X ``[B, D]`` become ``log(max(show, 0) + 1)`` and ``log(max(click, 0)
+    + 1)`` minus that; without it they are dropped."""
+    x = ctx.i("X")
+    if not ctx.attr("use_cvm", True):
+        ctx.set("Y", x[:, 2:])
+        return
+    head = x[:, :2]
+    logs = torch.log(torch.maximum(head, torch.zeros_like(head)) + 1.0)
+    show = logs[:, :1]
+    ctx.set("Y", torch.cat([show, logs[:, 1:2] - show, x[:, 2:]], dim=1))
+
+
+@register_op("label_smooth", nondiff_inputs=("PriorDist",))
+def _label_smooth(ctx, op):
+    """misc_ops2.py:236: ``(1 − eps)·x + eps·prior``, the prior uniform
+    ``1 / C`` without PriorDist."""
+    x = ctx.i("X")
+    eps = ctx.attr("epsilon", 0.1)
+    prior = ctx.i_opt("PriorDist")
+    if prior is not None:
+        ctx.set("Out", (1 - eps) * x + eps * prior.reshape(
+            (1,) * (x.dim() - 1) + (-1,)))
+    else:
+        ctx.set("Out", (1 - eps) * x + eps / x.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# shape / misc
+# ---------------------------------------------------------------------------
+
+@register_op("crop")
+def _crop(ctx, op):
+    """misc_ops2.py:252, ``lax.dynamic_slice``: a block of ``shape`` from
+    ``offsets``, each offset clamped so the block stays inside X."""
+    x = ctx.i("X")
+    index = tuple(slice(o, o + s) for o, s in (
+        (min(max(int(o), 0), d - s), s) for o, s, d in zip(
+            ctx.attr("offsets"), ctx.attr("shape"), x.shape)))
+    ctx.set("Out", x[index])
+
+
+@register_op("pad_constant_like", nondiff_inputs=("X",))
+def _pad_constant_like(ctx, op):
+    """misc_ops2.py:260: Y padded at the end of every axis to X's shape
+    with ``pad_value``."""
+    big, small = ctx.i("X"), ctx.i("Y")
+    widths = []
+    for b, s in reversed(list(zip(big.shape, small.shape))):
+        widths += [0, b - s]
+    ctx.set("Out", F.pad(small, widths,
+                         value=float(ctx.attr("pad_value", 0.0))))
+
+
+@register_op("unfold")
+def _unfold(ctx, op):
+    """misc_ops2.py:269: the sliding blocks of NCHW X, ``[N, C·kh·kw,
+    L]`` in channel-major order; ``paddings`` ``[top, left, bottom,
+    right]``."""
+    x = ctx.i("X")
+    p = ctx.attr("paddings", [0, 0, 0, 0])
+    xp = F.pad(x, (p[1], p[3], p[0], p[2]))
+    ctx.set("Y", F.unfold(xp, tuple(ctx.attr("kernel_sizes")),
+                          dilation=tuple(ctx.attr("dilations", [1, 1])),
+                          stride=tuple(ctx.attr("strides", [1, 1]))))
+
+
+@register_op("size", stop_gradient=True)
+def _size(ctx, op):
+    """misc_ops2.py:297: Input's element count, an int64 scalar (the JAX
+    rule's int64 is int32 with x64 off), a constant copied to the card
+    once."""
+    ctx.set("Out", const(np.asarray(ctx.i("Input").numel(), np.int64),
+                         ctx.state.device).reshape(()))
+
+
+@register_op("minus")
+def _minus(ctx, op):
+    """misc_ops2.py:303: ``X − Y``."""
+    ctx.set("Out", ctx.i("X") - ctx.i("Y"))
+
+
+def _class_counts(idx, values, C):
+    """``zeros(C).at[idx].add(values)``: an index out of ``[−C, C)`` is
+    dropped (into a trash slot), a negative one counts from the end."""
+    idx = torch.where(idx < 0, idx + C, idx)
+    idx = torch.where((idx < 0) | (idx >= C), torch.full_like(idx, C), idx)
+    out = torch.zeros(C + 1, dtype=torch.float32, device=idx.device)
+    return out.index_add_(0, idx, values)[:C]
+
+
+@register_op("mean_iou", nondiff_inputs=("Predictions", "Labels"),
+             stop_gradient=True)
+def _mean_iou(ctx, op):
+    """misc_ops2.py:308: per class, the intersection (right
+    predictions), the union (predicted + labelled − intersection); the
+    mean IoU over the classes with a union; OutWrong and OutCorrect int32
+    per class."""
+    pred = ctx.i("Predictions").reshape(-1).long()
+    lab = ctx.i("Labels").reshape(-1).long()
+    C = int(ctx.attr("num_classes"))
+    hit = pred == lab
+    inter = _class_counts(torch.where(hit, pred, torch.full_like(pred, C - 1)),
+                          hit.to(torch.float32), C)
+    ones = torch.ones(pred.shape, dtype=torch.float32, device=pred.device)
+    area_p = _class_counts(pred, ones, C)
+    union = area_p + _class_counts(lab, ones, C) - inter
+    valid = union > 0
+    iou = torch.where(valid, inter / torch.clamp_min(union, 1.0), 0.0)
+    ctx.set("OutMeanIou", iou.sum() / torch.clamp_min(valid.sum(), 1))
+    ctx.set("OutWrong", (area_p - inter).to(torch.int32))
+    ctx.set("OutCorrect", inter.to(torch.int32))
 
 
 @register_op("row_conv")

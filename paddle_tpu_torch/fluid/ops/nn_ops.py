@@ -379,7 +379,7 @@ def _cross_entropy(ctx, op):
     neither package's rule."""
     x = ctx.i("X")
     label = ctx.i("Label")
-    tiny = torch.tensor(1e-20, dtype=x.dtype, device=x.device)
+    tiny = torch.full((), 1e-20, dtype=x.dtype, device=x.device)
     if ctx.attr("soft_label", False):
         loss = -(label * torch.log(torch.maximum(x, tiny))).sum(
             -1, keepdim=True)
@@ -456,7 +456,7 @@ def _cos_sim(ctx, op):
     y = ctx.i("Y")
     xn = torch.sqrt((x * x).sum(-1, keepdim=True))
     yn = torch.sqrt((y * y).sum(-1, keepdim=True))
-    tiny = torch.tensor(1e-12, dtype=x.dtype, device=x.device)
+    tiny = torch.full((), 1e-12, dtype=x.dtype, device=x.device)
     out = (x * y).sum(-1, keepdim=True) / torch.maximum(xn * yn, tiny)
     ctx.set("Out", out)
     ctx.set("XNorm", xn)

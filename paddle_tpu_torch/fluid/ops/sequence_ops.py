@@ -134,7 +134,7 @@ def _sequence_softmax(ctx, op):
     squeeze = x.dim() == 3 and x.shape[-1] == 1
     v = x[..., 0] if squeeze else x
     mask = time_mask(lengths, v.shape[1])
-    neg = torch.tensor(-1e9, dtype=v.dtype, device=v.device)
+    neg = torch.full((), -1e9, dtype=v.dtype, device=v.device)
     out = torch.softmax(torch.where(mask, v, neg), dim=1)
     out = torch.where(mask, out, torch.zeros((), dtype=out.dtype,
                                              device=out.device))
